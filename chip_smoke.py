@@ -5,18 +5,25 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. device  — the card's name and power limit (nvidia-smi); exits non-zero
                without CUDA;
-  2. build   — compiles the Hopper kernels of icl_speech_text_llm_tpu_torch/csrc;
+  2. build   — compiles the Hopper kernels of icl_speech_text_llm_tpu_torch/csrc
+               (one nvcc per source, in parallel);
   3. kernels — each kernel against its plain PyTorch version on the card, at
-               the main path's shapes, with the stated tolerances, plus CUDA-event
-               median times of both;
-  4. check   — a one-layer-per-stack model at salmonn-7b widths: first-token
-               logits of the bf16 kernel path on the card against the f32 plain
-               path on the CPU, same weights and inputs;
+               the shapes of the paths below, with the stated tolerances, plus
+               CUDA-event median times of both;
+  4. check   — a one-layer-per-stack model at salmonn-7b widths, the bf16
+               kernel path on the card against the f32 plain path on the CPU
+               with the same weights and inputs: first-token logits, then the
+               training loss and the LoRA / Q-Former gradients;
   5. main    — the port's inference CLI on salmonn-7b at full width (random
                weights from a seed), 8 voxceleb requests of 6 clips each, with
-               every kernel's launch count read from that run alone.
-The line before the last is a JSON object of the kernels; the last line is
-{"ok": true, "device": {...}} and is printed only when every phase passed.
+               every kernel's launch count read from that run alone;
+  6. train   — the port's training CLI on salmonn-7b at full width: 4 optimizer
+               steps (batch 4, seq 1024), validation by generation and a
+               checkpoint, with each step's kernel launches read; then 2 steps
+               with full activation checkpointing.
+The line before the last is a JSON object of the kernels (launch counts from
+the train phase); the last line is {"ok": true, "device": {...}} and is
+printed only when every phase passed.
 """
 
 from __future__ import annotations
@@ -171,6 +178,57 @@ def _kernel_phase():
            _time_ms(lambda: fa.append_kv(ck, cv, nk, nv, pos), reps=50),
            _time_ms(lambda: fa.append_kv_plain(ck, cv, nk, nv, pos), reps=50))
     del ck, cv, ck2, cv2
+
+    # K5/K6: the LLM training backward, (4, 32, 1024, 128) causal with ragged
+    # lengths and do zero past each length, the same with Hkv = 16 (GQA), and
+    # the Whisper shape (4, 20, 1500, 64) non-causal. Bound per tensor:
+    # 2e-2 × max |plain gradient| over valid rows; the plain version gets the
+    # same bf16 inputs, computed in f32.
+    dq_errs, dkv_errs, timed = [], [], None
+    for label, B, H, Hkv, S, D, lens, causal in (
+            ("causal", 4, 32, 32, 1024, 128, [1024, 901, 640, 333], True),
+            ("causal GQA", 4, 32, 16, 1024, 128, [1024, 901, 640, 333], True),
+            ("non-causal", 4, 20, 20, 1500, 64, None, False)):
+        q, do = randn(B, H, S, D), randn(B, H, S, D)
+        k, v = randn(B, Hkv, S, D), randn(B, Hkv, S, D)
+        lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+        valid = [S] * B if lens is None else lens
+        if lengths is not None:
+            keep = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+            do = do * keep[:, None, :, None].to(bf)
+        fwd = fa.flash_attention_causal if causal else fa.flash_attention_noncausal
+        o, m, l = fwd(q, k, v, lengths)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, m, l, do, lengths, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, m, l, delta, do, lengths, causal)
+        f = [t.float() for t in (q, k, v, o)]
+        dq_p, delta_p = fa.flash_attention_bwd_dq_plain(*f, m, l, do.float(), lengths, causal)
+        dk_p, dv_p = fa.flash_attention_bwd_dkv_plain(*f[:3], m, l, delta_p, do.float(),
+                                                      lengths, causal)
+
+        def rel_bound(ker, ref, scale=2e-2):
+            return (valid_rows_err(ker, ref, valid),
+                    scale * valid_rows_err(ref, torch.zeros_like(ref), valid))
+
+        for errs, name, ker, ref, scale in (
+                (dq_errs, "dq", dq, dq_p, 2e-2),
+                (dq_errs, "delta", delta[..., None], delta_p[..., None], 1e-3),
+                (dkv_errs, "dk", dk, dk_p, 2e-2), (dkv_errs, "dv", dv, dv_p, 2e-2)):
+            errs.append((f"{label} {name} (bound {scale:g} × max |plain|)",
+                         *rel_bound(ker, ref, scale)))
+        if timed is None:  # the main path's shape
+            args = (q, k, v, o, m, l, do, lengths, causal)
+            args_kv = (q, k, v, m, l, delta, do, lengths, causal)
+            timed = {
+                "dq": (_time_ms(lambda: fa.flash_attention_bwd_dq(*args)),
+                       _time_ms(lambda: fa.flash_attention_bwd_dq_plain(*args))),
+                "dkv": (_time_ms(lambda: fa.flash_attention_bwd_dkv(*args_kv)),
+                        _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args_kv)))}
+        del q, k, v, do, o, m, l, dq, dk, dv, delta, f, dq_p, dk_p, dv_p, delta_p
+        torch.cuda.empty_cache()
+    report("flash_attention_bwd_dq", "cuda", "icl_speech_text_llm_tpu_torch/csrc/flash_bwd.cu",
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:432", dq_errs, *timed["dq"])
+    report("flash_attention_bwd_dkv", "cuda", "icl_speech_text_llm_tpu_torch/csrc/flash_bwd.cu",
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:455", dkv_errs, *timed["dkv"])
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return rows
@@ -227,6 +285,103 @@ def _reference_phase():
           f"{got.argmax(-1).tolist()} vs {ref.argmax(-1).tolist()}", flush=True)
     if err > tol:
         raise AssertionError(f"reference check failed: {err} > {tol}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_paths(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _train_check_phase():
+    """salmonn-7b widths with one layer per stack: the training loss and the
+    trainable gradients of the bf16 kernel path on the card (K1 forward, K5
+    and K6 backward) against the f32 plain path on the CPU, same weights and
+    batch. LoRA B is drawn non-zero so that the A gradients are non-zero
+    too; the Q-Former gradient flows back through dq, dk and dv."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.salmonn import (
+        init_salmonn,
+        salmonn_7b,
+        salmonn_train_loss,
+    )
+    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
+    from icl_speech_text_llm_tpu_torch.training.step import merge_params, split_params, tree_map
+
+    full = salmonn_7b()
+    cfg = dataclasses.replace(
+        full,
+        whisper=dataclasses.replace(full.whisper, n_layers=1),
+        beats=dataclasses.replace(full.beats, n_layers=1),
+        llm=dataclasses.replace(full.llm, n_layers=1),
+    )
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = init_salmonn(cfg, gen, dev, torch.bfloat16, trainable_dtype=torch.float32)
+    for sub in params["lora"].values():
+        sub["b"] = torch.randn(sub["b"].shape, generator=gen, device=dev) * 0.02
+    rng = np.random.RandomState(1)
+    B, n_slots, L, n_text = 2, 2, 256, 40
+    T_a = cfg.audio_tokens_per_slot
+    wavs = (rng.randn(B, n_slots, 5 * 16000) * 3000).astype(np.int16)
+    text = rng.randint(3, cfg.llm.vocab_size, size=(B, n_text)).astype(np.int32)
+    gather = np.zeros((B, L), np.int64)
+    mask = np.zeros((B, L), np.int32)
+    labels = np.full((B, L), -100, np.int64)
+    for b, n in enumerate((20, 10)):  # text, clip 0, text, clip 1; ragged lengths
+        idx = np.concatenate([1 + np.arange(n), 1 + n_text + np.arange(T_a),
+                              1 + n + np.arange(n), 1 + n_text + T_a + np.arange(T_a)])
+        gather[b, :len(idx)] = idx
+        mask[b, :len(idx)] = 1
+        labels[b, len(idx) - 6:len(idx) - 1] = rng.randint(3, cfg.llm.vocab_size, 5)
+    batch = {"text_tokens": text, "gather_idx": gather, "seq_mask": mask,
+             "shifted_labels": labels, "wavs": wavs}
+
+    def loss_and_grads(cfg, params, device):
+        trainable, frozen = split_params(params)
+        trainable = tree_map(lambda t: t.detach().clone().requires_grad_(), trainable)
+        loss = salmonn_train_loss(cfg, merge_params(frozen, trainable),
+                                  {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+        named = _paths(trainable)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        return loss.item(), {n: g.float().cpu() for n, g in zip(named, grads)}
+
+    before = fa.launch_counts()
+    got_loss, got = loss_and_grads(cfg, params, dev)
+    after = fa.launch_counts()
+    for name in ("flash_attention_causal", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if after[name] - before[name] != 1:
+            raise AssertionError(f"{name}: {after[name] - before[name]} launches, expected 1")
+    cpu_params = _tree_to(params, torch.device("cpu"), torch.float32)
+    want_loss, want = loss_and_grads(dataclasses.replace(cfg, compute_dtype=torch.float32),
+                                     cpu_params, torch.device("cpu"))
+    rel = abs(got_loss - want_loss) / abs(want_loss)
+    print(f"  train loss: card {got_loss:.6f} vs f32 CPU {want_loss:.6f}, relative error "
+          f"{rel:.3e} (bound 1e-2)", flush=True)
+    if not (np.isfinite(got_loss) and rel <= 1e-2):
+        raise AssertionError(f"train loss check failed: {got_loss} vs {want_loss}")
+    groups = {"lora.*.a": lambda n: n.startswith("lora.") and n.endswith(".a"),
+              "lora.*.b": lambda n: n.startswith("lora.") and n.endswith(".b"),
+              "qformer": lambda n: n.startswith("qformer.")}
+    for gname, member in groups.items():
+        names = [n for n in want if member(n)]
+        g = torch.cat([got[n].flatten() for n in names]).double()
+        w = torch.cat([want[n].flatten() for n in names]).double()
+        rel = ((g - w).norm() / w.norm()).item()
+        cos = (g @ w / (g.norm() * w.norm())).item()
+        print(f"  grad {gname} ({len(names)} leaves, |g| {w.norm().item():.4e}): relative "
+              f"error {rel:.3e} (bound 5e-2), cosine {cos:.6f} (bound 0.99)", flush=True)
+        if not (w.norm() > 0 and rel <= 5e-2 and cos >= 0.99):
+            raise AssertionError(f"train gradient check failed for {gname}")
     del params, cpu_params
     torch.cuda.empty_cache()
 
@@ -291,6 +446,91 @@ def _main_phase(out_dir):
     return counts
 
 
+def _train_run(out_dir, n_steps, extra, k1_per_step):
+    """cli/train.py at salmonn-7b, full width, on the card; returns (result,
+    launch counts of the run)."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.cli import train
+    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
+
+    argv = ["--model_type", "salmonn-7b", "--dataset_type", "voxceleb", "--synthetic",
+            "--fewshot_mode", "speech", "--num_examples", "5", "--batch_size", "4",
+            "--max_samples", str(4 * n_steps), "--synthetic_size", "16", "--num_epochs", "1",
+            "--seq_len", "1024", "--text_len", "448", "--val_max_samples", "4",
+            "--warmup_steps", "0", "--device", "cuda", "--output_dir", out_dir, *extra]
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    perf = result.perf
+    print(f"  {' '.join(extra) or 'no remat'}: {perf['steps']} steps, losses "
+          f"{[round(x, 4) for x in result.losses]}, skipped batches {result.skipped_batches}",
+          flush=True)
+    if perf["steps"] != n_steps or result.state.step != n_steps:
+        raise AssertionError(f"expected {n_steps} steps, ran {perf['steps']}")
+    if result.skipped_batches or not all(np.isfinite(result.losses)):
+        raise AssertionError("a training batch was skipped or a loss is not finite")
+    need = {"flash_attention_causal": k1_per_step, "flash_attention_bwd_dq": 32,
+            "flash_attention_bwd_dkv": 32, "flash_attention_noncausal": 32,
+            "gated_bias_attention": 12}
+    for i, per in enumerate(perf["launches_per_step"]):
+        print(f"  step {i}: {perf['step_seconds'][i]:.4f} s, launches "
+              f"{ {k: per[k] for k in need} }", flush=True)
+        for name, n in need.items():
+            if per[name] < n:
+                raise AssertionError(f"step {i}: {name} launched {per[name]} < {n} times")
+    print(f"  median step {statistics.median(perf['step_seconds']):.4f} s, "
+          f"{perf['examples_per_sec']:.4f} examples/s over the steps, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+          f"run wall {wall:.3f} s (model build and validation included)", flush=True)
+    return result, counts
+
+
+def _train_phase(out_dir):
+    """The training main path: 4 optimizer steps, then 2 with full remat."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.factory import create_model
+    from icl_speech_text_llm_tpu_torch.training.checkpoint import copy_into, load_checkpoint
+
+    result, counts = _train_run(os.path.join(out_dir, "plain"), 4, [], 32)
+    # trainable weights moved and frozen ones did not: against the same seed's init
+    fresh = create_model("salmonn-7b", seed=42, device="cuda", trainable_dtype=torch.float32)
+    trained = _paths(result.state.trainable)
+    init = _paths({k: fresh.params[k] for k in ("lora", "qformer")})
+    unchanged = [n for n in trained if torch.equal(trained[n].detach(), init[n])]
+    print(f"  trainable leaves changed: {len(trained) - len(unchanged)} of {len(trained)}; "
+          f"unchanged {unchanged}", flush=True)
+    if any(n.startswith("lora.") for n in unchanged) or \
+            len([n for n in unchanged if n.startswith("qformer.")]) > len(trained) // 4:
+        raise AssertionError("training left trainable weights unchanged")
+    for name in ("llm.layers.attn.wq", "llm.lm_head", "whisper.blocks.mlp.w1",
+                 "beats.layers.attn.wq"):
+        live = _paths(result.model.params).get(name)
+        if live is None or not torch.equal(live, _paths(fresh.params)[name]):
+            raise AssertionError(f"frozen leaf {name} changed or missing")
+    print("  frozen leaves bit-identical to the seed's init", flush=True)
+    ck = load_checkpoint(result.checkpoints[0])
+    copy_into({k: fresh.params[k] for k in ("lora", "qformer")}, ck["trainable"])
+    for n, t in _paths({k: fresh.params[k] for k in ("lora", "qformer")}).items():
+        if not (torch.equal(t, trained[n].detach()) and
+                np.array_equal(_paths(ck["trainable"])[n], trained[n].detach().cpu().numpy())):
+            raise AssertionError(f"checkpoint leaf {n} differs after reload")
+    print(f"  checkpoint {os.path.basename(result.checkpoints[0])} reloads: "
+          f"{len(trained)} leaves identical, step {ck['step']}", flush=True)
+    del result, fresh, trained, init, ck
+    torch.cuda.empty_cache()
+    _train_run(os.path.join(out_dir, "remat"), 2, ["--gradient_checkpointing"], 64)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     smi = _device_phase()
     import torch
@@ -312,9 +552,14 @@ def main():
     rows = _kernel_phase()
     print("phase check:", flush=True)
     _reference_phase()
+    _train_check_phase()
+    here = os.path.dirname(os.path.abspath(__file__))
     print("phase main:", flush=True)
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as d:
-        counts = _main_phase(d)
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        _main_phase(d)
+    print("phase train:", flush=True)
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        counts = _train_phase(d)
     for row in rows:
         row["launches"] = counts[row["name"]]
     print(f"card: {smi}", flush=True)

@@ -1,7 +1,8 @@
 """Kernel loader: builds the Hopper kernels in ``csrc/`` and binds them.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-for ``sm_90a`` with a plain C interface, and ``ctypes`` loads it. The build
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together) and links the objects into one
+shared library with a plain C interface, which ``ctypes`` loads. The build
 goes to ``build/torch_kernels/<hash>/`` at the repository root (listed in
 ``.gitignore``), keyed by a hash of the sources and flags, so an edit to any
 source rebuilds and an unchanged tree reuses the library. Nothing here runs
@@ -29,7 +30,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 LIB_NAME = "libiclk.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
 _lock = threading.Lock()
@@ -52,6 +53,12 @@ _SIGNATURES = {
     # cache_k, cache_v, new_k, new_v, positions, L, B, Hkv, S, D,
     # elem_bytes, stream
     "iclk_append_kv": [_p] * 5 + [_i] * 6 + [_p],
+    # q, k, v, o, dout, m, l, delta, dq, lengths, B, H, Hkv, S, S_kv, D,
+    # causal, strides, sm_scale, stream
+    "iclk_flash_bwd_dq": [_p] * 10 + [_i] * 7 + [_strides, ctypes.c_float, _p],
+    # q, k, v, dout, m, l, delta, dk, dv, lengths, B, H, Hkv, S, S_kv, D,
+    # causal, strides, sm_scale, stream
+    "iclk_flash_bwd_dkv": [_p] * 10 + [_i] * 7 + [_strides, ctypes.c_float, _p],
 }
 
 
@@ -82,6 +89,14 @@ def library_path() -> Path:
     return BUILD_ROOT / source_hash() / LIB_NAME
 
 
+def _run_all(cmds):
+    """Run the commands concurrently → [(returncode, output)] in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, log) for p, log in zip(procs, logs)]
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed build directory unless it exists."""
     global build_seconds, build_log
@@ -91,17 +106,22 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    (out.parent / "build.log").write_text(build_log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    work = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        srcs = sorted(CSRC_DIR.glob("*.cu"))
+        objs = [work / (src.stem + ".o") for src in srcs]
+        runs = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                         for src, o in zip(srcs, objs)])
+        tmp = work / LIB_NAME
+        if all(rc == 0 for rc, _ in runs):
+            runs += _run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+        build_log = "".join(log for _, log in runs)
+        (out.parent / "build.log").write_text(build_log)
+        if any(rc != 0 for rc, _ in runs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -41,8 +41,11 @@ class SalmonnModel:
 
 
 def create_model(model_type: str = "salmonn-tiny", tokenizer: Optional[str] = None,
-                 seed: int = 0, generation=None, device="cpu") -> SalmonnModel:
-    """A SALMONN preset with random weights from ``seed`` on ``device``."""
+                 seed: int = 0, generation=None, device="cpu",
+                 trainable_dtype=None) -> SalmonnModel:
+    """A SALMONN preset with random weights from ``seed`` on ``device``;
+    ``trainable_dtype`` (training: f32) stores LoRA and the Q-Former apart
+    from the frozen weights' compute dtype."""
     key = model_type.lower()
     if key not in SALMONN_PRESETS:
         raise NotImplementedError(
@@ -50,6 +53,7 @@ def create_model(model_type: str = "salmonn-tiny", tokenizer: Optional[str] = No
     cfg = SALMONN_PRESETS[key]()
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_salmonn(cfg, gen, dev, dtype=cfg.compute_dtype)
+    params = init_salmonn(cfg, gen, dev, dtype=cfg.compute_dtype,
+                          trainable_dtype=trainable_dtype)
     logger.info(f"Created {key} on {dev} (random init, seed {seed})")
     return SalmonnModel(cfg, params, get_tokenizer(tokenizer), generation, dev)

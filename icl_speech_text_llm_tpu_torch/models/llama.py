@@ -1,13 +1,17 @@
 """Decoder-only transformer (LLaMA/Vicuna, Qwen2 config space) in PyTorch.
 
 Counterpart of ``icl_speech_text_llm_tpu/models/llama.py`` for the static
-engine's inference path: stacked ``(L, ...)`` layer weights walked by a
-Python loop, grouped-query attention with RoPE, LoRA added inside the q/v
-projections, and a KV cache updated in place.
+engine's inference path and the training forward: stacked ``(L, ...)``
+layer weights walked by a Python loop, grouped-query attention with RoPE,
+LoRA added inside the q/v projections, and a KV cache updated in place.
 
 - ``decoder_forward`` is the causal prefill: attention goes through the
   causal flash op with per-sample lengths (GQA without a repeated copy),
-  and each layer's k/v land in the cache as they are computed.
+  and each layer's k/v land in the cache as they are computed. Without a
+  cache it is the training forward: nothing is written in place, autograd
+  differentiates it (the flash op's backward is the K5/K6 kernels), and
+  ``remat`` recomputes layers in the backward as the JAX package's
+  ``jax.checkpoint`` options do.
 - ``decode_step`` is the single-token cached step of the JAX package's
   ``_decode_step_zero_copy(attn_mode="xla")``: each layer attends its cache
   slice ``cache_k[l]`` read-only with the current token folded in as one
@@ -17,11 +21,18 @@ projections, and a KV cache updated in place.
 
 from __future__ import annotations
 
+import functools
+import logging
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..ops.flash_attention import append_kv, flash_attention
 from .common import (
@@ -32,6 +43,16 @@ from .common import (
     rms_norm,
     rope_frequencies,
 )
+
+logger = logging.getLogger(__name__)
+
+
+def _warn_remat_degraded(remat, n_layers: int, why: str) -> None:
+    """A requested '1inK' spec silently becoming full per-layer remat would
+    make backward-recompute regressions untraceable — say so once."""
+    logger.warning(
+        "remat=%r degraded to full per-layer remat (%s; n_layers=%d): "
+        "backward recompute will NOT drop by 1/K", remat, why, n_layers)
 
 
 @dataclass(frozen=True)
@@ -203,27 +224,78 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bflo
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _mixed_remat_group(remat) -> int:
+    """0 when ``remat`` is not a "1inK" spec, else K (>= 2)."""
+    if isinstance(remat, str) and remat.startswith("1in"):
+        g = int(remat[3:])
+        if g < 2:
+            raise ValueError(f"1inK remat needs K >= 2, got {remat!r}")
+        return g
+    return 0
+
+
+#: "dots" remat saves the outputs of the weight matmuls (3-D activations
+#: times 2-D weights dispatch as mm/addmm) and recomputes everything else,
+#: the attention included: the counterpart of JAX's
+#: ``dots_with_no_batch_dims_saveable``.
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(remat, fn):
+    """``fn`` under per-layer activation checkpointing: ``True`` recomputes
+    the whole layer in the backward, ``"dots"`` recomputes all but the
+    weight-matmul outputs."""
+    kw = {"use_reentrant": False}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    elif remat is not True:
+        raise ValueError(f"remat must be False, True, 'dots' or '1inK', got {remat!r}")
+    return functools.partial(checkpoint, fn, **kw)
+
+
+def _layer_forward(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lengths,
+                   cache=None, l=0):
+    B, T, _ = x.shape
+    q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq)
+    if cache is not None:
+        cache["k"][l, :, :, :T] = k
+        cache["v"][l, :, :, :T] = v
+    out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), lengths, causal=True)
+    out = out.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.hd)
+    return _attn_out_mlp(cfg, layer, lo, lora_scaling, x, out)
+
+
 def decoder_forward(cfg: DecoderConfig, params: Dict[str, Any], inputs_embeds: torch.Tensor,
                     lengths: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None,
                     lora: Optional[Dict[str, Any]] = None, lora_scaling: float = 1.0,
-                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+                    remat=False) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Causal prefill over right-padded prompts: inputs_embeds (B, T, dim),
     lengths (B,) valid positions. Writes every layer's k/v into cache[..., :T, :]
-    in place when a cache is given. Returns (final-normed hidden, cache)."""
+    in place when a cache is given. Returns (final-normed hidden, cache).
+
+    ``remat`` (training): ``True`` checkpoints every layer,
+    ``"dots"`` every layer with the weight-matmul outputs saved, ``"1inK"``
+    checkpoints K−1 of every K layers and runs the K-th plain (a K that does
+    not divide ``n_layers`` degrades to full remat, with a warning)."""
     B, T, _ = inputs_embeds.shape
     inv_freq = _inv_freq(cfg, inputs_embeds.device)
     positions = torch.arange(T, device=inputs_embeds.device)[None].expand(B, T)
+    g = _mixed_remat_group(remat)
+    if g and cfg.n_layers % g:
+        _warn_remat_degraded(remat, cfg.n_layers, "n_layers not divisible by K")
+        g, remat = 0, True
+    plain = functools.partial(_layer_forward, cfg)
+    ckpt = _checkpointed(True if g else remat, plain) if remat else plain
     x = inputs_embeds
     for l in range(cfg.n_layers):
         layer = layer_at(params["layers"], l)
         lo = layer_at(lora, l) if lora is not None else None
-        q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq)
-        if cache is not None:
-            cache["k"][l, :, :, :T] = k
-            cache["v"][l, :, :, :T] = v
-        out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), lengths, causal=True)
-        out = out.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.hd)
-        x = _attn_out_mlp(cfg, layer, lo, lora_scaling, x, out)
+        fn = plain if (g and l % g == g - 1) else ckpt
+        x = fn(layer, lo, lora_scaling, x, positions, inv_freq, lengths, cache, l)
     return rms_norm(x, params["final_norm"], cfg.rms_eps), cache
 
 
@@ -291,3 +363,18 @@ def embed_tokens(params: Dict[str, Any], token_ids: torch.Tensor,
 def lm_logits(cfg: DecoderConfig, params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor:
     w = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.matmul(hidden, w.to(hidden.dtype))
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Mean CE over positions where labels != ignore_index, in f32; labels are
+    pre-shifted (next-token targets aligned to logits). The denominator is
+    max(count, 1). A label past the vocabulary gives a NaN loss, as the JAX
+    package's fill-mode gather does (the train step then skips the batch)."""
+    mask = labels != ignore_index
+    V = logits.shape[-1]
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long().clamp(0, V - 1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(mask & (labels >= V), torch.full_like(nll, float("nan")), nll)
+    return (nll * mask).sum() / mask.sum().clamp(min=1)

@@ -1,9 +1,9 @@
 """SALMONN in PyTorch: Whisper + BEATs → window-level Q-Former → LLM (+LoRA).
 
-Counterpart of ``icl_speech_text_llm_tpu/models/salmonn.py`` for inference:
-the configs, ``init_salmonn``, ``encode_speech`` (every clip of the batch —
-query and exemplars — through the encoders in one call) and
-``assemble_sequence`` (one gather over [pad | text | speech] embeddings).
+Counterpart of ``icl_speech_text_llm_tpu/models/salmonn.py``: the configs,
+``init_salmonn``, ``encode_speech`` (every clip of the batch — query and
+exemplars — through the encoders in one call), ``assemble_sequence`` (one
+gather over [pad | text | speech] embeddings) and ``salmonn_train_loss``.
 Generation is in ``inference/engine.py``.
 """
 
@@ -15,8 +15,19 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.mel import log_mel_spectrogram, pad_or_trim, wavs_to_float
 from .beats import BEATS_CONFIGS, BeatsConfig, beats_bias_table, beats_encode, beats_num_tokens, init_beats
-from .llama import DECODER_CONFIGS, DecoderConfig, LoraConfig, embed_tokens, init_decoder, init_lora
+from .llama import (
+    DECODER_CONFIGS,
+    DecoderConfig,
+    LoraConfig,
+    cross_entropy_loss,
+    decoder_forward,
+    embed_tokens,
+    init_decoder,
+    init_lora,
+    lm_logits,
+)
 from .qformer import QFORMER_CONFIGS, QFormerConfig, init_qformer, qformer_windows
 from .whisper import WHISPER_CONFIGS, WhisperEncoderConfig, init_whisper_encoder, whisper_encode
 
@@ -76,26 +87,35 @@ def salmonn_tiny() -> SalmonnConfig:
         lora=LoraConfig(rank=4, alpha=8.0, targets=("wq", "wv")))
 
 
+#: the subtrees that train (LoRA and the Q-Former); everything else is frozen
+TRAINABLE_KEYS = ("lora", "qformer")
+
+
 def init_salmonn(cfg: SalmonnConfig, gen: torch.Generator, device,
-                 dtype=torch.float32) -> Dict[str, Any]:
+                 dtype=torch.float32, trainable_dtype=None) -> Dict[str, Any]:
     """Random-init parameter tree with the JAX package's layout, drawn from
-    ``gen`` on ``device`` and stored in ``dtype``."""
+    ``gen`` on ``device`` and stored in ``dtype``. ``trainable_dtype`` stores
+    the trainable subtrees (``TRAINABLE_KEYS``) in another dtype: training
+    keeps f32 master weights there (cast to the compute dtype at use, as the
+    JAX package's f32 init is), since AdamW steps of lr ≈ 1e-5 vanish on bf16
+    weights. The draws are the same either way."""
+    tdt = dtype if trainable_dtype is None else trainable_dtype
     params = {
         "whisper": init_whisper_encoder(cfg.whisper, gen, device, dtype),
-        "qformer": init_qformer(cfg.qformer, gen, device, dtype),
+        "qformer": init_qformer(cfg.qformer, gen, device, tdt),
         "llm": init_decoder(cfg.llm, gen, device, dtype),
     }
     if cfg.beats is not None:
         params["beats"] = init_beats(cfg.beats, gen, device, dtype)
     if cfg.lora is not None:
-        params["lora"] = init_lora(cfg.llm, cfg.lora, gen, device, dtype)
+        params["lora"] = init_lora(cfg.llm, cfg.lora, gen, device, tdt)
     return params
 
 
-def encode_speech(cfg: SalmonnConfig, params: Dict[str, Any], mels: torch.Tensor,
-                  wavs: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """All clips at once: mels (N, 80, 3000) [+ wavs (N, n) for BEATs] →
-    (N, T_a, llm_dim)."""
+def encoder_features(cfg: SalmonnConfig, params: Dict[str, Any], mels: torch.Tensor,
+                     wavs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The frozen encoders, all clips at once: mels (N, 80, 3000) [+ wavs
+    (N, n) for BEATs] → (N, 1500, Whisper width [+ BEATs width])."""
     dt = cfg.compute_dtype
     feats = whisper_encode(cfg.whisper, params["whisper"], mels, dtype=dt)
     if cfg.beats is not None and wavs is not None:
@@ -106,7 +126,15 @@ def encode_speech(cfg: SalmonnConfig, params: Dict[str, Any], mels: torch.Tensor
         audio = beats_encode(cfg.beats, params["beats"], wavs, dtype=dt, bias_table=bias)
         audio = F.pad(audio, (0, 0, 0, feats.shape[1] - audio.shape[1]))
         feats = torch.cat([feats, audio], dim=-1)
-    return qformer_windows(cfg.qformer, params["qformer"], feats)
+    return feats
+
+
+def encode_speech(cfg: SalmonnConfig, params: Dict[str, Any], mels: torch.Tensor,
+                  wavs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """All clips at once: mels (N, 80, 3000) [+ wavs (N, n) for BEATs] →
+    (N, T_a, llm_dim)."""
+    return qformer_windows(cfg.qformer, params["qformer"],
+                           encoder_features(cfg, params, mels, wavs))
 
 
 def assemble_sequence(cfg: SalmonnConfig, params: Dict[str, Any], text_tokens: torch.Tensor,
@@ -121,3 +149,35 @@ def assemble_sequence(cfg: SalmonnConfig, params: Dict[str, Any], text_tokens: t
                        text_embeds, speech_embeds.reshape(B, -1, D).to(dt)], dim=1)
     idx = gather_idx.long()[..., None].expand(-1, -1, D)
     return torch.gather(table, 1, idx)
+
+
+def salmonn_train_loss(cfg: SalmonnConfig, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                       remat=False, pipeline=None, sp=None) -> torch.Tensor:
+    """Training forward: packed batch → mean CE over completion tokens.
+
+    ``batch`` (tensors on the model's device): text_tokens, gather_idx,
+    seq_mask, shifted_labels, wavs (B, n_slots, n_samples). The mel frontend
+    and the frozen Whisper and BEATs encoders run under ``torch.no_grad()``
+    (their activations would cost tens of GB at 24 clips × 1500 frames and
+    nothing trains there); the Q-Former, the assembly, the decoder (LoRA
+    inside, ``remat`` as ``decoder_forward``), the logits and the CE run with
+    grad. ``pipeline`` and ``sp`` (the JAX package's multi-chip decoders)
+    are not ported."""
+    if pipeline is not None or sp is not None:
+        raise NotImplementedError("pipeline / sequence-parallel decoders are not ported yet "
+                                  "(ROADMAP, parallel slice)")
+    B = batch["text_tokens"].shape[0]
+    with torch.no_grad():
+        wavs = wavs_to_float(batch["wavs"])
+        n_slots = wavs.shape[1]
+        flat = pad_or_trim(wavs.reshape(B * n_slots, wavs.shape[-1]))
+        feats = encoder_features(cfg, params, log_mel_spectrogram(flat),
+                                 flat if cfg.beats is not None else None)
+    speech = qformer_windows(cfg.qformer, params["qformer"], feats)
+    speech = speech.reshape(B, n_slots, -1, cfg.llm.dim)
+    seq = assemble_sequence(cfg, params, batch["text_tokens"], speech, batch["gather_idx"])
+    lengths = batch["seq_mask"].sum(dim=1).to(torch.int32)
+    scaling = cfg.lora.scaling if cfg.lora is not None else 1.0
+    hidden, _ = decoder_forward(cfg.llm, params["llm"], seq, lengths, lora=params.get("lora"),
+                                lora_scaling=scaling, remat=remat)
+    return cross_entropy_loss(lm_logits(cfg.llm, params["llm"], hidden), batch["shifted_labels"])

@@ -1,18 +1,26 @@
 """Attention kernels of the main path, each beside its plain PyTorch version.
 
-Counterpart of ``icl_speech_text_llm_tpu/ops/flash_attention.py``. Four
-Hopper kernels (``csrc/``) replace the Pallas kernels the slice runs:
+Counterpart of ``icl_speech_text_llm_tpu/ops/flash_attention.py``. Six
+Hopper kernels (``csrc/``) replace the Pallas kernels the port runs:
 
-- ``flash_attention_causal``    — causal flash forward (LLM prefill);
+- ``flash_attention_causal``    — causal flash forward (LLM prefill, training);
 - ``flash_attention_noncausal`` — non-causal flash forward (Whisper);
 - ``gated_bias_attention``      — BEATs gated relative-position bias;
-- ``append_kv``                 — in-place decode-step KV-cache append.
+- ``append_kv``                 — in-place decode-step KV-cache append;
+- ``flash_attention_bwd_dq``    — flash backward, dq and delta;
+- ``flash_attention_bwd_dkv``   — flash backward, dk and dv.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor takes the
 plain version (``*_plain``), a CUDA tensor launches the kernel or raises. The
 plain versions are the same math in f32 and are what the CPU tests and the
 card's comparison run. Each wrapper counts its kernel launches in a plain
 integer attribute, ``<wrapper>.launches``.
+
+``flash_attention`` is the model code's op. When grad is enabled and an input
+requires grad it goes through ``FlashAttention`` (forward K1/K2, backward
+K5/K6; on the CPU the plain forward and the explicit plain backward); the
+forward wrappers themselves refuse such inputs on the card rather than
+return an output that autograd cannot trace.
 """
 
 from __future__ import annotations
@@ -48,6 +56,11 @@ def _key_valid(lengths: Optional[torch.Tensor], B: int, S_kv: int, device):
     return (cols[None, :] < lengths.to(device)[:, None])[:, None, None, :]
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions compute in f32 (f64 for f64 inputs)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor):
     """f32 scores with -inf at masked keys → (o f32, m, l); a row without a
     valid key has l == 0 and o == 0 (the kernels' rule)."""
@@ -55,7 +68,7 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor):
     m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m_safe[..., None])
     l = p.sum(dim=-1)
-    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    o = torch.matmul(p.to(v.dtype).to(s.dtype), v.to(s.dtype))
     inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
     return o * inv[..., None], m, l
 
@@ -67,21 +80,88 @@ def flash_attention_plain(q, k, v, lengths=None, causal=True):
     B, H, S, D = q.shape
     Hkv, S_kv = k.shape[1], k.shape[2]
     n_rep = H // Hkv
+    ct = _acc_dtype(q)
     o = torch.empty_like(q)
-    m = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H, S), dtype=ct, device=q.device)
     l = torch.empty_like(m)
     valid_all = _key_valid(lengths, B, S_kv, q.device)
     if causal:
         rows = torch.arange(S, device=q.device)[:, None]
         valid_all = valid_all & (torch.arange(S_kv, device=q.device)[None, :] <= rows)
     for sl in _batch_chunks(B, H * S * S_kv):
-        kk = repeat_kv(k[sl], n_rep).float()
+        kk = repeat_kv(k[sl], n_rep).to(ct)
         vv = repeat_kv(v[sl], n_rep)
-        s = torch.matmul(q[sl].float(), kk.transpose(-1, -2)) * D ** -0.5
+        s = torch.matmul(q[sl].to(ct), kk.transpose(-1, -2)) * D ** -0.5
         s = s.masked_fill(~valid_all[sl], float("-inf"))
         oc, mc, lc = _softmax_pv(s, vv)
         o[sl], m[sl], l[sl] = oc.to(q.dtype), mc, lc
     return o, m, l
+
+
+def _row_delta(o, do):
+    """delta = rowsum(do ∘ o) in f32, (B, H, S)."""
+    ct = _acc_dtype(o)
+    return (do.to(ct) * o.to(ct)).sum(-1)
+
+
+def _bwd_plain(q, k, v, m, l, delta, do, lengths, causal, want_dq=True, want_dkv=True):
+    """The flash backward from the saved (m, l) and delta, in f32: P is
+    recomputed as exp(s − m) / l (0 at masked keys and on rows with l == 0),
+    dS = P ∘ (dO·vᵀ − delta) · scale. Returns (dq, dk, dv) in the dtypes of
+    q, k, v (None for a part not asked for); dk/dv of a kv head sum its
+    H / Hkv query heads."""
+    B, H, S, D = q.shape
+    Hkv, S_kv = k.shape[1], k.shape[2]
+    n_rep = H // Hkv
+    scale = D ** -0.5
+    ct = _acc_dtype(q)
+    has_key = l > 0
+    m_safe = torch.where(has_key, m, torch.zeros_like(m))[..., None]
+    l_inv = torch.where(has_key, 1.0 / torch.where(has_key, l, torch.ones_like(l)),
+                        torch.zeros_like(l))[..., None]
+    valid_all = _key_valid(lengths, B, S_kv, q.device)
+    if causal:
+        rows = torch.arange(S, device=q.device)[:, None]
+        valid_all = valid_all & (torch.arange(S_kv, device=q.device)[None, :] <= rows)
+    dq = torch.empty((B, H, S, D), dtype=ct, device=q.device)
+    dk = torch.empty((B, Hkv, S_kv, D), dtype=ct, device=q.device)
+    dv = torch.empty_like(dk)
+    for sl in _batch_chunks(B, H * S * S_kv):
+        qf, dof = q[sl].to(ct), do[sl].to(ct)
+        kk = repeat_kv(k[sl], n_rep).to(ct)
+        vv = repeat_kv(v[sl], n_rep).to(ct)
+        s = torch.matmul(qf, kk.transpose(-1, -2)) * scale
+        s = s.masked_fill(~valid_all[sl], float("-inf"))
+        p = torch.exp(s - m_safe[sl]) * l_inv[sl]
+        dp = torch.matmul(dof, vv.transpose(-1, -2))
+        ds = p * (dp - delta[sl].to(ct)[..., None]) * scale
+        n = qf.shape[0]
+        if want_dq:
+            dq[sl] = torch.matmul(ds, kk)
+        if want_dkv:
+            dk[sl] = torch.matmul(ds.transpose(-1, -2), qf).view(n, Hkv, n_rep, S_kv, D).sum(2)
+            dv[sl] = torch.matmul(p.transpose(-1, -2), dof).view(n, Hkv, n_rep, S_kv, D).sum(2)
+    return (dq.to(q.dtype) if want_dq else None,
+            dk.to(k.dtype) if want_dkv else None, dv.to(v.dtype) if want_dkv else None)
+
+
+def flash_attention_bwd_plain(q, k, v, o, m, l, do, lengths=None, causal=True):
+    """Plain version of the flash backward (K5 and K6 together): the saved
+    forward tensors q, k, v, o, m, l and the upstream gradient do → (dq, dk,
+    dv). Explicit math (no autograd through the plain forward), so the CPU
+    tests check what the kernels compute."""
+    return _bwd_plain(q, k, v, m, l, _row_delta(o, do), do, lengths, causal)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, o, m, l, do, lengths=None, causal=True):
+    """Plain version of K5 alone → (dq, delta)."""
+    delta = _row_delta(o, do)
+    return _bwd_plain(q, k, v, m, l, delta, do, lengths, causal, want_dkv=False)[0], delta
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, m, l, delta, do, lengths=None, causal=True):
+    """Plain version of K6 alone → (dk, dv)."""
+    return _bwd_plain(q, k, v, m, l, delta, do, lengths, causal, want_dq=False)[1:]
 
 
 def gate_rows(xh, grep_w, grep_b, grep_a):
@@ -175,11 +255,26 @@ def _flash_cuda(q, k, v, lengths, causal):
     return o, m, l
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_detach(name, *tensors):
+    """A kernel filled through ctypes returns a tensor autograd cannot trace:
+    refuse inputs that need a gradient instead of dropping it silently."""
+    if _wants_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but this kernel call is not "
+            "differentiable; call flash_attention (FlashAttention) for a "
+            "differentiable op, or run under torch.no_grad()")
+
+
 def flash_attention_causal(q, k, v, lengths=None):
     """Causal flash forward → (o, m, l). q (B, H, S, D); k/v (B, Hkv, S, D)
     with H % Hkv == 0 (GQA reads kv head h // (H / Hkv)); lengths (B,)."""
     if not _on_cuda(q):
         return flash_attention_plain(q, k, v, lengths, True)
+    _refuse_detach("flash_attention_causal", q, k, v)
     out = _flash_cuda(q, k, v, lengths, True)
     flash_attention_causal.launches += 1
     return out
@@ -189,6 +284,7 @@ def flash_attention_noncausal(q, k, v, lengths=None):
     """Non-causal flash forward with a per-sample key length → (o, m, l)."""
     if not _on_cuda(q):
         return flash_attention_plain(q, k, v, lengths, False)
+    _refuse_detach("flash_attention_noncausal", q, k, v)
     out = _flash_cuda(q, k, v, lengths, False)
     flash_attention_noncausal.launches += 1
     return out
@@ -198,8 +294,113 @@ flash_attention_causal.launches = 0
 flash_attention_noncausal.launches = 0
 
 
+def _bwd_check(q, k, v, do, lengths, causal):
+    B, H, S, D = q.shape
+    Hkv, S_kv = k.shape[1], k.shape[2]
+    if D not in (64, 128):
+        raise ValueError(f"flash backward kernels take head_dim 64 or 128, got {D}")
+    if H % Hkv or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
+            or do.shape != q.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do {tuple(do.shape)}")
+    if causal and S != S_kv:
+        raise ValueError("causal flash attention needs S == S_kv")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_attn_operand(name, t, q.device)
+    return _lengths_arg(lengths, B, q.device)
+
+
+def _stat_arg(name, t, q):
+    shape = q.shape[:3]
+    if t.shape != shape or t.dtype != torch.float32 or t.device != q.device:
+        raise ValueError(f"{name} must be f32 {tuple(shape)} on {q.device}")
+    return t.contiguous()
+
+
+def _bwd_strides(q, k, v, o, do, dq, dk, dv):
+    return kernels.strides_arg([s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
+
+
+def flash_attention_bwd_dq(q, k, v, o, m, l, do, lengths=None, causal=True):
+    """Flash backward, K5: dq and delta = rowsum(do ∘ o) → (dq like q,
+    delta (B, H, S) f32). Inputs as ``flash_attention_bwd_plain``; delta
+    feeds ``flash_attention_bwd_dkv``."""
+    if not _on_cuda(q):
+        return flash_attention_bwd_dq_plain(q, k, v, o, m, l, do, lengths, causal)
+    lens = _bwd_check(q, k, v, do, lengths, causal)
+    _check_attn_operand("o", o, q.device, q.shape[-1])
+    m, l = _stat_arg("m", m, q), _stat_arg("l", l, q)
+    B, H, S, D = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty_like(m)
+    err = kernels.lib().iclk_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        None if lens is None else lens.data_ptr(), B, H, k.shape[1], S, k.shape[2], D,
+        int(causal), _bwd_strides(q, k, v, o, do, dq, k, v), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "flash backward dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(q, k, v, m, l, delta, do, lengths=None, causal=True):
+    """Flash backward, K6: (dk, dv) like k and v, (B, Hkv, S_kv, D), each
+    the sum over the H / Hkv query heads of its group."""
+    if not _on_cuda(q):
+        return flash_attention_bwd_dkv_plain(q, k, v, m, l, delta, do, lengths, causal)
+    lens = _bwd_check(q, k, v, do, lengths, causal)
+    m, l, delta = _stat_arg("m", m, q), _stat_arg("l", l, q), _stat_arg("delta", delta, q)
+    B, H, S, D = q.shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    err = kernels.lib().iclk_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
+        l.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if lens is None else lens.data_ptr(), B, H, k.shape[1], S, k.shape[2], D,
+        int(causal), _bwd_strides(q, k, v, q, do, q, dk, dv), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "flash backward dk/dv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: forward K1 (causal) or K2, backward K5
+    then K6 on the card; on the CPU the plain forward and the explicit plain
+    backward. ``apply(q, k, v, lengths, causal)`` → o like q."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal):
+        fwd = flash_attention_causal if causal else flash_attention_noncausal
+        o, m, l = fwd(q, k, v, lengths)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, m, l, lengths)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, m, l, lengths = ctx.saved_tensors
+        if not _on_cuda(q):
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, m, l, do, lengths, ctx.causal)
+            return dq, dk, dv, None, None
+        if do.stride(-1) != 1 or do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:3]):
+            do = do.contiguous()
+        dq, delta = flash_attention_bwd_dq(q, k, v, o, m, l, do, lengths, ctx.causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, m, l, delta, do, lengths, ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, lengths=None, causal=True):
-    """The model code's attention op: returns o (B, H, S, D) like q."""
+    """The model code's attention op: returns o (B, H, S, D) like q, through
+    ``FlashAttention`` when autograd needs it."""
+    if _wants_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, lengths, causal)
     fn = flash_attention_causal if causal else flash_attention_noncausal
     return fn(q, k, v, lengths)[0]
 
@@ -212,6 +413,7 @@ def gated_bias_attention(q, k, v, xh, bias, grep_w, grep_b, grep_a,
     if not _on_cuda(q):
         return gated_bias_attention_plain(q, k, v, xh, bias, grep_w, grep_b,
                                           grep_a, lengths)
+    _refuse_detach("gated_bias_attention", q, k, v, xh, bias, grep_w, grep_b, grep_a)
     B, H, S, D = q.shape
     if D != 64:
         raise ValueError(f"gated-bias kernel takes head_dim 64, got {D}")
@@ -277,12 +479,14 @@ def append_kv(cache_k, cache_v, new_k, new_v, positions) -> Tuple[torch.Tensor, 
 
 append_kv.launches = 0
 
-#: the four kernel wrappers of the main path, by kernel name
+#: the kernel wrappers of the port's paths, by kernel name
 WRAPPERS = {
     "flash_attention_causal": flash_attention_causal,
     "flash_attention_noncausal": flash_attention_noncausal,
     "gated_bias_attention": gated_bias_attention,
     "append_kv": append_kv,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
 }
 
 

@@ -1,0 +1,231 @@
+"""Training loop: epochs over packed batches, validation, checkpoints.
+
+Counterpart of ``icl_speech_text_llm_tpu/training/loop.py`` for one process:
+batches are reshuffled per epoch (``shard_indices``), prefetched on a host
+thread, moved to the model's device and stepped; each epoch ends with
+generation-based validation on the current trainable weights and a
+trainable-only checkpoint ``epoch_{n}_loss_{x:.4f}``. A batch whose step
+raises is skipped, as in the JAX package, and counted: ``train`` returns
+the count with the state. ``StepTimer`` records per-step seconds (the
+device synchronised on CUDA), examples/s and each step's kernel launches.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import statistics
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from icl_speech_text_llm_tpu.registry import DatasetType
+
+from ..data.collate import collate_icl_batch
+from ..data.packing import PackConfig
+from ..data.pipeline import PrefetchIterator
+from ..evaluation import evaluate_predictions
+from ..ops import flash_attention as fa
+from .checkpoint import copy_into, load_checkpoint, save_checkpoint
+from .step import TrainState, merge_params
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class TrainSettings:
+    num_epochs: int = 3
+    batch_size: int = 2
+    save_every: int = 1
+    output_dir: str = "checkpoints"
+    val_max_samples: int = 200
+    resume_from: Optional[str] = None
+    val_batch_size: int = 4
+    seed: int = 42  # data-order seed (per-epoch reshuffle)
+
+
+def shard_indices(n: int, epoch: int = 0, seed: int = 0) -> np.ndarray:
+    """The dataset order of one epoch in a single process: the JAX package's
+    ``parallel.multihost.shard_indices`` with one process, i.e. the
+    ``RandomState(seed + epoch)`` permutation."""
+    return np.random.RandomState(seed + epoch).permutation(n)
+
+
+def _device_batch(batch, device) -> Dict[str, torch.Tensor]:
+    arrays = {"text_tokens": batch.text_tokens, "gather_idx": batch.gather_idx,
+              "seq_mask": batch.seq_mask, "shifted_labels": batch.labels_shifted,
+              **batch.audio}
+    return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in arrays.items()}
+
+
+def iter_batches(dataset, batch_size: int, tokenizer, pack_cfg: PackConfig, order):
+    """Fixed-size batches in ``order``; the tail batch is padded by repeating
+    its last sample."""
+    order = list(order)
+    for start in range(0, len(order), batch_size):
+        samples = [dataset[int(i)] for i in order[start:start + batch_size]]
+        while len(samples) < batch_size:
+            samples.append(samples[-1])
+        yield collate_icl_batch(samples, tokenizer, pack_cfg)
+
+
+def validate(engine, val_dataset, pack_cfg: PackConfig, dataset_types: List[DatasetType],
+             settings: TrainSettings) -> Dict[str, Any]:
+    """Generation-based validation with per-dataset metrics."""
+    results = []
+    n = min(len(val_dataset), settings.val_max_samples)
+    bs = settings.val_batch_size
+    for start in range(0, n, bs):
+        samples = [val_dataset[i] for i in range(start, min(start + bs, n))]
+        real = len(samples)
+        while len(samples) < bs:
+            samples.append(samples[-1])
+        batch = collate_icl_batch(samples, engine.tokenizer, pack_cfg)
+        preds = engine.generate(batch, batch.audio)[:real]
+        for s, p in zip(samples[:real], preds):
+            results.append({"text": s.extras.get("text", ""), "true_label": s.completion,
+                            "predicted_label": p,
+                            "dataset_type": s.extras.get("dataset_type", "")})
+    metrics = {}
+    for dt in dataset_types:
+        subset = [r for r in results if r["dataset_type"] == dt.value]
+        if subset:
+            metrics[dt.value] = evaluate_predictions(subset, dt)
+    return metrics
+
+
+class StepTimer:
+    """Per-step wall seconds (host clock, the device synchronised on CUDA so
+    the step's kernels are done), examples/s, and each step's launches of
+    every kernel wrapper."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.step_seconds: List[float] = []
+        self.launches: List[Dict[str, int]] = []
+        self.examples = 0
+
+    def _sync(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def start(self):
+        self._sync()
+        self._counts = fa.launch_counts()
+        self._t0 = time.perf_counter()
+
+    def stop(self, examples: int):
+        self._sync()
+        self.step_seconds.append(time.perf_counter() - self._t0)
+        now = fa.launch_counts()
+        self.launches.append({k: now[k] - self._counts[k] for k in now})
+        self.examples += examples
+
+    def summary(self) -> Dict[str, Any]:
+        total = sum(self.step_seconds)
+        return {"steps": len(self.step_seconds), "examples": self.examples,
+                "total_seconds": total,
+                "examples_per_sec": self.examples / total if total else 0.0,
+                "p50_step_seconds": (statistics.median(self.step_seconds)
+                                     if self.step_seconds else 0.0),
+                "step_seconds": list(self.step_seconds),
+                "launches_per_step": list(self.launches)}
+
+
+@dataclass
+class TrainResult:
+    state: TrainState
+    model: Any = None  # the model trained (its params merged with the state's)
+    skipped_batches: int = 0
+    losses: List[float] = field(default_factory=list)
+    checkpoints: List[str] = field(default_factory=list)
+    perf: Dict[str, Any] = field(default_factory=dict)
+
+
+def _resume(state: TrainState, path: str) -> int:
+    ck = load_checkpoint(path)
+    copy_into(state.trainable, ck["trainable"])
+    state.step = int(ck.get("step", 0))
+    saved = ck.get("opt_state")
+    if saved is not None:
+        try:
+            for key in ("mu", "nu", "acc"):
+                if key in state.opt_state:
+                    copy_into(state.opt_state[key], saved[key])
+            state.opt_state["count"] = int(saved["count"])
+            state.opt_state["mini_step"] = int(saved["mini_step"])
+        except (KeyError, RuntimeError) as e:
+            logger.warning(f"optimizer state restore skipped: {e}")
+    epoch = int(ck.get("meta", {}).get("epoch", 0))
+    logger.info(f"Resumed from {path} at epoch {epoch}")
+    return epoch
+
+
+def train(model, state: TrainState, frozen: Dict[str, Any], step_fn: Callable,
+          train_dataset, pack_cfg: PackConfig, settings: TrainSettings, val_dataset=None,
+          dataset_types: Optional[List[DatasetType]] = None,
+          metadata: Optional[Dict[str, Any]] = None) -> TrainResult:
+    """Run the training schedule on the model's device."""
+    device = model.engine.device
+    timer = StepTimer(device)
+    result = TrainResult(state, model)
+    start_epoch = _resume(state, settings.resume_from) if settings.resume_from else 0
+    last_loss = float("nan")
+    for epoch in range(start_epoch, settings.num_epochs):
+        order = shard_indices(len(train_dataset), epoch, seed=settings.seed)
+        batches = PrefetchIterator(
+            lambda order=order: iter_batches(train_dataset, settings.batch_size,
+                                             model.tokenizer, pack_cfg, order=order), depth=2)
+        try:
+            for batch in batches:
+                timer.start()
+                try:
+                    state, metrics = step_fn(state, frozen, _device_batch(batch, device))
+                except KeyboardInterrupt:
+                    raise
+                except Exception as e:
+                    result.skipped_batches += 1
+                    logger.warning(f"skipping batch after error: {e!r}")
+                    continue
+                timer.stop(batch.batch_size)
+                last_loss = metrics["loss"]
+                result.losses.append(last_loss)
+                if metrics["skipped_nonfinite"]:
+                    logger.warning("non-finite loss — batch became a no-op update")
+                logger.info(f"step {metrics['step']}: loss {last_loss:.4f} grad_norm "
+                            f"{metrics['grad_norm']:.4f} {timer.step_seconds[-1]:.3f} s")
+        except KeyboardInterrupt:
+            logger.info("KeyboardInterrupt — stopping training early")
+            break
+        if hasattr(train_dataset, "on_epoch_end"):
+            train_dataset.on_epoch_end()
+
+        if val_dataset is not None and dataset_types:
+            # validation generates with the CURRENT trainable weights
+            model.params = merge_params(frozen, state.trainable)
+            model.engine.params = model.params
+            val_metrics = validate(model.engine, val_dataset, pack_cfg, dataset_types, settings)
+            logger.info(f"epoch {epoch} validation: " + ", ".join(
+                f"{k}={_headline(v):.4f}" for k, v in val_metrics.items()))
+
+        if settings.save_every and (epoch + 1) % settings.save_every == 0:
+            path = os.path.join(settings.output_dir, f"epoch_{epoch}_loss_{last_loss:.4f}")
+            result.checkpoints.append(save_checkpoint(
+                path, state.trainable, opt_state=state.opt_state, step=state.step,
+                epoch=epoch + 1, loss=last_loss, metadata=metadata))
+    result.state = state
+    result.perf = timer.summary()
+    if result.skipped_batches:
+        logger.warning(f"{result.skipped_batches} batches skipped after errors")
+    return result
+
+
+def _headline(metrics: Dict[str, Any]) -> float:
+    """Headline metric per task."""
+    for key in ("macro_f1_with_invalid", "macro_f1", "f1_score", "accuracy"):
+        if key in metrics:
+            return float(metrics[key])
+    return 0.0

@@ -5,7 +5,8 @@ This file imports no jax, so it also runs on the machine with the card:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 (``--noconftest`` because ``tests/conftest.py`` sets up jax). Bounds: bf16
 outputs within 2e-2 of the f32-softmax plain version on valid rows, row
-max m within 1e-3, and the KV append bit-exact.
+max m within 1e-3, the KV append bit-exact, and the backward kernels' bf16
+gradients within 2e-2 × max |plain gradient| per tensor over valid rows.
 """
 
 import numpy as np
@@ -81,3 +82,87 @@ def test_cuda_append_kv_kernel_is_exact(cuda_device, dtype):
     tfa.append_kv(ck, cv, nk, nv, pos)
     tfa.append_kv_plain(ck2, cv2, nk, nv, pos)
     assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
+
+
+def _grad_err(got, want, rows):
+    """max |got − want| over valid rows, relative to max |want| there."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    return _valid_rows_max(got, want, rows) / max(
+        max(np.abs(want[i, :, :n]).max() for i, n in enumerate(rows)), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,D,H,Hkv,S,lengths", [
+    (True, 128, 4, 4, 200, [200, 77]), (True, 128, 4, 2, 256, [256, 1]),
+    (False, 64, 4, 4, 200, [200, 130]), (False, 64, 2, 2, 150, None)])
+def test_cuda_flash_backward_kernels_match_plain(cuda_device, causal, D, H, Hkv, S, lengths):
+    """K5 (dq, delta) and K6 (dk, dv) against flash_attention_bwd_plain on the
+    same bf16 inputs computed in f32; do is zero past each length."""
+    B = 2
+    q, do = _cuda_inputs([(B, H, S, D)] * 2, cuda_device, 26)
+    k, v = _cuda_inputs([(B, Hkv, S, D)] * 2, cuda_device, 27)
+    lens = None if lengths is None else torch.tensor(lengths, device=cuda_device)
+    rows = [S] * B if lengths is None else lengths
+    if lengths is not None:
+        keep = torch.arange(S, device=cuda_device)[None, :] < lens[:, None]
+        do = do * keep[:, None, :, None].to(do.dtype)
+    fwd = tfa.flash_attention_causal if causal else tfa.flash_attention_noncausal
+    o, m, l = fwd(q, k, v, lens)
+    before = (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches)
+    dq, delta = tfa.flash_attention_bwd_dq(q, k, v, o, m, l, do, lens, causal)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, m, l, delta, do, lens, causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), m, l,
+                                         do.float(), lens, causal)
+    q_rows = [S] * B if not causal else rows
+    assert _grad_err(dq, want[0], q_rows) < 2e-2
+    assert _grad_err(dk, want[1], rows) < 2e-2
+    assert _grad_err(dv, want[2], rows) < 2e-2
+    np.testing.assert_allclose(delta.cpu().numpy(), (do.float() * o.float()).sum(-1).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    if lengths is not None:  # key rows past the length get exact zeros
+        for i, n in enumerate(lengths):
+            assert torch.all(dk[i, :, n:] == 0) and torch.all(dv[i, :, n:] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_function_trains_through_the_kernels(cuda_device):
+    """flash_attention with inputs that require grad: forward K1, backward
+    K5 + K6, gradients like autograd through the plain forward."""
+    B, H, S, D = 2, 4, 192, 128
+    q, = _cuda_inputs([(B, H, S, D)], cuda_device, 28)
+    k, v = _cuda_inputs([(B, 2, S, D)] * 2, cuda_device, 29)
+    lens = torch.tensor([192, 100], device=cuda_device)
+    w, = _cuda_inputs([(B, H, S, D)], cuda_device, 30)
+    w = w * (torch.arange(S, device=cuda_device)[None, :] < lens[:, None])[:, None, :, None]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = tfa.launch_counts()
+    (tfa.flash_attention(*leaves, lens, causal=True).float() * w.float()).sum().backward()
+    after = tfa.launch_counts()
+    for name in ("flash_attention_causal", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == counts[name] + 1, name
+    ref = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    (tfa.flash_attention_plain(*ref, lens, True)[0] * w.float()).sum().backward()
+    for got, want in zip(leaves, ref):
+        assert _grad_err(got.grad, want.grad, [192, 192]) < 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_forward_kernels_refuse_inputs_that_need_grad(cuda_device):
+    """A ctypes-filled output has no grad_fn: the forward wrappers raise
+    instead of dropping the gradient; under no_grad they run."""
+    q, k, v, xh = (t.requires_grad_() for t in _cuda_inputs([(1, 2, 64, 64)] * 4, cuda_device, 31))
+    bias, = _cuda_inputs([(2, 64, 64)], cuda_device, 32)
+    gw, gb, ga = (torch.zeros(64, 8, device=cuda_device), torch.zeros(8, device=cuda_device),
+                  torch.ones(2, device=cuda_device))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tfa.flash_attention_causal(q, k, v)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tfa.flash_attention_noncausal(q, k, v)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tfa.gated_bias_attention(q, k, v, xh, bias, gw, gb, ga)
+    with torch.no_grad():
+        assert tfa.flash_attention_causal(q, k, v)[0].shape == q.shape
+        assert tfa.gated_bias_attention(q, k, v, xh, bias, gw, gb, ga).shape == q.shape
