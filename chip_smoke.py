@@ -9,21 +9,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                (one nvcc per source, in parallel);
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the shapes of the paths below, with the stated tolerances, plus
-               CUDA-event median times of both;
-  4. check   — a one-layer-per-stack model at salmonn-7b widths, the bf16
-               kernel path on the card against the f32 plain path on the CPU
-               with the same weights and inputs: first-token logits, then the
-               training loss and the LoRA / Q-Former gradients;
-  5. main    — the port's inference CLI on salmonn-7b at full width (random
-               weights from a seed), 8 voxceleb requests of 6 clips each, with
-               every kernel's launch count read from that run alone;
+               CUDA-event times of both;
+  4. check   — one-layer-per-stack models, the bf16 kernel path on the card
+               against the f32 plain path on the CPU with the same weights and
+               inputs: at salmonn-7b widths the first-token logits, then the
+               training loss and the LoRA / Q-Former gradients; at salmonn-13b
+               widths with int4 weights and an int8 KV cache the first-token
+               logits and 3 decode steps' logits;
+  5. main    — the port's inference CLI at full width (random weights from a
+               seed), voxceleb requests of 6 clips each: salmonn-7b bf16 (8
+               requests), salmonn-13b --quantize_int4 --kv_int8 (8 requests),
+               salmonn-7b --quantize_int8 (4 requests), each run's kernel
+               launch counts read from that run alone;
   6. train   — the port's training CLI on salmonn-7b at full width: 4 optimizer
                steps (batch 4, seq 1024), validation by generation and a
                checkpoint, with each step's kernel launches read; then 2 steps
                with full activation checkpointing.
 The line before the last is a JSON object of the kernels (launch counts from
-the train phase); the last line is {"ok": true, "device": {...}} and is
-printed only when every phase passed.
+the run of each kernel's own path: the salmonn-13b int4 run for the int4 and
+int8 matmuls, the train phase for the others); the last line is
+{"ok": true, "device": {...}} and is printed only when every phase passed.
 """
 
 from __future__ import annotations
@@ -69,8 +74,95 @@ def _time_ms(fn, reps=10):
     return statistics.median(times)
 
 
+def _device_ms(fn, reps=20):
+    """Device time of one call, from CUDA events around ``reps`` calls queued
+    behind a ~30 ms device spin, so that the host's launch overhead is not in
+    the measurement; a warm-up call first."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _wq_kernel_rows(report, gen):
+    """K10 (int4) and W8A16 (int8) at the salmonn-13b / 7b decode shapes and
+    an M = 256 prefill. Weights are random bytes with random positive
+    scales; timed calls cycle over copies (or layers) whose bytes exceed the
+    50 MB L2, so each call streams its weight from device memory as a decode
+    step does. Bound: 1e-2 × max |plain| over the output, the plain version
+    computing in f32 from the same bf16 x."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.ops import int4_matmul as wq
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def x_of(M, K):
+        return torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+
+    def int4_weights(K, N, copies, group=128):
+        packed = torch.randint(0, 256, (copies, K // 2, N), generator=gen, device=dev,
+                               dtype=torch.uint8)
+        scales = torch.rand((copies, K // group, N), generator=gen, device=dev) * 0.02 + 1e-3
+        return packed, scales
+
+    def int8_weights(K, N, copies):
+        q = torch.randint(-127, 128, (copies, K, N), generator=gen, device=dev, dtype=torch.int8)
+        return q, torch.rand((copies, N), generator=gen, device=dev) * 0.02 + 1e-3
+
+    def bound(y, ref):
+        return (y.float() - ref).abs().max().item(), 1e-2 * ref.abs().max().item()
+
+    for name, kernel, plain, source, replaces, cases in (
+            ("int4_matmul", wq.int4_matmul, wq.int4_matmul_plain,
+             "icl_speech_text_llm_tpu_torch/csrc/wq_matmul.cu",
+             "icl_speech_text_llm_tpu/ops/int4_matmul.py:199",
+             [("13B w_gate M=4", 4, 5120, 13824, 4), ("13B w_down M=4", 4, 13824, 5120, 4),
+              ("13B wq stacked [17] M=4", 4, 5120, 5120, 40),
+              ("13B w_gate M=256", 256, 5120, 13824, 4)]),
+            ("int8_matmul", wq.int8_matmul, wq.int8_matmul_plain,
+             "icl_speech_text_llm_tpu_torch/csrc/wq_matmul.cu",
+             "icl_speech_text_llm_tpu/ops/quant.py:141 (XLA convert; no Pallas kernel)",
+             [("13B lm_head M=4", 4, 5120, 32000, 1), ("7B w_down M=4", 4, 11008, 4096, 4)])):
+        errs, timed = [], None
+        for label, M, K, N, copies in cases:
+            x = x_of(M, K)
+            w, s = int4_weights(K, N, copies) if name == "int4_matmul" else \
+                int8_weights(K, N, copies)
+            first = 17 if copies == 40 else 0
+            y = kernel(x, w[first], s[first])
+            ref = plain(x.float(), w[first], s[first])
+            torch.cuda.synchronize()
+            errs.append((f"{label} (bound 1e-2 × max |plain|)", *bound(y, ref)))
+            ms = _device_ms(lambda i=0: kernel(x, w[i % copies], s[i % copies]))
+            plain_ms = _device_ms(lambda i=0: plain(x, w[i % copies], s[i % copies]), reps=5)
+            nbytes = w[0].numel() + 4 * s[0].numel() + 2 * (M * K + M * N)
+            splits = wq.split_k(M, N, w.shape[1] // wq.CHUNK_K, sms)
+            print(f"  {name} {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of "
+                  f"{nbytes / 1e6:.1f} MB, {splits} K splits), plain {plain_ms:.4f} ms",
+                  flush=True)
+            if timed is None:
+                timed = (ms, plain_ms)
+            del x, w, s, y, ref
+        report(name, "cuda", source, replaces, errs, *timed)
+    torch.cuda.empty_cache()
+
+
 def _kernel_phase():
-    """Kernel vs plain version on the card at the main path's shapes."""
+    """Kernel vs plain version on the card at the shapes the main paths give
+    it: the 7B and 13B prefills (K1), Whisper (K2), BEATs (K3), the 7B bf16
+    and 13B int8 caches (K4), the 7B training backward (K5, K6), the 13B
+    int4 and 7B / 13B int8 products (K10, W8A16)."""
     import torch
 
     from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
@@ -112,7 +204,8 @@ def _kernel_phase():
                                torch.ones_like(ref[2])[..., None], lengths)
         return [("o", o_err, 2e-2), ("m", m_err, 1e-3), ("l (relative)", l_rel, 1e-3)]
 
-    # K1: LLM prefill, (4, 32, 1024, 128) causal, ragged lengths; then GQA
+    # K1: LLM prefill, (4, 32, 1024, 128) causal, ragged lengths; then GQA;
+    # then the salmonn-13b prefill, (4, 40, 1024, 128)
     B, H, S, D = 4, 32, 1024, 128
     lens = [1024, 901, 640, 333]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -124,6 +217,12 @@ def _kernel_phase():
     ker_g = fa.flash_attention_causal(q, kg, vg, lengths)
     ref_g = fa.flash_attention_plain(q, kg, vg, lengths, causal=True)
     errs += [(f"GQA {what}", e, tol) for what, e, tol in stat_errs(ker_g, ref_g, lens)]
+    q13, k13, v13 = (randn(B, 40, S, D) for _ in range(3))
+    ker_13 = fa.flash_attention_causal(q13, k13, v13, lengths)
+    ref_13 = fa.flash_attention_plain(q13, k13, v13, lengths, causal=True)
+    errs += [(f"13B (4, 40, 1024, 128) {what}", e, tol)
+             for what, e, tol in stat_errs(ker_13, ref_13, lens)]
+    del q13, k13, v13, ker_13, ref_13, kg, vg, ker_g, ref_g
     report("flash_attention_causal", "cuda",
            "icl_speech_text_llm_tpu_torch/csrc/flash_fwd.cu",
            "icl_speech_text_llm_tpu/ops/flash_attention.py:145", errs,
@@ -161,23 +260,35 @@ def _kernel_phase():
            _time_ms(lambda: fa.gated_bias_attention_plain(*args)))
     del args, q, k, v, xh, bias, ker, ref
 
-    # K4: decode-step append into the Vicuna-7B cache, bit-exact
+    # K4: decode-step append, bit-exact: into the Vicuna-7B bf16 cache (timed)
+    # and into the salmonn-13b --kv_int8 cache, int8 (40, 4, 40, 1152, 128)
+    def append_err(ck, cv, nk, nv, pos):
+        ck2, cv2 = ck.clone(), cv.clone()
+        fa.append_kv(ck, cv, nk, nv, pos)
+        fa.append_kv_plain(ck2, cv2, nk, nv, pos)
+        if torch.equal(ck, ck2) and torch.equal(cv, cv2):
+            return 0.0
+        return max((ck.float() - ck2.float()).abs().max().item(),
+                   (cv.float() - cv2.float()).abs().max().item(), 1e-30)
+
+    pos = torch.tensor([1033, 700, 1151, 0], dtype=torch.int32, device=dev)
+    L, B, Hkv, S, D = 40, 4, 40, 1152, 128
+
+    def rand_i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    err_i8 = append_err(rand_i8(L, B, Hkv, S, D), rand_i8(L, B, Hkv, S, D),
+                        rand_i8(L, B, Hkv, 1, D), rand_i8(L, B, Hkv, 1, D), pos)
     L, B, Hkv, S, D = 32, 4, 32, 1152, 128
     ck, cv = randn(L, B, Hkv, S, D), randn(L, B, Hkv, S, D)
     nk, nv = randn(L, B, Hkv, 1, D), randn(L, B, Hkv, 1, D)
-    pos = torch.tensor([1033, 700, 1151, 0], dtype=torch.int32, device=dev)
-    ck2, cv2 = ck.clone(), cv.clone()
-    fa.append_kv(ck, cv, nk, nv, pos)
-    fa.append_kv_plain(ck2, cv2, nk, nv, pos)
-    exact = torch.equal(ck, ck2) and torch.equal(cv, cv2)
-    err = max((ck.float() - ck2.float()).abs().max().item(),
-              (cv.float() - cv2.float()).abs().max().item())
     report("append_kv", "cuda", "icl_speech_text_llm_tpu_torch/csrc/append_kv.cu",
            "icl_speech_text_llm_tpu/ops/flash_attention.py:1438",
-           [("cache (bit-exact)", 0.0 if exact else max(err, 1e-30), 0.0)],
+           [("7B bf16 cache (bit-exact)", append_err(ck, cv, nk, nv, pos), 0.0),
+            ("13B int8 cache (40, 4, 40, 1152, 128) (bit-exact)", err_i8, 0.0)],
            _time_ms(lambda: fa.append_kv(ck, cv, nk, nv, pos), reps=50),
            _time_ms(lambda: fa.append_kv_plain(ck, cv, nk, nv, pos), reps=50))
-    del ck, cv, ck2, cv2
+    del ck, cv
 
     # K5/K6: the LLM training backward, (4, 32, 1024, 128) causal with ragged
     # lengths and do zero past each length, the same with Hkv = 16 (GQA), and
@@ -231,6 +342,7 @@ def _kernel_phase():
            "icl_speech_text_llm_tpu/ops/flash_attention.py:455", dkv_errs, *timed["dkv"])
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    _wq_kernel_rows(report, gen)
     return rows
 
 
@@ -289,6 +401,97 @@ def _reference_phase():
     torch.cuda.empty_cache()
 
 
+def _quant_reference_phase():
+    """salmonn-13b widths with one layer per stack, the decoder quantized to
+    int4 by the main path's ``quantize_decoder`` (the lm_head int8) and an
+    int8 KV cache: the bf16 kernel path on the card (K10 in the M = 256
+    prefill and the M = 1 decode steps, W8A16 for the logits) against the
+    f32 plain path on the CPU on the same quantized tree. The decode steps
+    feed both sides the CPU path's greedy tokens."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.inference.engine import prefill, speech_sequence
+    from icl_speech_text_llm_tpu_torch.models.llama import decode_step, embed_tokens, lm_logits
+    from icl_speech_text_llm_tpu_torch.models.salmonn import init_salmonn, salmonn_13b
+    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_decoder
+
+    full = salmonn_13b()
+    cfg = dataclasses.replace(
+        full,
+        whisper=dataclasses.replace(full.whisper, n_layers=1),
+        beats=dataclasses.replace(full.beats, n_layers=1),
+        llm=dataclasses.replace(full.llm, n_layers=1),
+    )
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = init_salmonn(cfg, gen, dev, torch.bfloat16)
+    quantize_decoder(params["llm"], bits=4)
+    rng = np.random.RandomState(2)
+    B, n_slots, L, n_text = 1, 2, 256, 40
+    T_a = cfg.audio_tokens_per_slot
+    wavs = (rng.randn(B, n_slots, 5 * 16000) * 3000).astype(np.int16)
+    text = rng.randint(3, cfg.llm.vocab_size, size=(B, n_text)).astype(np.int32)
+    idx = np.concatenate([1 + np.arange(20), 1 + n_text + np.arange(T_a),
+                          21 + np.arange(20), 1 + n_text + T_a + np.arange(T_a)])
+    gather = np.zeros((B, L), np.int64)
+    gather[0, :len(idx)] = idx
+    batch = {"text_tokens": text, "gather_idx": gather, "wavs": wavs}
+    lengths = np.array([len(idx)], np.int32)
+    scaling = cfg.lora.scaling
+
+    @torch.inference_mode()
+    def run(cfg, params, device, tokens):
+        """First-token logits, then one decode step per given token."""
+        seq = speech_sequence(cfg, params, {k: torch.as_tensor(v, device=device)
+                                            for k, v in batch.items()})
+        cur = torch.as_tensor(lengths, device=device)
+        logits, cache = prefill(cfg.llm, params["llm"], seq, cur, L + 128, params["lora"],
+                                scaling, cfg.compute_dtype, kv_int8=True)
+        out = [logits.float().cpu()]
+        for tok in tokens:
+            emb = embed_tokens(params["llm"], torch.tensor([[tok]], device=device),
+                               dtype=cfg.compute_dtype)
+            hidden, cache = decode_step(cfg.llm, params["llm"], emb, cache, cur,
+                                        params["lora"], scaling)
+            out.append(lm_logits(cfg.llm, params["llm"], hidden)[:, 0].float().cpu())
+            cur = cur + 1
+        return out
+
+    cpu_params = _tree_to(params, torch.device("cpu"), torch.float32)
+    cpu_cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    ref = run(cpu_cfg, cpu_params, torch.device("cpu"), [])
+    toks = []
+    for _ in range(3):  # the CPU path's greedy tokens
+        toks.append(int(ref[-1].argmax(-1)[0]))
+        ref = run(cpu_cfg, cpu_params, torch.device("cpu"), toks)
+    before = kernels.launch_counts()
+    got = run(cfg, params, dev, toks)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    launched = {k: after[k] - before[k] for k in ("int4_matmul", "int8_matmul", "append_kv")}
+    print(f"  13B int4 + int8 KV one-layer check, launches {launched} "
+          f"(need int4_matmul 7 × 4, int8_matmul 4, append_kv 3)", flush=True)
+    if launched["int4_matmul"] < 28 or launched["int8_matmul"] < 4 or launched["append_kv"] < 3:
+        raise AssertionError(f"the quantized check did not run its kernels: {launched}")
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"non-finite logits on the card (step {i})")
+        err = (g - r).abs().max().item()
+        tol = 5e-2 * r.abs().max().item()
+        what = "first-token" if i == 0 else f"decode step {i}"
+        print(f"  {what} logits: max_abs_err {err:.4e} vs f32 CPU (tolerance {tol:.4e} = 5% "
+              f"of max |logit|); argmax {g.argmax(-1).tolist()} vs {r.argmax(-1).tolist()}",
+              flush=True)
+        if err > tol:
+            raise AssertionError(f"quantized reference check failed at {what}: {err} > {tol}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
 def _paths(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -309,12 +512,12 @@ def _train_check_phase():
     import numpy as np
     import torch
 
+    from icl_speech_text_llm_tpu_torch import kernels
     from icl_speech_text_llm_tpu_torch.models.salmonn import (
         init_salmonn,
         salmonn_7b,
         salmonn_train_loss,
     )
-    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
     from icl_speech_text_llm_tpu_torch.training.step import merge_params, split_params, tree_map
 
     full = salmonn_7b()
@@ -355,9 +558,9 @@ def _train_check_phase():
         grads = torch.autograd.grad(loss, list(named.values()))
         return loss.item(), {n: g.float().cpu() for n, g in zip(named, grads)}
 
-    before = fa.launch_counts()
+    before = kernels.launch_counts()
     got_loss, got = loss_and_grads(cfg, params, dev)
-    after = fa.launch_counts()
+    after = kernels.launch_counts()
     for name in ("flash_attention_causal", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         if after[name] - before[name] != 1:
             raise AssertionError(f"{name}: {after[name] - before[name]} launches, expected 1")
@@ -396,53 +599,73 @@ def _tree_to(tree, device, dtype):
     return tree.to(device)
 
 
-def _main_phase(out_dir):
+def _main_run(out_dir, model_type, extra, n_requests, need, max_new=10):
+    """One run of the inference CLI at full width on the card; returns the
+    kernel launch counts of that run alone."""
     import torch
 
+    from icl_speech_text_llm_tpu_torch import kernels
     from icl_speech_text_llm_tpu_torch.cli import inference
-    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
 
-    n_batches, max_new = 2, 10
-    argv = ["--model_type", "salmonn-7b", "--dataset_type", "voxceleb", "--synthetic",
+    argv = ["--model_type", model_type, "--dataset_type", "voxceleb", "--synthetic",
             "--input_mode", "speech_only", "--fewshot_mode", "speech",
-            "--num_examples", "5", "--batch_size", "4", "--max_samples", "8",
+            "--num_examples", "5", "--batch_size", "4", "--max_samples", str(n_requests),
             "--seq_len", "1024", "--text_len", "448", "--max_new_tokens", str(max_new),
-            "--device", "cuda", "--results_dir", out_dir, "--run_name", "chip_smoke"]
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+            "--device", "cuda", "--results_dir", out_dir, "--run_name", "chip_smoke", *extra]
+    print(f"  {model_type} {' '.join(extra) or 'bf16'}:", flush=True)
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     paths = inference.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = fa.launch_counts()
+    counts = kernels.launch_counts()
 
     with open(paths["results"]) as f:
         results = json.load(f)["results"]
     with open(paths["metrics"]) as f:
         metrics = json.load(f)
-    if len(results) != 8:
-        raise AssertionError(f"expected 8 results, got {len(results)}")
+    if len(results) != n_requests:
+        raise AssertionError(f"expected {n_requests} results, got {len(results)}")
     for r in results:
         toks = r["tokens"]
         if len(toks) != max_new or not all(0 <= t < 32000 for t in toks):
             raise AssertionError(f"bad generated tokens {toks}")
-    if metrics.get("voxceleb", {}).get("total_samples") != 8:
-        raise AssertionError(f"metrics of 8 voxceleb results expected in {paths['metrics']}")
-    need = {"flash_attention_noncausal": 32 * n_batches,
-            "gated_bias_attention": 12 * n_batches,
-            "flash_attention_causal": 32 * n_batches,
-            "append_kv": (max_new - 1) * n_batches}
+    if metrics.get("voxceleb", {}).get("total_samples") != n_requests:
+        raise AssertionError(f"metrics of {n_requests} voxceleb results expected in "
+                             f"{paths['metrics']}")
+    scalars = {k: v for k, v in metrics["voxceleb"].items() if not isinstance(v, (dict, list))}
+    print(f"    voxceleb metrics: {scalars}", flush=True)
     for name, n in need.items():
-        print(f"  launches {name}: {counts[name]} (need >= {n})", flush=True)
+        print(f"    launches {name}: {counts[name]} (need >= {n})", flush=True)
         if counts[name] < n:
             raise AssertionError(f"{name} launched {counts[name]} < {n} times")
-    perf = metrics.get("perf", {})
-    print(f"  main path: 8 requests in {wall:.3f} s wall (model build included); "
-          f"serving {perf.get('examples_per_sec', float('nan')):.4f} utt/s, "
-          f"p50 batch {perf.get('p50_batch_seconds', float('nan')):.4f} s; "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
-          flush=True)
-    print(f"  predictions: {[r['predicted_label'] for r in results]}", flush=True)
+    perf = metrics["perf"]
+    steps = perf["decode_step_ms"]
+    print(f"    {n_requests} requests in {wall:.3f} s wall (model build included); serving "
+          f"{perf['examples_per_sec']:.4f} utt/s, p50 batch {perf['p50_batch_seconds']:.4f} s, "
+          f"batches {[round(x, 4) for x in perf['batch_seconds']]}; prefill ms "
+          f"{[round(x, 2) for x in perf['prefill_ms']]}; decode step ms median "
+          f"{statistics.median(steps):.3f} (min {min(steps):.3f}, max {max(steps):.3f}); "
+          f"generation peak memory {perf['peak_memory_bytes'] / 2**30:.3f} GiB", flush=True)
+    print(f"    predictions: {[r['predicted_label'] for r in results]}", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _main_phase(out_dir):
+    """The inference main paths: 7B bf16, 13B int4 weights + int8 KV cache,
+    7B int8 weights; returns the 13B int4 run's launch counts."""
+    _main_run(os.path.join(out_dir, "7b"), "salmonn-7b", [], 8, {
+        "flash_attention_noncausal": 32 * 2, "gated_bias_attention": 12 * 2,
+        "flash_attention_causal": 32 * 2, "append_kv": 9 * 2})
+    counts = _main_run(os.path.join(out_dir, "13b_int4"), "salmonn-13b",
+                       ["--quantize_int4", "--kv_int8"], 8, {
+                           "int4_matmul": 7 * 40 * 9 * 2, "int8_matmul": 10 * 2,
+                           "append_kv": 9 * 2, "flash_attention_causal": 40 * 2,
+                           "flash_attention_noncausal": 32 * 2,
+                           "gated_bias_attention": 12 * 2})
+    _main_run(os.path.join(out_dir, "7b_int8"), "salmonn-7b", ["--quantize_int8"], 4, {
+        "int8_matmul": 7 * 32 * 9, "append_kv": 9, "flash_attention_causal": 32})
     return counts
 
 
@@ -452,8 +675,8 @@ def _train_run(out_dir, n_steps, extra, k1_per_step):
     import numpy as np
     import torch
 
+    from icl_speech_text_llm_tpu_torch import kernels
     from icl_speech_text_llm_tpu_torch.cli import train
-    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
 
     argv = ["--model_type", "salmonn-7b", "--dataset_type", "voxceleb", "--synthetic",
             "--fewshot_mode", "speech", "--num_examples", "5", "--batch_size", "4",
@@ -461,12 +684,12 @@ def _train_run(out_dir, n_steps, extra, k1_per_step):
             "--seq_len", "1024", "--text_len", "448", "--val_max_samples", "4",
             "--warmup_steps", "0", "--device", "cuda", "--output_dir", out_dir, *extra]
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     result = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = fa.launch_counts()
+    counts = kernels.launch_counts()
     perf = result.perf
     print(f"  {' '.join(extra) or 'no remat'}: {perf['steps']} steps, losses "
           f"{[round(x, 4) for x in result.losses]}, skipped batches {result.skipped_batches}",
@@ -549,19 +772,29 @@ def main():
             print("  ptxas:", line.strip(), flush=True)
 
     print("phase kernels:", flush=True)
+    t0 = time.perf_counter()
     rows = _kernel_phase()
+    print(f"  phase kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase check:", flush=True)
+    t0 = time.perf_counter()
     _reference_phase()
     _train_check_phase()
+    _quant_reference_phase()
+    print(f"  phase check: {time.perf_counter() - t0:.1f} s", flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
     print("phase main:", flush=True)
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=here) as d:
-        _main_phase(d)
+        quant_counts = _main_phase(d)
+    print(f"  phase main: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase train:", flush=True)
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=here) as d:
         counts = _train_phase(d)
+    print(f"  phase train: {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        quant = row["name"] in ("int4_matmul", "int8_matmul")
+        row["launches"] = (quant_counts if quant else counts)[row["name"]]
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces", "launches",

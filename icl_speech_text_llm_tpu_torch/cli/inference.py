@@ -7,11 +7,13 @@ Hermetic example (no SLUE data needed):
         --num_examples 2 --model_type salmonn-tiny --synthetic \\
         --max_samples 8 --batch_size 4 --results_dir /tmp/out --device cpu
 
-Flags for what is not ported yet (sampling, beams, repetition penalty,
-min_new_tokens, int8 KV cache, int8/int4 weights, checkpoint and converted
-weight loading, automatic batch size) are accepted and raise
-``NotImplementedError`` when set. ``--compile_cache`` (the XLA compilation
-cache) has no counterpart and is gone.
+``--quantize_int8`` / ``--quantize_int4`` quantize the created model's LLM
+(``ops/quant.py:quantize_decoder``) and ``--kv_int8`` keeps its KV cache in
+int8. Flags for what is not ported yet (sampling, beams, repetition
+penalty, min_new_tokens, checkpoint and converted weight loading, automatic
+batch size) are accepted and raise ``NotImplementedError`` when set.
+``--compile_cache`` (the XLA compilation cache) has no counterpart and is
+gone.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..data.packing import PackConfig
 from ..inference.engine import GenerationConfig
 from ..inference.runner import InferenceSettings, run_inference, save_final_results
 from ..models.factory import create_model
+from ..ops.quant import quantize_decoder
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,9 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_ported(args) -> None:
     unported = {
         "--peft_model_path": args.peft_model_path, "--llm_params_dir": args.llm_params_dir,
-        "--adapter_params_dir": args.adapter_params_dir,
-        "--quantize_int8": args.quantize_int8, "--quantize_int4": args.quantize_int4,
-        "--auto_batch": args.auto_batch,
+        "--adapter_params_dir": args.adapter_params_dir, "--auto_batch": args.auto_batch,
     }
     asked = [flag for flag, val in unported.items() if val]
     if asked:
@@ -113,6 +114,8 @@ def main(argv=None):
 
     model = create_model(args.model_type, tokenizer=args.tokenizer, seed=args.seed,
                          generation=gen, device=args.device)
+    if args.quantize_int8 or args.quantize_int4:  # in place: the engine holds the same tree
+        quantize_decoder(model.params["llm"], bits=4 if args.quantize_int4 else 8)
     pack_cfg = PackConfig(
         seq_len=args.seq_len, text_len=args.text_len, max_slots=n_slots,
         audio_tokens_per_slot=model.cfg.audio_tokens_per_slot,

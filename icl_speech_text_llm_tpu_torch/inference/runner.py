@@ -17,6 +17,8 @@ import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
+import torch
+
 from icl_speech_text_llm_tpu.registry import DatasetType
 
 from ..data.collate import ICLSample, collate_icl_batch
@@ -69,7 +71,14 @@ class ThroughputTracker:
 
 def run_inference(engine: SalmonnEngine, dataset, pack_cfg: PackConfig,
                   settings: InferenceSettings) -> Dict[str, Any]:
-    """Generate predictions over ``dataset`` and clean them per task."""
+    """Generate predictions over ``dataset`` and clean them per task. On a
+    CUDA device the perf summary adds the prefill and decode-step times of
+    the engine's CUDA events and the run's peak device memory (counted from
+    the start of this call, so the model build is not in it)."""
+    cuda = engine.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(engine.device)
+        engine.timings.clear()
     tracker = ThroughputTracker()
     results: List[Dict[str, Any]] = []
     n = len(dataset)
@@ -97,6 +106,10 @@ def run_inference(engine: SalmonnEngine, dataset, pack_cfg: PackConfig,
                 "tokens": [int(t) for t in row],
             })
     summary = tracker.summary()
+    if cuda:
+        summary["prefill_ms"] = [t[0] for t in engine.timings]
+        summary["decode_step_ms"] = [ms for t in engine.timings for ms in t[1:]]
+        summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated(engine.device)
     logger.info(f"Inference done: {len(results)} samples, "
                 f"{summary['examples_per_sec']:.2f} utt/s")
     return {"results": results, "perf": summary}

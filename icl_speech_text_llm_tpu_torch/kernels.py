@@ -10,6 +10,11 @@ at import: the CPU paths never touch it.
 
 Every C entry returns the ``cudaGetLastError()`` of its launch; ``check``
 turns a non-zero code into an exception.
+
+The launch-count registry lives here too: each ops module ``register``s its
+kernel wrappers, each wrapper adds one to ``<wrapper>.launches`` where it
+launches its kernel, and ``launch_counts`` / ``reset_launch_counts`` read
+and clear them all.
 """
 
 from __future__ import annotations
@@ -59,6 +64,10 @@ _SIGNATURES = {
     # q, k, v, dout, m, l, delta, dk, dv, lengths, B, H, Hkv, S, S_kv, D,
     # causal, strides, sm_scale, stream
     "iclk_flash_bwd_dkv": [_p] * 10 + [_i] * 7 + [_strides, ctypes.c_float, _p],
+    # x, packed, scales, y, ws, M, N, K, n_groups, splits, stream
+    "iclk_int4_matmul": [_p] * 5 + [_i] * 5 + [_p],
+    # x, q, s, y, ws, M, N, K, n_groups (ignored), splits, stream
+    "iclk_int8_matmul": [_p] * 5 + [_i] * 5 + [_p],
 }
 
 
@@ -150,3 +159,23 @@ def check(err: int, what: str) -> None:
 
 def strides_arg(values) -> ctypes.Array:
     return (ctypes.c_longlong * len(values))(*[int(v) for v in values])
+
+
+#: the kernel wrappers of the port's paths, by kernel name
+WRAPPERS: dict = {}
+
+
+def register(*wrappers) -> None:
+    """Add kernel wrappers to ``WRAPPERS`` under their names, counts at 0."""
+    for fn in wrappers:
+        fn.launches = 0
+        WRAPPERS[fn.__name__] = fn
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -16,7 +16,13 @@ LoRA added inside the q/v projections, and a KV cache updated in place.
   ``_decode_step_zero_copy(attn_mode="xla")``: each layer attends its cache
   slice ``cache_k[l]`` read-only with the current token folded in as one
   extra column, and ONE ``append_kv`` writes every layer's new k/v after the
-  loop.
+  loop. With an int8 cache (``init_kv_cache(quant=True)``) the new rows
+  are quantized per (position, head) and their scales written beside them;
+  the current token is attended unquantized, the cache through its scales.
+
+Matmul weights may be plain tensors or the JAX package's quantized dicts
+(int8 ``{"q", "s"}``, int4 ``{"q4", "s"}``): every product goes through
+``ops/quant.py:dequant_matmul``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.flash_attention import append_kv, flash_attention
+from ..ops.quant import dequant_matmul, quantize_kv
 from .common import (
     apply_rope,
     dense_init,
@@ -125,6 +132,59 @@ def init_decoder(cfg: DecoderConfig, gen: torch.Generator, device, dtype) -> Dic
     return params
 
 
+def init_decoder_quantized(cfg: DecoderConfig, gen: torch.Generator, device,
+                           dtype=torch.bfloat16, bits: int = 8, group: int = 128) -> Dict[str, Any]:
+    """Random-init decoder directly in the int8/int4 serving layout (the tree
+    ``quantize_decoder`` gives, never a full-precision weight): random bytes
+    drawn layer by layer, the JAX package's constant scales, f32 norms and
+    biases, ``dtype`` embeddings, an int8 lm_head."""
+    L, hd = cfg.n_layers, cfg.hd
+    q_out, kv_out = cfg.n_heads * hd, cfg.n_kv_heads * hd
+
+    def qtensor(d_in, d_out):
+        if bits == 4:
+            packed = torch.empty((L, d_in // 2, d_out), dtype=torch.uint8, device=device)
+            for l in range(L):
+                packed[l] = torch.randint(0, 256, (d_in // 2, d_out), generator=gen,
+                                          dtype=torch.uint8, device=device)
+            s = torch.full((L, d_in // group, d_out), (d_in ** -0.5) / 4.6,  # nibble std ≈ 4.6
+                           dtype=torch.float32, device=device)
+            return {"q4": packed, "s": s}
+        q = torch.empty((L, d_in, d_out), dtype=torch.int8, device=device)
+        for l in range(L):
+            q[l] = torch.randint(-127, 128, (d_in, d_out), generator=gen, dtype=torch.int8,
+                                 device=device)
+        s = torch.full((L, d_out), (d_in ** -0.5) / 127.0, dtype=torch.float32, device=device)
+        return {"q": q, "s": s}
+
+    def f32(fill, *shape):
+        return torch.full(shape, fill, dtype=torch.float32, device=device)
+
+    layers = {
+        "attn": {"wq": qtensor(cfg.dim, q_out), "wk": qtensor(cfg.dim, kv_out),
+                 "wv": qtensor(cfg.dim, kv_out), "wo": qtensor(q_out, cfg.dim)},
+        "mlp": {"w_gate": qtensor(cfg.dim, cfg.hidden_dim),
+                "w_up": qtensor(cfg.dim, cfg.hidden_dim),
+                "w_down": qtensor(cfg.hidden_dim, cfg.dim)},
+        "ln_attn": f32(1.0, L, cfg.dim),
+        "ln_mlp": f32(1.0, L, cfg.dim),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", q_out), ("bk", kv_out), ("bv", kv_out)):
+            layers["attn"][name] = f32(0.0, L, width)
+    params = {
+        "tok_embed": normal_init(gen, (cfg.vocab_size, cfg.dim), 0.02, device, dtype),
+        "layers": layers,
+        "final_norm": f32(1.0, cfg.dim),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {
+            "q": torch.randint(-127, 128, (cfg.dim, cfg.vocab_size), generator=gen,
+                               dtype=torch.int8, device=device),
+            "s": f32((cfg.dim ** -0.5) / 127.0, cfg.vocab_size)}
+    return params
+
+
 # ---------------------------------------------------------------------------
 # LoRA
 # ---------------------------------------------------------------------------
@@ -171,8 +231,9 @@ def init_lora(cfg: DecoderConfig, lora_cfg: LoraConfig, gen: torch.Generator,
 
 
 def _proj(x, w, lora_layer, name: str, scaling: float, bias=None):
-    """x @ w (+ bias) with the optional additive LoRA delta ((x·A)·B)·scaling."""
-    y = torch.matmul(x, w.to(x.dtype))
+    """x @ w (+ bias) with the optional additive LoRA delta ((x·A)·B)·scaling;
+    ``w`` a tensor or a quantized dict (``dequant_matmul``)."""
+    y = dequant_matmul(x, w)
     if lora_layer is not None and name in lora_layer:
         a = lora_layer[name]["a"].to(x.dtype)
         b = lora_layer[name]["b"].to(x.dtype)
@@ -217,9 +278,15 @@ def _inv_freq(cfg: DecoderConfig, device) -> torch.Tensor:
 
 
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device=None) -> Dict[str, torch.Tensor]:
-    """Stacked KV cache {"k", "v"}: (L, B, Hkv, max_len, hd)."""
+                  device=None, quant: bool = False) -> Dict[str, torch.Tensor]:
+    """Stacked KV cache {"k", "v"}: (L, B, Hkv, max_len, hd). ``quant``: int8
+    k/v and f32 per-position scales {"k_s", "v_s"} (L, B, Hkv, max_len)."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    if quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                "v_s": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -262,8 +329,13 @@ def _layer_forward(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lengths
     B, T, _ = x.shape
     q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq)
     if cache is not None:
-        cache["k"][l, :, :, :T] = k
-        cache["v"][l, :, :, :T] = v
+        if "k_s" in cache:  # int8 cache: quantized rows and their scales at [0, T)
+            (cache["k"][l, :, :, :T], cache["k_s"][l, :, :, :T]) = quantize_kv(k)
+            (cache["v"][l, :, :, :T], cache["v_s"][l, :, :, :T]) = quantize_kv(v)
+        else:
+            cache["k"][l, :, :, :T] = k
+            cache["v"][l, :, :, :T] = v
+    # attention over the current k/v, unquantized under an int8 cache
     out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), lengths, causal=True)
     out = out.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.hd)
     return _attn_out_mlp(cfg, layer, lo, lora_scaling, x, out)
@@ -299,18 +371,23 @@ def decoder_forward(cfg: DecoderConfig, params: Dict[str, Any], inputs_embeds: t
     return rms_norm(x, params["final_norm"], cfg.rms_eps), cache
 
 
-def _xla_decode_attn(cfg: DecoderConfig, q, ck, cv, k_self, v_self, lengths):
+def _xla_decode_attn(cfg: DecoderConfig, q, ck, cv, k_self, v_self, lengths,
+                     k_s=None, v_s=None):
     """Single-token decode attention over one layer's cache slice.
 
     q (B, H, 1, hd); ck/cv (B, Hkv, S, hd), read-only; the current token's
-    (k_self, v_self) (B, Hkv, 1, hd) is one extra softmax column; cache
-    positions ≥ lengths[b] are masked. GQA by grouped matmuls, no repeat."""
+    (k_self, v_self) (B, Hkv, 1, hd) is one extra softmax column, never
+    quantized; cache positions ≥ lengths[b] are masked. An int8 cache comes
+    with its scales k_s/v_s (B, Hkv, S): k's fold into the scores after the
+    product, v's into the probabilities. GQA by grouped matmuls, no repeat."""
     B, H, _, hd = q.shape
     Hkv, S = ck.shape[1], ck.shape[2]
     g = H // Hkv
     qg = q.reshape(B, Hkv, g, hd).float()
     sm = hd ** -0.5
     s_cache = torch.matmul(qg, ck.float().transpose(-1, -2)) * sm  # (B, Hkv, g, S)
+    if k_s is not None:
+        s_cache = s_cache * k_s[:, :, None, :]
     valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
     s_cache = s_cache.masked_fill(~valid[:, None, None, :], float("-inf"))
     s_self = torch.matmul(qg, k_self.reshape(B, Hkv, hd, 1).float()) * sm  # (B, Hkv, g, 1)
@@ -318,6 +395,8 @@ def _xla_decode_attn(cfg: DecoderConfig, q, ck, cv, k_self, v_self, lengths):
     p_cache = torch.exp(s_cache - m)
     p_self = torch.exp(s_self - m)
     l = p_cache.sum(dim=-1, keepdim=True) + p_self
+    if v_s is not None:
+        p_cache = p_cache * v_s[:, :, None, :]
     out = torch.matmul(p_cache.to(q.dtype), cv.to(q.dtype)).float()
     out = out + p_self * v_self.reshape(B, Hkv, 1, hd).float()
     return (out / l).reshape(B, H, 1, hd).to(q.dtype)
@@ -330,24 +409,41 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
     """One cached decode step: x (B, 1, dim) at positions cache_positions (B,)
     (each sample's count of cached tokens). Every layer attends its cache
     slice read-only plus the current token; after the loop ONE append_kv
-    writes all layers' new k/v at cache_positions, in place."""
+    writes all layers' new k/v at cache_positions, in place. With an int8
+    cache the new rows are quantized first and their scales written with a
+    per-sample index write, as the JAX package's DUS does."""
     B = x.shape[0]
     L, hd = cfg.n_layers, cfg.hd
+    quant = "k_s" in cache
     inv_freq = _inv_freq(cfg, x.device)
     positions = cache_positions[:, None]
     new_k = torch.empty((L, B, cfg.n_kv_heads, 1, hd), dtype=cache["k"].dtype, device=x.device)
     new_v = torch.empty_like(new_k)
+    if quant:
+        new_ks = torch.empty((L, B, cfg.n_kv_heads, 1), dtype=torch.float32, device=x.device)
+        new_vs = torch.empty_like(new_ks)
     for l in range(L):
         layer = layer_at(params["layers"], l)
         lo = layer_at(lora, l) if lora is not None else None
         q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq)
-        out = _xla_decode_attn(cfg, q, cache["k"][l], cache["v"][l], k, v, cache_positions)
-        new_k[l] = k
-        new_v[l] = v
+        if quant:
+            out = _xla_decode_attn(cfg, q, cache["k"][l], cache["v"][l], k, v, cache_positions,
+                                   cache["k_s"][l], cache["v_s"][l])
+            new_k[l], new_ks[l] = quantize_kv(k)
+            new_v[l], new_vs[l] = quantize_kv(v)
+        else:
+            out = _xla_decode_attn(cfg, q, cache["k"][l], cache["v"][l], k, v, cache_positions)
+            new_k[l] = k
+            new_v[l] = v
         x = _attn_out_mlp(cfg, layer, lo, lora_scaling, x,
                           out.transpose(1, 2).reshape(B, 1, cfg.n_heads * hd))
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     append_kv(cache["k"], cache["v"], new_k, new_v, cache_positions)
+    if quant:
+        b_idx = torch.arange(B, device=x.device)
+        pos = cache_positions.long()
+        for plane, new in ((cache["k_s"], new_ks), (cache["v_s"], new_vs)):
+            plane.permute(1, 3, 0, 2).index_put_((b_idx, pos), new[..., 0].permute(1, 0, 2))
     return x, cache
 
 
@@ -362,7 +458,7 @@ def embed_tokens(params: Dict[str, Any], token_ids: torch.Tensor,
 
 def lm_logits(cfg: DecoderConfig, params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor:
     w = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(hidden, w.to(hidden.dtype))
+    return dequant_matmul(hidden, w)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

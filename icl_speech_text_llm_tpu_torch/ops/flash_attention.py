@@ -14,7 +14,7 @@ Each wrapper dispatches on the device of its tensors: a CPU tensor takes the
 plain version (``*_plain``), a CUDA tensor launches the kernel or raises. The
 plain versions are the same math in f32 and are what the CPU tests and the
 card's comparison run. Each wrapper counts its kernel launches in a plain
-integer attribute, ``<wrapper>.launches``.
+integer attribute, ``<wrapper>.launches``, registered in ``kernels.WRAPPERS``.
 
 ``flash_attention`` is the model code's op. When grad is enabled and an input
 requires grad it goes through ``FlashAttention`` (forward K1/K2, backward
@@ -290,10 +290,6 @@ def flash_attention_noncausal(q, k, v, lengths=None):
     return out
 
 
-flash_attention_causal.launches = 0
-flash_attention_noncausal.launches = 0
-
-
 def _bwd_check(q, k, v, do, lengths, causal):
     B, H, S, D = q.shape
     Hkv, S_kv = k.shape[1], k.shape[2]
@@ -363,10 +359,6 @@ def flash_attention_bwd_dkv(q, k, v, m, l, delta, do, lengths=None, causal=True)
     kernels.check(err, "flash backward dk/dv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
-
-
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -444,8 +436,6 @@ def gated_bias_attention(q, k, v, xh, bias, grep_w, grep_b, grep_a,
     return o
 
 
-gated_bias_attention.launches = 0
-
 
 def append_kv(cache_k, cache_v, new_k, new_v, positions) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write one decode step's k/v for every layer into the stacked cache, in
@@ -477,23 +467,5 @@ def append_kv(cache_k, cache_v, new_k, new_v, positions) -> Tuple[torch.Tensor, 
     return cache_k, cache_v
 
 
-append_kv.launches = 0
-
-#: the kernel wrappers of the port's paths, by kernel name
-WRAPPERS = {
-    "flash_attention_causal": flash_attention_causal,
-    "flash_attention_noncausal": flash_attention_noncausal,
-    "gated_bias_attention": gated_bias_attention,
-    "append_kv": append_kv,
-    "flash_attention_bwd_dq": flash_attention_bwd_dq,
-    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-}
-
-
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
-
-
-def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+kernels.register(flash_attention_causal, flash_attention_noncausal, gated_bias_attention,
+                 append_kv, flash_attention_bwd_dq, flash_attention_bwd_dkv)

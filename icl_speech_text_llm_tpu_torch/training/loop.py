@@ -24,11 +24,11 @@ import torch
 
 from icl_speech_text_llm_tpu.registry import DatasetType
 
+from .. import kernels
 from ..data.collate import collate_icl_batch
 from ..data.packing import PackConfig
 from ..data.pipeline import PrefetchIterator
 from ..evaluation import evaluate_predictions
-from ..ops import flash_attention as fa
 from .checkpoint import copy_into, load_checkpoint, save_checkpoint
 from .step import TrainState, merge_params
 
@@ -114,13 +114,13 @@ class StepTimer:
 
     def start(self):
         self._sync()
-        self._counts = fa.launch_counts()
+        self._counts = kernels.launch_counts()
         self._t0 = time.perf_counter()
 
     def stop(self, examples: int):
         self._sync()
         self.step_seconds.append(time.perf_counter() - self._t0)
-        now = fa.launch_counts()
+        now = kernels.launch_counts()
         self.launches.append({k: now[k] - self._counts[k] for k in now})
         self.examples += examples
 

@@ -5,15 +5,20 @@ This file imports no jax, so it also runs on the machine with the card:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 (``--noconftest`` because ``tests/conftest.py`` sets up jax). Bounds: bf16
 outputs within 2e-2 of the f32-softmax plain version on valid rows, row
-max m within 1e-3, the KV append bit-exact, and the backward kernels' bf16
-gradients within 2e-2 × max |plain gradient| per tensor over valid rows.
+max m within 1e-3, the KV append bit-exact, the backward kernels' bf16
+gradients within 2e-2 × max |plain gradient| per tensor over valid rows, and
+the int4 (K10) and int8 (W8A16) matmuls within 1e-2 × max |plain| of their
+f32 plain versions on the same bf16 x.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from icl_speech_text_llm_tpu_torch import kernels
 from icl_speech_text_llm_tpu_torch.ops import flash_attention as tfa
+from icl_speech_text_llm_tpu_torch.ops import int4_matmul as tint4
+from icl_speech_text_llm_tpu_torch.ops import quant as tquant
 
 
 def _arrays(shapes, seed=0, scale=1.0):
@@ -138,9 +143,9 @@ def test_cuda_flash_attention_function_trains_through_the_kernels(cuda_device):
     w, = _cuda_inputs([(B, H, S, D)], cuda_device, 30)
     w = w * (torch.arange(S, device=cuda_device)[None, :] < lens[:, None])[:, None, :, None]
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    counts = tfa.launch_counts()
+    counts = kernels.launch_counts()
     (tfa.flash_attention(*leaves, lens, causal=True).float() * w.float()).sum().backward()
-    after = tfa.launch_counts()
+    after = kernels.launch_counts()
     for name in ("flash_attention_causal", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert after[name] == counts[name] + 1, name
     ref = [t.float().clone().requires_grad_() for t in (q, k, v)]
@@ -166,3 +171,72 @@ def test_cuda_forward_kernels_refuse_inputs_that_need_grad(cuda_device):
     with torch.no_grad():
         assert tfa.flash_attention_causal(q, k, v)[0].shape == q.shape
         assert tfa.gated_bias_attention(q, k, v, xh, bias, gw, gb, ga).shape == q.shape
+
+
+def _wq_err(y, ref):
+    """max |y − ref| relative to max |ref|."""
+    return ((y.float() - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,group", [
+    (4, 1024, 384, 128), (1, 512, 128, 128), (33, 1024, 256, 256), (256, 512, 512, 128),
+    (4, 2048, 640, 128)])
+def test_cuda_int4_kernel_matches_plain(cuda_device, M, K, N, group):
+    """K10 at decode (one 16-row tile, K split over blocks) and prefill row
+    counts (64-row tiles, a ragged last tile), groups of 128 and 256."""
+    w, = _arrays([(K, N)], 40, 0.05)
+    qt = {k: v.to(cuda_device) for k, v in tquant.quantize_tensor_int4(
+        torch.from_numpy(w), group=group).items()}
+    x, = _cuda_inputs([(M, K)], cuda_device, 41)
+    before = tint4.int4_matmul.launches
+    y = tint4.int4_matmul(x, qt["q4"], qt["s"])
+    torch.cuda.synchronize()
+    assert tint4.int4_matmul.launches == before + 1 and y.dtype == torch.bfloat16
+    assert _wq_err(y, tint4.int4_matmul_plain(x.float(), qt["q4"], qt["s"])) < 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_int4_kernel_reads_a_stacked_layer_in_place(cuda_device):
+    L, M, K, N = 3, 4, 1024, 256
+    w, = _arrays([(L, K, N)], 42, 0.05)
+    qt = {k: v.to(cuda_device) for k, v in tquant.quantize_tensor_int4(torch.from_numpy(w)).items()}
+    x, = _cuda_inputs([(M, K)], cuda_device, 43)
+    for layer in range(L):
+        y = tint4.int4_matmul(x, qt["q4"][layer], qt["s"][layer])
+        ref = tint4.int4_matmul_plain(x.float(), qt["q4"][layer], qt["s"][layer])
+        assert _wq_err(y, ref) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 1024, 256), (17, 512, 384), (256, 1024, 128),
+                                   (4, 2560, 1280)])
+def test_cuda_int8_kernel_matches_plain(cuda_device, M, K, N):
+    w, = _arrays([(K, N)], 44, 0.05)
+    qt = {k: v.to(cuda_device) for k, v in tquant.quantize_tensor(torch.from_numpy(w)).items()}
+    x, = _cuda_inputs([(M, K)], cuda_device, 45)
+    before = tint4.int8_matmul.launches
+    y = tint4.int8_matmul(x, qt["q"], qt["s"])
+    torch.cuda.synchronize()
+    assert tint4.int8_matmul.launches == before + 1 and y.dtype == torch.bfloat16
+    assert _wq_err(y, tint4.int8_matmul_plain(x.float(), qt["q"], qt["s"])) < 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_dequant_matmul_routes_by_rows(cuda_device):
+    """Up to 1024 rows on the card go to the kernels; more take the plain
+    dequantized route, as the JAX package's gate sends them to XLA."""
+    w, = _arrays([(512, 256)], 46, 0.05)
+    q4 = {k: v.to(cuda_device) for k, v in tquant.quantize_tensor_int4(torch.from_numpy(w)).items()}
+    q8 = {k: v.to(cuda_device) for k, v in tquant.quantize_tensor(torch.from_numpy(w)).items()}
+    counts = kernels.launch_counts()
+    for rows, launched in ((4, 1), (1024, 1), (1030, 0)):
+        x, = _cuda_inputs([(2, rows // 2, 512)], cuda_device, 47)
+        for w_, name in ((q4, "int4_matmul"), (q8, "int8_matmul")):
+            y = tquant.dequant_matmul(x, w_)
+            assert y.shape == (2, rows // 2, 256)
+            now = kernels.launch_counts()
+            assert now[name] - counts[name] == launched, (rows, name)
+            counts = now
+    with pytest.raises(TypeError):
+        tint4.int4_matmul(x.float()[0, :4], q4["q4"], q4["s"])

@@ -17,6 +17,7 @@ from jax.experimental import pallas as pl
 import jax.numpy as jnp
 
 from icl_speech_text_llm_tpu.ops import flash_attention as jfa
+from icl_speech_text_llm_tpu_torch import kernels
 from icl_speech_text_llm_tpu_torch.ops import flash_attention as tfa
 
 torch.set_num_threads(1)
@@ -123,7 +124,7 @@ def test_row_without_valid_key_is_zero():
 
 
 def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
-    tfa.reset_launch_counts()
+    kernels.reset_launch_counts()
     q, k, v = _t(*_arrays([(1, 2, 128, 64)] * 3, seed=11))
     lengths = torch.tensor([90])
     o = tfa.flash_attention(q, k, v, lengths, causal=True)
@@ -137,7 +138,7 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     ck = torch.zeros(1, 1, 2, 8, 4)
     tfa.append_kv(ck, ck.clone(), torch.ones(1, 1, 2, 1, 4), torch.ones(1, 1, 2, 1, 4),
                   torch.tensor([3]))
-    assert tfa.launch_counts() == dict.fromkeys(tfa.WRAPPERS, 0)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
 
 def test_wrappers_refuse_other_devices():

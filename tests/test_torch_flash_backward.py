@@ -23,6 +23,7 @@ from jax.experimental import pallas as pl
 
 from icl_speech_text_llm_tpu.ops import flash_attention as jfa
 from icl_speech_text_llm_tpu.ops.attention import repeat_kv as jrepeat_kv
+from icl_speech_text_llm_tpu_torch import kernels
 from icl_speech_text_llm_tpu_torch.ops import flash_attention as tfa
 
 torch.set_num_threads(1)
@@ -88,14 +89,14 @@ def test_wrapper_parts_equal_the_plain_backward_on_cpu():
     do = torch.from_numpy(_masked_do((B, H, S, D), [128, 50], seed=5))
     t = torch.from_numpy
     o, m, l = tfa.flash_attention_plain(t(q), t(k), t(v), lengths, True)
-    tfa.reset_launch_counts()
+    kernels.reset_launch_counts()
     dq, delta = tfa.flash_attention_bwd_dq(t(q), t(k), t(v), o, m, l, do, lengths, True)
     dk, dv = tfa.flash_attention_bwd_dkv(t(q), t(k), t(v), m, l, delta, do, lengths, True)
     want = tfa.flash_attention_bwd_plain(t(q), t(k), t(v), o, m, l, do, lengths, True)
     for g, w in zip((dq, dk, dv), want):
         assert torch.equal(g, w)
     assert torch.allclose(delta, (do * o).sum(-1))
-    assert tfa.launch_counts() == dict.fromkeys(tfa.WRAPPERS, 0)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -9,9 +9,10 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "icl_speech_text_llm_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "optax", "orbax", "pandas", "sklearn", "nltk")
-#: modules the walk must reach (the training slice's among them)
+#: modules the walk must reach (the training and quantized slices' among them)
 REQUIRED = ("training.step", "training.loop", "training.schedulers", "training.checkpoint",
-            "cli.train", "data.pipeline", "ops.flash_attention", "models.salmonn")
+            "cli.train", "data.pipeline", "ops.flash_attention", "models.salmonn",
+            "ops.quant", "ops.int4_matmul")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -46,7 +47,7 @@ def test_every_port_module_imports_without_jax_pandas_sklearn_nltk():
                          env={**os.environ, "PYTHONPATH": REPO}, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.strip().splitlines()[-1]) >= 31
+    assert int(out.stdout.strip().splitlines()[-1]) >= 33
 
 
 def test_no_jax_import_statement_in_the_port():
