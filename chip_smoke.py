@@ -9,36 +9,83 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                (one nvcc per source, in parallel);
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the shapes of the paths below, with the stated tolerances, plus
-               CUDA-event times of both;
+               CUDA-event times of both, its bound (the least time the H100
+               could take: the bytes it must move at 3.35 TB/s or its matmul
+               FLOPs at 989 TFLOP/s bf16, the larger) and, where one PyTorch
+               call computes the same function, that call's time;
   4. check   — one-layer-per-stack models, the bf16 kernel path on the card
                against the f32 plain path on the CPU with the same weights and
-               inputs: at salmonn-7b widths the first-token logits, then the
+               inputs: at salmonn-7b widths the first-token logits and 3
+               decode steps' logits through the flash-decode kernel, then the
                training loss and the LoRA / Q-Former gradients; at salmonn-13b
                widths with int4 weights and an int8 KV cache the first-token
-               logits and 3 decode steps' logits;
-  5. main    — the port's inference CLI at full width (random weights from a
-               seed), voxceleb requests of 6 clips each: salmonn-7b bf16 (8
-               requests), salmonn-13b --quantize_int4 --kv_int8 (8 requests),
-               salmonn-7b --quantize_int8 (4 requests), each run's kernel
-               launch counts read from that run alone;
+               logits and 3 decode steps' logits, with the default decode
+               attention and with the flash-decode kernel;
+  5. main    — the port's inference entry points at full width (random
+               weights from a seed), voxceleb requests of 6 clips each, each
+               run's kernel launch counts read from that run alone: the CLI on
+               salmonn-7b bf16 (8 requests), salmonn-13b --quantize_int4
+               --kv_int8 (8), salmonn-7b --quantize_int8 (4), salmonn-7b bf16
+               with --num_beams 4 --repetition_penalty 1.2 --min_new_tokens 2
+               (4); then create_model + run_inference on salmonn-7b bf16 with
+               use_flash_decode=True and BEATs lean_bias_flash (4), and on
+               salmonn-13b int4 + int8 KV with use_flash_decode=True and 4
+               sampled beams (4); then the batched BEATs attention schedule,
+               which no model config selects, through its entry point
+               gated_bias_attention(batch_block=True) on every BEATs layer of
+               a main-path batch of 24 clips;
   6. train   — the port's training CLI on salmonn-7b at full width: 4 optimizer
                steps (batch 4, seq 1024), validation by generation and a
                checkpoint, with each step's kernel launches read; then 2 steps
                with full activation checkpointing.
 The line before the last is a JSON object of the kernels (launch counts from
 the run of each kernel's own path: the salmonn-13b int4 run for the int4 and
-int8 matmuls, the train phase for the others); the last line is
-{"ok": true, "device": {...}} and is printed only when every phase passed.
+int8 matmuls, the flash-decode runs of phase main for the flash-decode
+kernels and the K9 schedule, phase main's BEATs-layer run for the K8
+schedule, the train phase for the others); the last
+line is {"ok": true, "device": {...}} and is printed only when every phase
+passed. Takes ~4 minutes on one H100.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import tempfile
 import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+
+
+def _bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    ``nbytes`` moved and ``flops`` bf16 matmul FLOPs, the larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _row_case(label, ker, ref):
+    """An attention kernel's output against its plain version, row by row
+    (the last axis: one query's head vector): the largest |kernel − plain|
+    in a row over that row's largest |plain|, bound 2e-2 (~2.5 bf16 steps
+    of the row's largest element), so that rows of small outputs are held
+    as tightly as rows of large ones. → (label, worst row ratio, 2e-2, max
+    abs error)."""
+    d = (ker.float() - ref.float()).abs()
+    scale = ref.float().abs().amax(-1)
+    ratio = (d.amax(-1) / scale.clamp_min(1e-30)).max().item()
+    return f"{label} (worst row's max |err| / max |plain|)", ratio, 2e-2, d.max().item()
+
+
+def _causal_pairs(S, lens):
+    """(query row, key) pairs a causal pass with key lengths computes, per
+    (sample, head): Σ_i min(i + 1, len)."""
+    return sum(n * (n + 1) // 2 + (S - n) * n for n in lens)
 
 
 def _device_phase():
@@ -123,6 +170,8 @@ def _wq_kernel_rows(report, gen):
     def bound(y, ref):
         return (y.float() - ref).abs().max().item(), 1e-2 * ref.abs().max().item()
 
+    group = 128
+
     for name, kernel, plain, source, replaces, cases in (
             ("int4_matmul", wq.int4_matmul, wq.int4_matmul_plain,
              "icl_speech_text_llm_tpu_torch/csrc/wq_matmul.cu",
@@ -152,10 +201,130 @@ def _wq_kernel_rows(report, gen):
                   f"{nbytes / 1e6:.1f} MB, {splits} K splits), plain {plain_ms:.4f} ms",
                   flush=True)
             if timed is None:
-                timed = (ms, plain_ms)
+                timed = (ms, plain_ms, _bound(nbytes, 2.0 * M * K * N))
             del x, w, s, y, ref
-        report(name, "cuda", source, replaces, errs, *timed)
+        # no single PyTorch call takes these weight layouts: library_ms null
+        report(name, "cuda", source, replaces, errs, *timed, None)
     torch.cuda.empty_cache()
+
+
+def _decode_kernel_rows(report, gen):
+    """K7 at the decode steps' shapes, against its plain version: the 7B
+    bf16 stacked cache (32, 4, 32, 1152, 128) with ~900 cached positions a
+    sample (timed, one layer a call, cycling over the 32 layers, so each call
+    reads its rows from device memory), the same with 4 beams (16 rows) and
+    with GQA (n_rep 4); the 13B int8 cache (40, 4, 40, 1152, 128) with f32
+    scales (timed) and with 4 beams. The current token's column is folded in
+    as on the main path. Bound per output row (``_row_case``); the plain
+    version's arithmetic is the kernel's: f32 scores, p in bf16 for P·V.
+    Library: one F.scaled_dot_product_attention over the cache rows with the
+    current token's column concatenated (the concatenation, a copy of the
+    cache, made outside the timed call) under a boolean length mask; none for
+    the int8 cache, which no PyTorch call takes."""
+    import torch
+    import torch.nn.functional as F
+
+    from icl_speech_text_llm_tpu_torch.models.llama import _xla_decode_attn
+    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
+    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_kv
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    D = 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def case(L, B, H, Hkv, S, lens, quant):
+        """q, the stacked cache (k, v[, k_s, v_s]), lengths, the self column."""
+        q, kn, vn = randn(B, H, 1, D), randn(B, Hkv, 1, D), randn(B, Hkv, 1, D)
+        rows, scales = [], []
+        for _ in range(2):  # k, v; layer by layer, no f32 copy of a whole cache
+            c = torch.empty((L, B, Hkv, S, D), dtype=torch.int8 if quant else bf, device=dev)
+            s = torch.empty((L, B, Hkv, S), dtype=torch.float32, device=dev) if quant else None
+            for l in range(L):
+                x = randn(B, Hkv, S, D)
+                if quant:
+                    c[l], s[l] = quantize_kv(x)
+                else:
+                    c[l] = x
+            rows.append(c)
+            scales.append(s)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cache = (*rows, *scales) if quant else tuple(rows)
+        return q, cache, lengths, (kn, vn)
+
+    def kernel(q, cache, lengths, self_kv, layer):
+        fn = fa.flash_decode_attention_q8 if len(cache) == 4 else fa.flash_decode_attention
+        return fn(q, *cache, lengths, self_kv=self_kv, layer=layer)
+
+    def plain(q, cache, lengths, self_kv, layer):
+        c = [t[layer] for t in cache]
+        return fa.flash_decode_attention_plain(q, c[0], c[1], lengths, self_kv=self_kv,
+                                               k_s=c[2] if len(c) == 4 else None,
+                                               v_s=c[3] if len(c) == 4 else None)
+
+    for name, quant, cases in (
+            ("flash_decode_attention", False, [
+                ("7B bf16 (4, 32, 1152), layer 31", 32, 4, 32, 32, [903, 897, 900, 895]),
+                ("7B bf16 4 beams (16, 32, 1152)", 32, 16, 32, 32, [903] * 4 + [897] * 4
+                 + [900] * 4 + [895] * 4),
+                ("GQA n_rep 4 (4, 32 / 8, 1152)", 4, 4, 32, 8, [1151, 640, 1, 0])]),
+            ("flash_decode_attention_q8", True, [
+                ("13B int8 (4, 40, 1152), layer 39", 40, 4, 40, 40, [903, 897, 900, 895]),
+                ("13B int8 4 beams (16, 40, 1152)", 40, 16, 40, 40, [903] * 4 + [897] * 4
+                 + [900] * 4 + [895] * 4)])):
+        errs, timed = [], None
+        for label, L, B, H, Hkv, lens in cases:
+            q, cache, lengths, self_kv = case(L, B, H, Hkv, 1152, lens, quant)
+            layer = L - 1
+            got = kernel(q, cache, lengths, self_kv, layer)
+            ref = plain(q, cache, lengths, self_kv, layer)
+            torch.cuda.synchronize()
+            errs.append(_row_case(label, got, ref))
+            if "beams" in label and not quant:
+                # the beam step's other cache cost: both leaves follow the beams
+                perm = torch.arange(B, device=dev).flip(0)
+                reorder_ms = _device_ms(lambda i=0: [c.index_select(1, perm) for c in cache],
+                                        reps=5)
+                print(f"  {label}: reorder of the whole cache (index_select of k and v, "
+                      f"{2 * cache[0].numel() * 2 / 1e9:.2f} GB each way) {reorder_ms:.4f} ms",
+                      flush=True)
+            if timed is None and not quant:
+                # the default decode attention (``"xla"``) on the same layer
+                xla_ms = _device_ms(lambda i=0: _xla_decode_attn(
+                    None, q, cache[0][i % L], cache[1][i % L], *self_kv, lengths))
+                print(f"  {label}: _xla_decode_attn {xla_ms:.4f} ms a layer", flush=True)
+            if timed is None:
+                ms = _device_ms(lambda i=0: kernel(q, cache, lengths, self_kv, i % L))
+                plain_ms = _device_ms(lambda i=0: plain(q, cache, lengths, self_kv, i % L),
+                                      reps=5)
+                # k and v rows below the lengths (int8: + two f32 scales a row),
+                # q and o, the current token's k and v
+                row_bytes = 2 * D + 8 if quant else 4 * D
+                nbytes = Hkv * sum(lens) * row_bytes + 2 * 2 * B * H * D + 2 * 2 * B * Hkv * D
+                flops = 4.0 * D * H * sum(n + 1 for n in lens)
+                library_ms = None
+                if not quant:
+                    S = cache[0].shape[3]
+                    kc = torch.cat([cache[0][layer], self_kv[0]], dim=2)
+                    vc = torch.cat([cache[1][layer], self_kv[1]], dim=2)
+                    cols = torch.arange(S + 1, device=dev)
+                    mask = ((cols[None, :] < lengths[:, None]) | (cols[None, :] == S))
+                    mask = mask[:, None, None, :]
+                    lib = F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)
+                    errs.append((f"{label}: SDPA over the concatenated cache vs plain",
+                                 (lib.float() - ref.float()).abs().max().item(), 2e-2))
+                    library_ms = _device_ms(lambda i=0: F.scaled_dot_product_attention(
+                        q, kc, vc, attn_mask=mask))
+                    del kc, vc
+                timed = (ms, plain_ms, _bound(nbytes, flops), library_ms)
+                print(f"  {name} {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of "
+                      f"{nbytes / 1e6:.2f} MB), plain {plain_ms:.4f} ms", flush=True)
+            del q, cache, lengths, self_kv, got, ref
+            torch.cuda.empty_cache()
+        report(name, "cuda", "icl_speech_text_llm_tpu_torch/csrc/flash_decode.cu",
+               "icl_speech_text_llm_tpu/ops/flash_attention.py:1281", errs, *timed)
 
 
 def _kernel_phase():
@@ -164,6 +333,7 @@ def _kernel_phase():
     and 13B int8 caches (K4), the 7B training backward (K5, K6), the 13B
     int4 and 7B / 13B int8 products (K10, W8A16)."""
     import torch
+    import torch.nn.functional as F
 
     from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
 
@@ -176,19 +346,26 @@ def _kernel_phase():
 
     rows = []
 
-    def report(name, route, source, replaces, errs, ms, plain_ms):
+    def report(name, route, source, replaces, errs, ms, plain_ms, bound, library_ms):
+        """One kernel row; ``bound`` = (ms, "bytes" | "operations") from this
+        run's inputs, ``library_ms`` a PyTorch call's time or None."""
         worst = 0.0
-        for what, err, tol in errs:
+        for what, err, tol, *abs_err in errs:  # a row case also gives its abs error
             ok = err <= tol
-            print(f"  {name} {what}: max_abs_err {err:.3e} (tolerance {tol:.1e}) "
+            extra = f", max_abs_err {abs_err[0]:.3e}" if abs_err else ""
+            kind = "" if abs_err else "max_abs_err "
+            print(f"  {name} {what}: {kind}{err:.3e} (tolerance {tol:.1e}){extra} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"{name} {what} error {err} > {tol}")
-            worst = max(worst, err)
-        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+            worst = max(worst, abs_err[0] if abs_err else err)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}), library call {lib}", flush=True)
         rows.append({"name": name, "route": route, "source": source,
                      "replaces": replaces, "max_abs_err": worst,
-                     "ms": ms, "plain_ms": plain_ms})
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "library_ms": library_ms})
 
     def valid_rows_err(a, b, lengths):
         d = (a.float() - b.float()).abs()
@@ -223,11 +400,19 @@ def _kernel_phase():
     errs += [(f"13B (4, 40, 1024, 128) {what}", e, tol)
              for what, e, tol in stat_errs(ker_13, ref_13, lens)]
     del q13, k13, v13, ker_13, ref_13, kg, vg, ker_g, ref_g
+    # library: one SDPA call with the causal and key-length mask
+    rows_i = torch.arange(S, device=dev)
+    sdpa_mask = ((rows_i[None, :] <= rows_i[:, None])[None]
+                 & (rows_i[None, None, :] < lengths[:, None, None]))[:, None]
+    nbytes = 2 * 2 * B * H * S * D + 2 * 2 * H * D * sum(lens) + 2 * 4 * B * H * S
     report("flash_attention_causal", "cuda",
            "icl_speech_text_llm_tpu_torch/csrc/flash_fwd.cu",
            "icl_speech_text_llm_tpu/ops/flash_attention.py:145", errs,
            _time_ms(lambda: fa.flash_attention_causal(q, k, v, lengths)),
-           _time_ms(lambda: fa.flash_attention_plain(q, k, v, lengths, True)))
+           _time_ms(lambda: fa.flash_attention_plain(q, k, v, lengths, True)),
+           _bound(nbytes, 4.0 * D * H * _causal_pairs(S, lens)),
+           _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)))
+    del sdpa_mask
 
     # K2: Whisper encoder, (24, 20, 1500, 64) non-causal, all 1500 keys valid
     B, H, S, D = 24, 20, 1500, 64
@@ -239,7 +424,9 @@ def _kernel_phase():
            "icl_speech_text_llm_tpu/ops/flash_attention.py:238",
            stat_errs(ker, ref, [S] * B),
            _time_ms(lambda: fa.flash_attention_noncausal(q, k, v)),
-           _time_ms(lambda: fa.flash_attention_plain(q, k, v, None, False)))
+           _time_ms(lambda: fa.flash_attention_plain(q, k, v, None, False)),
+           _bound(4 * 2 * B * H * S * D + 2 * 4 * B * H * S, 4.0 * D * B * H * S * S),
+           _time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
     del q, k, v, ker, ref
 
     # K3: BEATs gated relative-position bias, (24, 12, 1496, 64)
@@ -252,13 +439,56 @@ def _kernel_phase():
     args = (q, k, v, xh, bias, grep_w, grep_b, grep_a)
     ker = fa.gated_bias_attention(*args)
     ref = fa.gated_bias_attention_plain(*args)
+    # the work of K3, K8 and K9: q·kᵀ and p·v over every (row, key) pair; the
+    # bias (H, S, S) bf16 read once; K9 reads f32 gate rows instead of xh
+    gated_flops = 4.0 * D * B * H * S * S + 2.0 * 8 * D * B * H * S
+    bias_bytes = 2 * H * S * S
     report("gated_bias_attention", "cuda",
            "icl_speech_text_llm_tpu_torch/csrc/gated_bias.cu",
            "icl_speech_text_llm_tpu/ops/flash_attention.py:840",
-           [("o", valid_rows_err(ker, ref, [S] * B), 2e-2)],
+           [_row_case("o", ker, ref)],
            _time_ms(lambda: fa.gated_bias_attention(*args)),
-           _time_ms(lambda: fa.gated_bias_attention_plain(*args)))
-    del args, q, k, v, xh, bias, ker, ref
+           _time_ms(lambda: fa.gated_bias_attention_plain(*args)),
+           _bound(5 * 2 * B * H * S * D + bias_bytes, gated_flops), None)
+    del ker, ref
+    # K8: the batched schedule, the main path's ragged-free BEATs shape and a
+    # ragged one (the last chunk short: B = 22, lengths ≤ S). K8 and K9 are
+    # held to the f32-exp2 form of their plain versions, the kernels'
+    # arithmetic; the Pallas kernels' bf16 rounding (the CPU path's) would
+    # put a floor of ~8e-3 under the comparison
+    ker = fa.gated_bias_attention(*args, batch_block=True)
+    ref = fa.gated_bias_batched_plain(*args, pallas_rounding=False)
+    errs = [_row_case("o (24, 12, 1496, 64)", ker, ref)]
+    lens22 = [S - 37 * i for i in range(22)]
+    sub22 = (q[:22], k[:22], v[:22], xh[:22], bias, grep_w, grep_b, grep_a,
+             torch.tensor(lens22, device=dev))
+    errs.append(_row_case("o B = 22, ragged lengths",
+                         fa.gated_bias_attention(*sub22, batch_block=True),
+                         fa.gated_bias_batched_plain(*sub22, pallas_rounding=False)))
+    report("gated_bias_attention_batched", "cuda",
+           "icl_speech_text_llm_tpu_torch/csrc/gated_bias.cu",
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:802", errs,
+           _time_ms(lambda: fa.gated_bias_attention(*args, batch_block=True)),
+           _time_ms(lambda: fa.gated_bias_batched_plain(*args, pallas_rounding=False)),
+           _bound(5 * 2 * B * H * S * D + bias_bytes, gated_flops), None)
+    del ker, ref, sub22
+    # K9: the gate rows precomputed (as BEATs lean_bias_flash computes them)
+    gate = fa.gate_rows(xh, grep_w, grep_b, grep_a)
+    rargs = (q, k, v, gate, bias)
+    ker = fa.gated_bias_attention_rows(*rargs)
+    ref = fa.gated_bias_rows_plain(*rargs, pallas_rounding=False)
+    errs = [_row_case("o (24, 12, 1496, 64)", ker, ref)]
+    sub22 = (q[:22], k[:22], v[:22], gate[:22], bias, torch.tensor(lens22, device=dev))
+    errs.append(_row_case("o B = 22, ragged lengths", fa.gated_bias_attention_rows(*sub22),
+                         fa.gated_bias_rows_plain(*sub22, pallas_rounding=False)))
+    report("gated_bias_attention_rows", "cuda",
+           "icl_speech_text_llm_tpu_torch/csrc/gated_bias.cu",
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:1044", errs,
+           _time_ms(lambda: fa.gated_bias_attention_rows(*rargs)),
+           _time_ms(lambda: fa.gated_bias_rows_plain(*rargs, pallas_rounding=False)),
+           _bound(4 * 2 * B * H * S * D + 4 * B * H * S + bias_bytes, gated_flops), None)
+    del args, rargs, sub22, q, k, v, xh, bias, gate, ker, ref
+    torch.cuda.empty_cache()
 
     # K4: decode-step append, bit-exact: into the Vicuna-7B bf16 cache (timed)
     # and into the salmonn-13b --kv_int8 cache, int8 (40, 4, 40, 1152, 128)
@@ -282,13 +512,18 @@ def _kernel_phase():
     L, B, Hkv, S, D = 32, 4, 32, 1152, 128
     ck, cv = randn(L, B, Hkv, S, D), randn(L, B, Hkv, S, D)
     nk, nv = randn(L, B, Hkv, 1, D), randn(L, B, Hkv, 1, D)
+    # bytes: the new rows read once and written once, k and v; no single
+    # PyTorch call writes both caches (index_put_ is one call a cache)
     report("append_kv", "cuda", "icl_speech_text_llm_tpu_torch/csrc/append_kv.cu",
            "icl_speech_text_llm_tpu/ops/flash_attention.py:1438",
            [("7B bf16 cache (bit-exact)", append_err(ck, cv, nk, nv, pos), 0.0),
             ("13B int8 cache (40, 4, 40, 1152, 128) (bit-exact)", err_i8, 0.0)],
            _time_ms(lambda: fa.append_kv(ck, cv, nk, nv, pos), reps=50),
-           _time_ms(lambda: fa.append_kv_plain(ck, cv, nk, nv, pos), reps=50))
+           _time_ms(lambda: fa.append_kv_plain(ck, cv, nk, nv, pos), reps=50),
+           _bound(4 * L * B * Hkv * D * 2, 0.0), None)
     del ck, cv
+    torch.cuda.empty_cache()
+    _decode_kernel_rows(report, gen)
 
     # K5/K6: the LLM training backward, (4, 32, 1024, 128) causal with ragged
     # lengths and do zero past each length, the same with Hkv = 16 (GQA), and
@@ -329,11 +564,19 @@ def _kernel_phase():
         if timed is None:  # the main path's shape
             args = (q, k, v, o, m, l, do, lengths, causal)
             args_kv = (q, k, v, m, l, delta, do, lengths, causal)
+            pairs = H * _causal_pairs(S, lens)
+            qo = 2 * B * H * S * D  # bytes of one (B, H, S, D) bf16 tensor
+            kv_len = 2 * 2 * Hkv * D * sum(lens)  # k and v rows below the lengths
+            # dq: q·kᵀ, do·vᵀ, ds·k; dk/dv: those two and pᵀ·do, dsᵀ·q. No
+            # single PyTorch call returns dq alone or dk/dv alone.
             timed = {
                 "dq": (_time_ms(lambda: fa.flash_attention_bwd_dq(*args)),
-                       _time_ms(lambda: fa.flash_attention_bwd_dq_plain(*args))),
+                       _time_ms(lambda: fa.flash_attention_bwd_dq_plain(*args)),
+                       _bound(4 * qo + kv_len + 3 * 4 * B * H * S, 6.0 * D * pairs), None),
                 "dkv": (_time_ms(lambda: fa.flash_attention_bwd_dkv(*args_kv)),
-                        _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args_kv)))}
+                        _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args_kv)),
+                        _bound(2 * qo + kv_len + 2 * 2 * B * Hkv * S * D + 3 * 4 * B * H * S,
+                               8.0 * D * pairs), None)}
         del q, k, v, do, o, m, l, dq, dk, dv, delta, f, dq_p, dk_p, dv_p, delta_p
         torch.cuda.empty_cache()
     report("flash_attention_bwd_dq", "cuda", "icl_speech_text_llm_tpu_torch/csrc/flash_bwd.cu",
@@ -346,91 +589,22 @@ def _kernel_phase():
     return rows
 
 
-def _reference_phase():
-    """salmonn-7b widths with one layer per stack: the bf16 kernel path on the
-    card against the f32 plain path on the CPU, same weights and inputs."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-
-    from icl_speech_text_llm_tpu_torch.inference.engine import first_token_logits
-    from icl_speech_text_llm_tpu_torch.models.salmonn import init_salmonn, salmonn_7b
-
-    full = salmonn_7b()
-    cfg = dataclasses.replace(
-        full,
-        whisper=dataclasses.replace(full.whisper, n_layers=1),
-        beats=dataclasses.replace(full.beats, n_layers=1),
-        llm=dataclasses.replace(full.llm, n_layers=1),
+def _one_layer(cfg):
+    """A SALMONN config with one layer per stack at the same widths."""
+    return dataclasses.replace(
+        cfg,
+        whisper=dataclasses.replace(cfg.whisper, n_layers=1),
+        beats=dataclasses.replace(cfg.beats, n_layers=1),
+        llm=dataclasses.replace(cfg.llm, n_layers=1),
     )
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    params = init_salmonn(cfg, gen, torch.device("cuda"), torch.bfloat16)
-    rng = np.random.RandomState(0)
-    B, n_slots, L = 1, 2, 256
-    wavs = (rng.randn(B, n_slots, 5 * 16000) * 3000).astype(np.int16)
-    n_text = 40
-    text = rng.randint(3, cfg.llm.vocab_size, size=(B, n_text)).astype(np.int32)
-    # prompt: 20 text positions, clip 0 (88), 20 text, clip 1 (88); rest pad
-    T_a = cfg.audio_tokens_per_slot
-    idx = np.concatenate([1 + np.arange(20), 1 + n_text + np.arange(T_a),
-                          21 + np.arange(20), 1 + n_text + T_a + np.arange(T_a)])
-    gather = np.zeros((B, L), np.int64)
-    gather[0, :len(idx)] = idx
-    batch = {"text_tokens": text, "gather_idx": gather,
-             "seq_lengths": np.array([len(idx)], np.int32), "wavs": wavs}
-
-    def to(dev):
-        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-
-    got = first_token_logits(cfg, params, to("cuda")).float().cpu()
-    cpu_params = _tree_to(params, torch.device("cpu"), torch.float32)
-    ref = first_token_logits(dataclasses.replace(cfg, compute_dtype=torch.float32),
-                             cpu_params, to("cpu")).float()
-    if not torch.isfinite(got).all():
-        raise AssertionError("non-finite logits on the card")
-    err = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    tol = 5e-2 * scale
-    print(f"  first-token logits {tuple(got.shape)}: max_abs_err {err:.4e} vs f32 CPU "
-          f"(tolerance {tol:.4e} = 5% of max |logit| {scale:.4f}); argmax "
-          f"{got.argmax(-1).tolist()} vs {ref.argmax(-1).tolist()}", flush=True)
-    if err > tol:
-        raise AssertionError(f"reference check failed: {err} > {tol}")
-    del params, cpu_params
-    torch.cuda.empty_cache()
 
 
-def _quant_reference_phase():
-    """salmonn-13b widths with one layer per stack, the decoder quantized to
-    int4 by the main path's ``quantize_decoder`` (the lm_head int8) and an
-    int8 KV cache: the bf16 kernel path on the card (K10 in the M = 256
-    prefill and the M = 1 decode steps, W8A16 for the logits) against the
-    f32 plain path on the CPU on the same quantized tree. The decode steps
-    feed both sides the CPU path's greedy tokens."""
-    import dataclasses
-
+def _check_batch(cfg, seed):
+    """One request: 20 text positions, clip 0 (88), 20 text, clip 1 (88) of
+    5 s clips, in a 256-position prompt → (batch, lengths)."""
     import numpy as np
-    import torch
 
-    from icl_speech_text_llm_tpu_torch import kernels
-    from icl_speech_text_llm_tpu_torch.inference.engine import prefill, speech_sequence
-    from icl_speech_text_llm_tpu_torch.models.llama import decode_step, embed_tokens, lm_logits
-    from icl_speech_text_llm_tpu_torch.models.salmonn import init_salmonn, salmonn_13b
-    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_decoder
-
-    full = salmonn_13b()
-    cfg = dataclasses.replace(
-        full,
-        whisper=dataclasses.replace(full.whisper, n_layers=1),
-        beats=dataclasses.replace(full.beats, n_layers=1),
-        llm=dataclasses.replace(full.llm, n_layers=1),
-    )
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
-    params = init_salmonn(cfg, gen, dev, torch.bfloat16)
-    quantize_decoder(params["llm"], bits=4)
-    rng = np.random.RandomState(2)
+    rng = np.random.RandomState(seed)
     B, n_slots, L, n_text = 1, 2, 256, 40
     T_a = cfg.audio_tokens_per_slot
     wavs = (rng.randn(B, n_slots, 5 * 16000) * 3000).astype(np.int16)
@@ -439,56 +613,145 @@ def _quant_reference_phase():
                           21 + np.arange(20), 1 + n_text + T_a + np.arange(T_a)])
     gather = np.zeros((B, L), np.int64)
     gather[0, :len(idx)] = idx
-    batch = {"text_tokens": text, "gather_idx": gather, "wavs": wavs}
-    lengths = np.array([len(idx)], np.int32)
-    scaling = cfg.lora.scaling
+    return {"text_tokens": text, "gather_idx": gather, "wavs": wavs}, \
+        np.array([len(idx)], np.int32)
 
-    @torch.inference_mode()
-    def run(cfg, params, device, tokens):
-        """First-token logits, then one decode step per given token."""
+
+def _logits_run(cfg, params, batch, lengths, device, tokens, kv_int8, attention):
+    """First-token logits, then one decode step (``attention``) per given
+    token → a list of (1, V) f32 CPU tensors."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.inference.engine import prefill, speech_sequence
+    from icl_speech_text_llm_tpu_torch.models.llama import decode_step, embed_tokens, lm_logits
+
+    with torch.inference_mode():
         seq = speech_sequence(cfg, params, {k: torch.as_tensor(v, device=device)
                                             for k, v in batch.items()})
         cur = torch.as_tensor(lengths, device=device)
-        logits, cache = prefill(cfg.llm, params["llm"], seq, cur, L + 128, params["lora"],
-                                scaling, cfg.compute_dtype, kv_int8=True)
+        scaling = cfg.lora.scaling
+        logits, cache = prefill(cfg.llm, params["llm"], seq, cur, seq.shape[1] + 128,
+                                params["lora"], scaling, cfg.compute_dtype, kv_int8=kv_int8)
         out = [logits.float().cpu()]
         for tok in tokens:
             emb = embed_tokens(params["llm"], torch.tensor([[tok]], device=device),
                                dtype=cfg.compute_dtype)
             hidden, cache = decode_step(cfg.llm, params["llm"], emb, cache, cur,
-                                        params["lora"], scaling)
+                                        params["lora"], scaling, attention)
             out.append(lm_logits(cfg.llm, params["llm"], hidden)[:, 0].float().cpu())
             cur = cur + 1
-        return out
+    return out
 
-    cpu_params = _tree_to(params, torch.device("cpu"), torch.float32)
+
+def _cpu_reference(cfg, params, batch, lengths, kv_int8, steps=3):
+    """The f32 plain path on the CPU and its greedy tokens → (logits list,
+    tokens)."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import DecodeAttention
+
     cpu_cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
-    ref = run(cpu_cfg, cpu_params, torch.device("cpu"), [])
+    cpu_params = _tree_to(params, torch.device("cpu"), torch.float32)
     toks = []
-    for _ in range(3):  # the CPU path's greedy tokens
+    ref = _logits_run(cpu_cfg, cpu_params, batch, lengths, "cpu", toks, kv_int8,
+                      DecodeAttention.XLA)
+    for _ in range(steps):
         toks.append(int(ref[-1].argmax(-1)[0]))
-        ref = run(cpu_cfg, cpu_params, torch.device("cpu"), toks)
-    before = kernels.launch_counts()
-    got = run(cfg, params, dev, toks)
-    torch.cuda.synchronize()
-    after = kernels.launch_counts()
-    launched = {k: after[k] - before[k] for k in ("int4_matmul", "int8_matmul", "append_kv")}
-    print(f"  13B int4 + int8 KV one-layer check, launches {launched} "
-          f"(need int4_matmul 7 × 4, int8_matmul 4, append_kv 3)", flush=True)
-    if launched["int4_matmul"] < 28 or launched["int8_matmul"] < 4 or launched["append_kv"] < 3:
-        raise AssertionError(f"the quantized check did not run its kernels: {launched}")
+        ref = _logits_run(cpu_cfg, cpu_params, batch, lengths, "cpu", toks, kv_int8,
+                          DecodeAttention.XLA)
+    return ref, toks
+
+
+def _compare_logits(label, got, ref):
+    import torch
+
     for i, (g, r) in enumerate(zip(got, ref)):
         if not torch.isfinite(g).all():
-            raise AssertionError(f"non-finite logits on the card (step {i})")
+            raise AssertionError(f"{label}: non-finite logits on the card (step {i})")
         err = (g - r).abs().max().item()
         tol = 5e-2 * r.abs().max().item()
         what = "first-token" if i == 0 else f"decode step {i}"
-        print(f"  {what} logits: max_abs_err {err:.4e} vs f32 CPU (tolerance {tol:.4e} = 5% "
-              f"of max |logit|); argmax {g.argmax(-1).tolist()} vs {r.argmax(-1).tolist()}",
-              flush=True)
+        print(f"  {label} {what} logits: max_abs_err {err:.4e} vs f32 CPU (tolerance "
+              f"{tol:.4e} = 5% of max |logit|); argmax {g.argmax(-1).tolist()} vs "
+              f"{r.argmax(-1).tolist()}", flush=True)
         if err > tol:
-            raise AssertionError(f"quantized reference check failed at {what}: {err} > {tol}")
-    del params, cpu_params
+            raise AssertionError(f"{label}: reference check failed at {what}: {err} > {tol}")
+
+
+def _checked_launches(label, fn, need):
+    """Run ``fn`` and require at least ``need[name]`` launches of each kernel."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+
+    before = kernels.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    launched = {k: after[k] - before[k] for k in need}
+    print(f"  {label}: launches {launched} (need {need})", flush=True)
+    if any(launched[k] < n for k, n in need.items()):
+        raise AssertionError(f"{label} did not run its kernels: {launched}")
+    return out
+
+
+def _reference_phase():
+    """salmonn-7b widths with one layer per stack: the bf16 kernel path on the
+    card against the f32 plain path on the CPU, same weights and inputs: the
+    first-token logits, then 3 decode steps through the flash-decode kernel
+    (K7) fed the CPU path's greedy tokens."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import DecodeAttention
+    from icl_speech_text_llm_tpu_torch.models.salmonn import init_salmonn, salmonn_7b
+
+    cfg = _one_layer(salmonn_7b())
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = init_salmonn(cfg, gen, dev, torch.bfloat16)
+    batch, lengths = _check_batch(cfg, 0)
+    ref, toks = _cpu_reference(cfg, params, batch, lengths, kv_int8=False)
+    got = _checked_launches(
+        "7B bf16 one-layer check with K7",
+        lambda: _logits_run(cfg, params, batch, lengths, dev, toks, False,
+                            DecodeAttention.FLASH),
+        {"flash_decode_attention": 3, "flash_attention_causal": 1, "append_kv": 3})
+    _compare_logits("7B bf16", got, ref)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _quant_reference_phase():
+    """salmonn-13b widths with one layer per stack, the decoder quantized to
+    int4 by the main path's ``quantize_decoder`` (the lm_head int8) and an
+    int8 KV cache: the bf16 kernel path on the card (K10 in the M = 256
+    prefill and the M = 1 decode steps, W8A16 for the logits; the decode
+    attention first the default, then the flash-decode kernel on the int8
+    cache) against the f32 plain path on the CPU on the same quantized tree.
+    The decode steps feed both sides the CPU path's greedy tokens."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import DecodeAttention
+    from icl_speech_text_llm_tpu_torch.models.salmonn import init_salmonn, salmonn_13b
+    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_decoder
+
+    cfg = _one_layer(salmonn_13b())
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = init_salmonn(cfg, gen, dev, torch.bfloat16)
+    quantize_decoder(params["llm"], bits=4)
+    batch, lengths = _check_batch(cfg, 2)
+    ref, toks = _cpu_reference(cfg, params, batch, lengths, kv_int8=True)
+    for label, attention, need in (
+            ("13B int4 + int8 KV", DecodeAttention.XLA, {}),
+            ("13B int4 + int8 KV with K7 q8", DecodeAttention.FLASH,
+             {"flash_decode_attention_q8": 3})):
+        got = _checked_launches(
+            label + " one-layer check",
+            lambda: _logits_run(cfg, params, batch, lengths, dev, toks, True, attention),
+            {"int4_matmul": 7 * 4, "int8_matmul": 4, "append_kv": 3, **need})
+        _compare_logits(label, got, ref)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -507,8 +770,6 @@ def _train_check_phase():
     and K6 backward) against the f32 plain path on the CPU, same weights and
     batch. LoRA B is drawn non-zero so that the A gradients are non-zero
     too; the Q-Former gradient flows back through dq, dk and dv."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -520,13 +781,7 @@ def _train_check_phase():
     )
     from icl_speech_text_llm_tpu_torch.training.step import merge_params, split_params, tree_map
 
-    full = salmonn_7b()
-    cfg = dataclasses.replace(
-        full,
-        whisper=dataclasses.replace(full.whisper, n_layers=1),
-        beats=dataclasses.replace(full.beats, n_layers=1),
-        llm=dataclasses.replace(full.llm, n_layers=1),
-    )
+    cfg = _one_layer(salmonn_7b())
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     params = init_salmonn(cfg, gen, dev, torch.bfloat16, trainable_dtype=torch.float32)
@@ -599,23 +854,18 @@ def _tree_to(tree, device, dtype):
     return tree.to(device)
 
 
-def _main_run(out_dir, model_type, extra, n_requests, need, max_new=10):
-    """One run of the inference CLI at full width on the card; returns the
-    kernel launch counts of that run alone."""
+def _checked_run(label, run, n_requests, need, max_new=10):
+    """One inference run at full width on the card: ``run()`` → the paths of
+    its results and metrics JSON. Launch counts are set to 0 just before the
+    run and read just after; returns them."""
     import torch
 
     from icl_speech_text_llm_tpu_torch import kernels
-    from icl_speech_text_llm_tpu_torch.cli import inference
 
-    argv = ["--model_type", model_type, "--dataset_type", "voxceleb", "--synthetic",
-            "--input_mode", "speech_only", "--fewshot_mode", "speech",
-            "--num_examples", "5", "--batch_size", "4", "--max_samples", str(n_requests),
-            "--seq_len", "1024", "--text_len", "448", "--max_new_tokens", str(max_new),
-            "--device", "cuda", "--results_dir", out_dir, "--run_name", "chip_smoke", *extra]
-    print(f"  {model_type} {' '.join(extra) or 'bf16'}:", flush=True)
+    print(f"  {label}:", flush=True)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    paths = inference.main(argv)
+    paths = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -652,21 +902,173 @@ def _main_run(out_dir, model_type, extra, n_requests, need, max_new=10):
     return counts
 
 
+def _main_run(out_dir, model_type, extra, n_requests, need, max_new=10):
+    """cli/inference.py at full width on the card; returns the run's kernel
+    launch counts."""
+    from icl_speech_text_llm_tpu_torch.cli import inference
+
+    argv = ["--model_type", model_type, "--dataset_type", "voxceleb", "--synthetic",
+            "--input_mode", "speech_only", "--fewshot_mode", "speech",
+            "--num_examples", "5", "--batch_size", "4", "--max_samples", str(n_requests),
+            "--seq_len", "1024", "--text_len", "448", "--max_new_tokens", str(max_new),
+            "--device", "cuda", "--results_dir", out_dir, "--run_name", "chip_smoke", *extra]
+    return _checked_run(f"{model_type} {' '.join(extra) or 'bf16'}",
+                        lambda: inference.main(argv), n_requests, need, max_new)
+
+
+def _api_run(out_dir, model_type, gen_kw, beats_kw, bits, n_requests, need, max_new=10):
+    """The library entry points a user calls for what the CLI has no flag
+    for: ``create_model(generation=GenerationConfig(**gen_kw))``, the BEATs
+    options ``beats_kw`` set on the model's config, ``quantize_decoder`` when
+    ``bits``, then ``run_inference`` + ``save_final_results`` on voxceleb
+    requests as the CLI builds them; returns the run's launch counts."""
+    from icl_speech_text_llm_tpu_torch.data.factory import create_dataset
+    from icl_speech_text_llm_tpu_torch.data.packing import PackConfig
+    from icl_speech_text_llm_tpu_torch.inference.engine import GenerationConfig
+    from icl_speech_text_llm_tpu_torch.inference.runner import (
+        InferenceSettings,
+        run_inference,
+        save_final_results,
+    )
+    from icl_speech_text_llm_tpu_torch.models.factory import create_model
+    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_decoder
+    from icl_speech_text_llm_tpu_torch.registry import DatasetSplit, DatasetType
+    from icl_speech_text_llm_tpu_torch.utils.tokenization import get_tokenizer
+
+    def run():
+        tok = get_tokenizer()
+        gen = GenerationConfig(max_new_tokens=max_new, eos_token_id=tok.eos_token_id,
+                               pad_token_id=tok.pad_token_id, **gen_kw)
+        model = create_model(model_type, seed=42, generation=gen, device="cuda")
+        if bits:
+            quantize_decoder(model.params["llm"], bits=bits)
+        cfg = dataclasses.replace(model.cfg, beats=dataclasses.replace(model.cfg.beats,
+                                                                       **beats_kw))
+        model.cfg = model.engine.cfg = cfg
+        pack_cfg = PackConfig(seq_len=1024, text_len=448, max_slots=6,
+                              audio_tokens_per_slot=cfg.audio_tokens_per_slot)
+        dataset = create_dataset(
+            DatasetType.VOXCELEB, split=DatasetSplit.TEST, input_mode="speech_only",
+            fewshot_mode="speech", num_examples=5, is_training=False, max_samples=n_requests,
+            synthetic=True, synthetic_size=32, seed=42, prompt_style="salmonn")
+        settings = InferenceSettings(
+            batch_size=4, max_new_tokens=max_new, results_dir=out_dir, run_name="chip_smoke",
+            input_mode="speech_only", fewshot_mode="speech", num_examples=5,
+            max_samples=n_requests)
+        payload = run_inference(model.engine, dataset, pack_cfg, settings)
+        return save_final_results(payload, [DatasetType.VOXCELEB], settings)
+
+    label = f"{model_type} {gen_kw} BEATs {beats_kw}" + (f" int{bits}" if bits else "")
+    return _checked_run(label, run, n_requests, need, max_new)
+
+
+def _beats_batched_run():
+    """The batched schedule of the BEATs attention (K8) has no model route,
+    in the JAX package neither: its entry point is
+    ``gated_bias_attention(..., batch_block=True)``. It runs here on every
+    layer of the salmonn BEATs encoder (iter3-as2m, bf16, random weights
+    from seed 42) over a main-path batch, 24 clips (4 requests × 6) of 5 s
+    of noise padded to 30 s: (24, 12, 1496, 64) a layer. Each layer's input
+    is the default encoder's; K8's output is held against the default
+    schedule's (K3) on the same inputs, row by row (``_row_case``; one
+    function in the same f32 arithmetic). Launch counts are set to 0 just
+    before and read just after; returns them."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.models import beats
+    from icl_speech_text_llm_tpu_torch.models.common import layer_at, linear
+    from icl_speech_text_llm_tpu_torch.ops.flash_attention import gated_bias_attention
+
+    dev = torch.device("cuda")
+    cfg = beats.BEATS_CONFIGS["iter3-as2m"]
+    H, hd = cfg.n_heads, cfg.head_dim
+    print("  BEATs iter3-as2m, 24 clips, each layer's attention through "
+          "gated_bias_attention(batch_block=True):", flush=True)
+    kernels.reset_launch_counts()
+    params = beats.init_beats(cfg, torch.Generator(device=dev).manual_seed(42), dev,
+                              torch.bfloat16)
+    wav = torch.zeros((24, 30 * 16000), device=dev)
+    wav[:, :5 * 16000] = torch.from_numpy(
+        np.random.RandomState(42).randn(24, 5 * 16000).astype(np.float32) * 0.1)
+    table = beats.beats_bias_table(cfg, params, beats.beats_num_tokens(cfg, wav.shape[1]))
+    bias = table.to(torch.bfloat16)
+    with torch.inference_mode():
+        x = beats.beats_encode(dataclasses.replace(cfg, n_layers=0), params, wav,
+                               dtype=torch.bfloat16, bias_table=table)
+        B, T, d = x.shape
+        worst = []
+        for l in range(cfg.n_layers):
+            layer = layer_at(params["layers"], l)
+            a = layer["attn"]
+            q, k, v = (linear(x, a[w], a[b_]).view(B, T, H, hd).transpose(1, 2)
+                       for w, b_ in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+            xh = x.view(B, T, H, hd).transpose(1, 2)
+            gate = (a["grep_w"], a["grep_b"], a["grep_a"])
+            got = gated_bias_attention(q, k, v, xh, bias, *gate, batch_block=True)
+            ref = gated_bias_attention(q, k, v, xh, bias, *gate)
+            _, ratio, tol, err = _row_case("K8 vs K3", got, ref)
+            if not (torch.isfinite(got).all() and ratio <= tol):
+                raise AssertionError(f"BEATs layer {l}: K8 vs K3 row error {ratio} > {tol}")
+            worst.append(err)
+            x = beats._layer_forward(cfg, layer, x, bias)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"    (24, {T}, {d}): K8 vs K3 max_abs_err per layer {[f'{e:.2e}' for e in worst]}; "
+          f"launches gated_bias_attention_batched: {counts['gated_bias_attention_batched']} "
+          f"(need >= {cfg.n_layers})", flush=True)
+    if counts["gated_bias_attention_batched"] < cfg.n_layers:
+        raise AssertionError(f"the BEATs-layer run did not run K8: {counts}")
+    del params, x, table, bias
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _main_phase(out_dir):
-    """The inference main paths: 7B bf16, 13B int4 weights + int8 KV cache,
-    7B int8 weights; returns the 13B int4 run's launch counts."""
+    """The inference main paths → {kernel: launches of the run of its path}:
+    7B bf16, 13B int4 weights + int8 KV cache, 7B int8 weights, 7B beams
+    through the CLI; 7B with the flash-decode kernel and BEATs' row
+    schedule, 13B int4 + int8 KV with the flash-decode kernel and sampled
+    beams through the library; BEATs' batched schedule through its op."""
     _main_run(os.path.join(out_dir, "7b"), "salmonn-7b", [], 8, {
         "flash_attention_noncausal": 32 * 2, "gated_bias_attention": 12 * 2,
         "flash_attention_causal": 32 * 2, "append_kv": 9 * 2})
-    counts = _main_run(os.path.join(out_dir, "13b_int4"), "salmonn-13b",
-                       ["--quantize_int4", "--kv_int8"], 8, {
-                           "int4_matmul": 7 * 40 * 9 * 2, "int8_matmul": 10 * 2,
-                           "append_kv": 9 * 2, "flash_attention_causal": 40 * 2,
-                           "flash_attention_noncausal": 32 * 2,
-                           "gated_bias_attention": 12 * 2})
+    quant = _main_run(os.path.join(out_dir, "13b_int4"), "salmonn-13b",
+                      ["--quantize_int4", "--kv_int8"], 8, {
+                          "int4_matmul": 7 * 40 * 9 * 2, "int8_matmul": 10 * 2,
+                          "append_kv": 9 * 2, "flash_attention_causal": 40 * 2,
+                          "flash_attention_noncausal": 32 * 2,
+                          "gated_bias_attention": 12 * 2})
     _main_run(os.path.join(out_dir, "7b_int8"), "salmonn-7b", ["--quantize_int8"], 4, {
         "int8_matmul": 7 * 32 * 9, "append_kv": 9, "flash_attention_causal": 32})
-    return counts
+    # (a) beam search, the repetition penalty and min_new_tokens through the
+    # CLI (4 beams: 16 cache rows, reordered every step)
+    _main_run(os.path.join(out_dir, "7b_beams"), "salmonn-7b",
+              ["--num_beams", "4", "--repetition_penalty", "1.2", "--min_new_tokens", "2"], 4, {
+                  "flash_attention_causal": 32, "flash_attention_noncausal": 32,
+                  "gated_bias_attention": 12, "append_kv": 9})
+    # (b) the flash-decode kernel (K7 ×32 a step) and BEATs' row schedule (K9
+    # ×12 a batch)
+    flash = _api_run(os.path.join(out_dir, "7b_flash"), "salmonn-7b",
+                     {"use_flash_decode": True}, {"lean_bias_flash": True}, None, 4, {
+                         "flash_decode_attention": 32 * 9, "gated_bias_attention_rows": 12,
+                         "flash_attention_causal": 32, "append_kv": 9})
+    if flash["gated_bias_attention"] or flash["flash_decode_attention_q8"]:
+        raise AssertionError(f"the 7B flash run took another route: {flash}")
+    # (c) K7 on the int8 cache over 16 rows (4 sampled beams)
+    flash_q8 = _api_run(os.path.join(out_dir, "13b_flash_q8"), "salmonn-13b",
+                        {"use_flash_decode": True, "kv_int8": True, "num_beams": 4,
+                         "do_sample": True}, {}, 4, 4, {
+                            "flash_decode_attention_q8": 40 * 9,
+                            "int4_matmul": 7 * 40 * 9, "append_kv": 9})
+    # (d) BEATs' batched schedule (K8 ×12, one a layer)
+    batched = _beats_batched_run()
+    return {"int4_matmul": quant["int4_matmul"], "int8_matmul": quant["int8_matmul"],
+            "flash_decode_attention": flash["flash_decode_attention"],
+            "gated_bias_attention_rows": flash["gated_bias_attention_rows"],
+            "flash_decode_attention_q8": flash_q8["flash_decode_attention_q8"],
+            "gated_bias_attention_batched": batched["gated_bias_attention_batched"]}
 
 
 def _train_run(out_dir, n_steps, extra, k1_per_step):
@@ -785,7 +1187,7 @@ def main():
     print("phase main:", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=here) as d:
-        quant_counts = _main_phase(d)
+        main_counts = _main_phase(d)
     print(f"  phase main: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase train:", flush=True)
     t0 = time.perf_counter()
@@ -793,12 +1195,12 @@ def main():
         counts = _train_phase(d)
     print(f"  phase train: {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
-        quant = row["name"] in ("int4_matmul", "int8_matmul")
-        row["launches"] = (quant_counts if quant else counts)[row["name"]]
+        row["launches"] = main_counts.get(row["name"], counts[row["name"]])
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces", "launches",
-                             "max_abs_err", "ms", "plain_ms")} for row in rows]}))
+                             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,7 +23,7 @@ def _is_quantized(tree: dict) -> bool:
     return "q" in tree or "q4" in tree or "k_s" in tree
 
 
-def params_from_numpy(tree: Any, device="cpu", dtype: torch.dtype = torch.float32) -> Any:
+def params_from_numpy(tree: Any, device="cuda", dtype: torch.dtype = torch.float32) -> Any:
     """Copy a nested dict/list/tuple of arrays to torch tensors on ``device``.
     Floating-point leaves are cast to ``dtype``, except the f32 scales of a
     quantized dict; integer leaves keep their type."""

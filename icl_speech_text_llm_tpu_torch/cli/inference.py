@@ -9,11 +9,13 @@ Hermetic example (no SLUE data needed):
 
 ``--quantize_int8`` / ``--quantize_int4`` quantize the created model's LLM
 (``ops/quant.py:quantize_decoder``) and ``--kv_int8`` keeps its KV cache in
-int8. Flags for what is not ported yet (sampling, beams, repetition
-penalty, min_new_tokens, checkpoint and converted weight loading, automatic
-batch size) are accepted and raise ``NotImplementedError`` when set.
-``--compile_cache`` (the XLA compilation cache) has no counterpart and is
-gone.
+int8. The generation flags are the JAX CLI's: ``--do_sample`` with
+``--temperature`` / ``--top_p``, ``--num_beams`` (beam search, stochastic
+with ``--do_sample``), ``--repetition_penalty``, ``--length_penalty`` and
+``--min_new_tokens``. Flags for what is not ported yet (checkpoint and
+converted weight loading, automatic batch size) are accepted and raise
+``NotImplementedError`` when set. ``--compile_cache`` (the XLA compilation
+cache) has no counterpart and is gone.
 """
 
 from __future__ import annotations
@@ -21,15 +23,14 @@ from __future__ import annotations
 import argparse
 import logging
 
-from icl_speech_text_llm_tpu.registry import DatasetSplit, parse_dataset_types
-from icl_speech_text_llm_tpu.utils.tokenization import get_tokenizer
-
 from ..data.factory import create_dataset
 from ..data.packing import PackConfig
 from ..inference.engine import GenerationConfig
 from ..inference.runner import InferenceSettings, run_inference, save_final_results
 from ..models.factory import create_model
 from ..ops.quant import quantize_decoder
+from ..registry import DatasetSplit, parse_dataset_types
+from ..utils.tokenization import get_tokenizer
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -24,11 +24,10 @@ import re
 import numpy as np
 import torch
 
-from icl_speech_text_llm_tpu.registry import DatasetSplit, parse_dataset_types
-
 from ..data.factory import create_dataset
 from ..data.packing import PackConfig
 from ..models.factory import create_model
+from ..registry import DatasetSplit, parse_dataset_types
 from ..training.loop import TrainSettings, train
 from ..training.schedulers import get_schedule
 from ..training.step import AdamW, OptimizerSettings, init_train_state, make_train_step

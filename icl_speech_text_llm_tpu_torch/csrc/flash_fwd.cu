@@ -49,11 +49,11 @@ extern "C" int iclk_flash_fwd(const void* q, const void* k, const void* v, void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (D == 64)
-    return (int)(causal ? launch_attn_fwd<64, true, false>(a, B, st)
-                        : launch_attn_fwd<64, false, false>(a, B, st));
+    return (int)(causal ? launch_attn_fwd<64, true, kGateNone>(a, B, st)
+                        : launch_attn_fwd<64, false, kGateNone>(a, B, st));
   if (D == 128)
-    return (int)(causal ? launch_attn_fwd<128, true, false>(a, B, st)
-                        : launch_attn_fwd<128, false, false>(a, B, st));
+    return (int)(causal ? launch_attn_fwd<128, true, kGateNone>(a, B, st)
+                        : launch_attn_fwd<128, false, kGateNone>(a, B, st));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,7 +24,7 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 
 from ..ops.mel import N_SAMPLES
-from icl_speech_text_llm_tpu.utils.tokenization import Tokenizer
+from ..utils.tokenization import Tokenizer
 from .packing import PackConfig, PackedBatch, PackedSample, pack_batch, shift_labels, tokenize_plan
 from .prompts import PromptPlan
 
@@ -93,7 +93,7 @@ def collate_icl_batch(
     for b, s in enumerate(samples):
         for i, slot in enumerate(s.plan.slots):
             flat[b * n_slots + i] = s.slot_audio.get(slot)
-    from icl_speech_text_llm_tpu.utils.native import pack_audio_block
+    from ..utils.native import pack_audio_block
 
     # bucket the transport length to the batch's longest clip (5 s steps): the
     # device pads to 30 s before encoding, so numerics are identical while

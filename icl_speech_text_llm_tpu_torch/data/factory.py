@@ -15,7 +15,7 @@ from __future__ import annotations
 import logging
 from typing import Dict, Optional, Sequence, Union
 
-from icl_speech_text_llm_tpu.registry import DatasetSplit, DatasetType, get_dataset_config
+from ..registry import DatasetSplit, DatasetType, get_dataset_config
 from .icl_dataset import ICLDataset
 from .multitask import MultiTaskICLDataset
 from .sources import SyntheticLookup, load_dataset, make_synthetic_dataset

@@ -24,7 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from icl_speech_text_llm_tpu.registry import (
+from ..registry import (
     SWAP_TYPES,
     DatasetConfig,
     DatasetSplit,
@@ -223,7 +223,7 @@ class ICLDataset:
                 )
 
         if self.prompt_style == "qwen":
-            from icl_speech_text_llm_tpu.registry import DatasetType as _DT
+            from ..registry import DatasetType as _DT
 
             plan = build_qwen_prompt(
                 cfg.prompt_template, item[cfg.text_key], examples,

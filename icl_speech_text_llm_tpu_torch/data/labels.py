@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-from icl_speech_text_llm_tpu.registry import DatasetConfig, DatasetType
+from ..registry import DatasetConfig, DatasetType
 
 _VOXPOPULI_FAMILY = {
     DatasetType.VOXPOPULI,

@@ -21,7 +21,7 @@ from typing import Dict
 
 import numpy as np
 
-from icl_speech_text_llm_tpu.registry import DatasetType
+from ..registry import DatasetType
 from .icl_dataset import ICLDataset
 
 

@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from icl_speech_text_llm_tpu.utils.tokenization import Tokenizer
+from ..utils.tokenization import Tokenizer
 from .prompts import PromptPlan
 
 IGNORE_INDEX = -100

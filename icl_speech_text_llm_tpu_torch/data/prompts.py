@@ -22,7 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from icl_speech_text_llm_tpu.registry import DatasetType
+from ..registry import DatasetType
 
 SPEECH_TAG_START = "<Speech>"
 SPEECH_TAG_END = "</Speech>"

@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from icl_speech_text_llm_tpu.registry import DatasetSplit, DatasetType, get_dataset_config
+from ..registry import DatasetSplit, DatasetType, get_dataset_config
 
 logger = logging.getLogger(__name__)
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import re
 from typing import Optional, Set
 
-from icl_speech_text_llm_tpu.registry import DatasetType, get_dataset_config
+from ..registry import DatasetType, get_dataset_config
 
 _SINGLE_LABEL_TYPES = {
     DatasetType.VOXCELEB,

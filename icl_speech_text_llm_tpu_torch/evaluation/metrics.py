@@ -17,8 +17,7 @@ from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
-from icl_speech_text_llm_tpu.registry import DatasetType, get_dataset_config, get_swap_config
-
+from ..registry import DatasetType, get_dataset_config, get_swap_config
 from .cleaning import clean_prediction
 
 logger = logging.getLogger(__name__)

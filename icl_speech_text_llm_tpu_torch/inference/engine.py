@@ -1,21 +1,25 @@
-"""Static generation engine: batched prefill + KV-cached greedy decode.
+"""Static generation engine: batched prefill + KV-cached decode.
 
 Counterpart of ``icl_speech_text_llm_tpu/inference/engine.py``:
 
   1. wavs → log-mel, and every clip through the encoders in one batch;
   2. the ICL sequence assembled with one gather (PackedBatch indices);
   3. causal prefill into a KV cache (128-aligned length);
-  4. greedy cached decode, each sample from its own length, tokens forced
-     to pad after EOS.
+  4. cached decode, each sample from its own length, tokens forced to pad
+     after EOS: greedy or sampled (temperature, top-p), with the repetition
+     penalty and the ``min_new_tokens`` EOS ban over the generated history;
+     ``num_beams > 1`` takes beam search (``inference/beam.py``).
 
 The first token comes from the prefill's logits and each decode step
 yields the next, so ``max_new_tokens`` tokens take ``max_new_tokens − 1``
 decode steps (the JAX scan computes one more token and discards it).
-Decode attention is the JAX package's default ``"xla"`` math in plain
-torch; its flash-decode kernel is not ported yet. ``kv_int8`` keeps the
-cache in int8 with per-position f32 scales. Sampling, beam search,
-repetition penalty and ``min_new_tokens`` are not ported yet: a config
-asking for them raises ``NotImplementedError``.
+Decode attention follows ``use_flash_decode``: ``"xla"`` (the default, the
+JAX package's fused-slice math in plain torch) or ``True`` (the K7
+flash-decode kernel); ``False`` (JAX's GSPMD path) raises
+``NotImplementedError``. ``kv_int8`` keeps the cache in int8 with
+per-position f32 scales. Sampling draws from a ``torch.Generator`` seeded
+with ``seed`` for each call, as the JAX engine uses ``PRNGKey(0)``; the two
+give different numbers.
 """
 
 from __future__ import annotations
@@ -26,11 +30,17 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from icl_speech_text_llm_tpu.utils.tokenization import Tokenizer
-
 from ..data.packing import PackedBatch
-from ..models.llama import decode_step, decoder_forward, embed_tokens, init_kv_cache, lm_logits
+from ..models.llama import (
+    DecodeAttention,
+    decode_step,
+    decoder_forward,
+    embed_tokens,
+    init_kv_cache,
+    lm_logits,
+)
 from ..ops.mel import log_mel_spectrogram, pad_or_trim, wavs_to_float
+from ..utils.tokenization import Tokenizer
 
 
 @dataclass(frozen=True)
@@ -46,17 +56,22 @@ class GenerationConfig:
     length_penalty: float = 1.0
     min_new_tokens: int = 0
     kv_int8: bool = False
+    #: JAX's values "xla" (default), True (K7) or False (GSPMD, not ported),
+    #: stored as a ``DecodeAttention``
+    use_flash_decode: Any = "xla"
+    seed: int = 0  # of the sampling generator, made anew for each call
+
+    def __post_init__(self):
+        object.__setattr__(self, "use_flash_decode", DecodeAttention.of(self.use_flash_decode))
+
+    @property
+    def needs_history(self) -> bool:
+        return self.repetition_penalty != 1.0 or self.min_new_tokens > 0
 
     def check_supported(self) -> None:
-        unsupported = {
-            "do_sample": self.do_sample, "num_beams > 1": self.num_beams > 1,
-            "repetition_penalty != 1": self.repetition_penalty != 1.0,
-            "min_new_tokens > 0": self.min_new_tokens > 0,
-        }
-        asked = [name for name, on in unsupported.items() if on]
-        if asked:
+        if self.use_flash_decode is DecodeAttention.GENERIC:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(asked)} (the port decodes greedily)")
+                "not ported yet: use_flash_decode=False (the GSPMD scanned-cache decode)")
 
 
 class StepEvents:
@@ -90,12 +105,77 @@ def prefill(llm_cfg, llm_params: Dict[str, Any], seq: torch.Tensor, lengths: tor
     return lm_logits(llm_cfg, llm_params, last), cache
 
 
+def apply_repetition_penalty(scores: torch.Tensor, history: torch.Tensor, hist_len: int,
+                             penalty: float) -> torch.Tensor:
+    """HF RepetitionPenaltyLogitsProcessor over the generated history:
+    scores (N, V) f32, history (N, T) token ids of which the first
+    ``hist_len`` count; a seen token's score is multiplied by ``penalty`` if
+    negative, else divided by it."""
+    if penalty == 1.0:
+        return scores
+    N, V = scores.shape
+    valid = torch.arange(history.shape[1], device=history.device)[None, :] < hist_len
+    idx = torch.where(valid, history.long(), torch.full_like(history, V, dtype=torch.long))
+    appeared = torch.zeros((N, V + 1), dtype=torch.bool, device=scores.device)
+    appeared.scatter_(1, idx, True)
+    return torch.where(appeared[:, :V],
+                       torch.where(scores < 0, scores * penalty, scores / penalty), scores)
+
+
+def _process_logits(logits: torch.Tensor, history: torch.Tensor, step: int,
+                    gen: GenerationConfig) -> torch.Tensor:
+    """HF processor order on the raw (B, V) logits (the beam step's
+    log-probs), in f32, shared by the greedy, sampling and beam decoders: the
+    repetition penalty over the first ``step`` generated tokens, then the
+    EOS ban while fewer than ``min_new_tokens`` are generated."""
+    logits = logits.float()
+    if gen.repetition_penalty != 1.0:
+        logits = apply_repetition_penalty(logits, history, step, gen.repetition_penalty)
+    if gen.min_new_tokens > 0 and step < gen.min_new_tokens:
+        logits = logits.clone()
+        logits[:, gen.eos_token_id] = float("-inf")
+    return logits
+
+
+def top_p_mask(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """The JAX engine's nucleus cut on (B, V) f32 logits: sorted descending,
+    the cutoff is the logit at index #(cumulative probability < top_p);
+    logits below it become −inf (ties with the cutoff stay)."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True).clamp(max=logits.shape[-1] - 1)
+    cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+    return logits.masked_fill(logits < cutoff, float("-inf"))
+
+
+def _sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
+                  gen: GenerationConfig) -> torch.Tensor:
+    """(B, V) logits → (B,) token ids: argmax, or with ``do_sample`` the
+    temperature, the top-p cut, then a categorical draw from ``generator``.
+    (A cutoff index past the vocabulary, which JAX's fill-mode gather turns
+    into NaN and so masks nothing, clamps to the smallest logit here: the
+    same nothing.)"""
+    if not gen.do_sample:
+        return torch.argmax(logits, dim=-1)
+    masked = top_p_mask(logits.float() / gen.temperature, gen.top_p)
+    probs = torch.softmax(masked, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def sampling_generator(gen: GenerationConfig, device) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded with ``gen.seed`` when sampling."""
+    if not gen.do_sample:
+        return None
+    return torch.Generator(device=device).manual_seed(gen.seed)
+
+
 def decode_from_sequence(llm_cfg, llm_params: Dict[str, Any], seq: torch.Tensor,
                          lengths: torch.Tensor, gen: GenerationConfig, lora=None,
                          lora_scaling: float = 1.0, dt=torch.float32,
                          events: Optional[StepEvents] = None) -> torch.Tensor:
-    """Prefill + greedy cached decode → (B, max_new_tokens) int32 token ids;
-    ``events`` (CUDA) marks the prefill and each decode step."""
+    """Prefill + cached decode (greedy or sampled, with the history
+    processors) → (B, max_new_tokens) int32 token ids; ``events`` (CUDA)
+    marks the prefill and each decode step."""
     gen.check_supported()
     mark = events.mark if events is not None else (lambda: None)
     mark()
@@ -104,17 +184,30 @@ def decode_from_sequence(llm_cfg, llm_params: Dict[str, Any], seq: torch.Tensor,
     cache_len = -(-(L + gen.max_new_tokens) // 128) * 128
     logits, cache = prefill(llm_cfg, llm_params, seq, lengths, cache_len, lora,
                             lora_scaling, dt, gen.kv_int8)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    rng = sampling_generator(gen, seq.device)
+    history = None
+    if gen.needs_history:
+        history = torch.full((B, gen.max_new_tokens), gen.pad_token_id, dtype=torch.int32,
+                             device=seq.device)
+        logits = _process_logits(logits, history, 0, gen)
+    tok = _sample_token(logits, rng, gen).to(torch.int32)
+    if history is not None:
+        history[:, 0] = tok
     mark()
     done = tok == gen.eos_token_id
     toks = [tok]
     cur_len = lengths
-    for _ in range(gen.max_new_tokens - 1):
+    for t in range(1, gen.max_new_tokens):
         emb = embed_tokens(llm_params, tok[:, None], dtype=dt)
         hidden, cache = decode_step(llm_cfg, llm_params, emb, cache, cur_len, lora,
-                                    lora_scaling)
-        nxt = torch.argmax(lm_logits(llm_cfg, llm_params, hidden)[:, 0], dim=-1)
+                                    lora_scaling, gen.use_flash_decode)
+        logits = lm_logits(llm_cfg, llm_params, hidden)[:, 0]
+        if history is not None:
+            logits = _process_logits(logits, history, t, gen)
+        nxt = _sample_token(logits, rng, gen)
         tok = torch.where(done, torch.full_like(nxt, gen.pad_token_id), nxt).to(torch.int32)
+        if history is not None:
+            history[:, t] = tok
         done = done | (tok == gen.eos_token_id)
         toks.append(tok)
         cur_len = cur_len + 1
@@ -142,12 +235,18 @@ def salmonn_generate(cfg, gen: GenerationConfig, params: Dict[str, Any],
                      events: Optional[StepEvents] = None) -> torch.Tensor:
     """Packed batch → (B, max_new_tokens) generated token ids. ``batch``:
     text_tokens (B, L_text), gather_idx (B, L_seq), seq_lengths (B,), wavs
-    (B, n_slots, n_samples), all on the model's device."""
+    (B, n_slots, n_samples), all on the model's device. ``num_beams > 1``
+    decodes with beam search."""
     seq = speech_sequence(cfg, params, batch)
     scaling = cfg.lora.scaling if cfg.lora is not None else 1.0
-    return decode_from_sequence(cfg.llm, params["llm"], seq, batch["seq_lengths"], gen,
-                                lora=params.get("lora"), lora_scaling=scaling,
-                                dt=cfg.compute_dtype, events=events)
+    decode = decode_from_sequence
+    if gen.num_beams > 1:
+        from .beam import beam_decode_from_sequence
+
+        decode = beam_decode_from_sequence
+    return decode(cfg.llm, params["llm"], seq, batch["seq_lengths"], gen,
+                  lora=params.get("lora"), lora_scaling=scaling, dt=cfg.compute_dtype,
+                  events=events)
 
 
 @torch.inference_mode()
@@ -169,14 +268,14 @@ class SalmonnEngine:
     ms, …] (CUDA events)."""
 
     def __init__(self, cfg, params, tokenizer: Tokenizer, gen: Optional[GenerationConfig] = None,
-                 device: Optional[torch.device] = None):
+                 device="cuda"):
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
         self.gen = gen or GenerationConfig(eos_token_id=tokenizer.eos_token_id,
                                            pad_token_id=tokenizer.pad_token_id)
         self.gen.check_supported()
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = torch.device(device)
         self.timings: List[List[float]] = []
 
     def generate_tokens(self, packed: PackedBatch, audio: Dict[str, np.ndarray]) -> np.ndarray:

@@ -19,11 +19,10 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from icl_speech_text_llm_tpu.registry import DatasetType
-
 from ..data.collate import ICLSample, collate_icl_batch
 from ..data.packing import PackConfig
 from ..evaluation import clean_prediction, evaluate_predictions, to_json_compatible
+from ..registry import DatasetType
 from .engine import SalmonnEngine
 
 logger = logging.getLogger(__name__)

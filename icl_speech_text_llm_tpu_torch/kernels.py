@@ -55,6 +55,14 @@ _SIGNATURES = {
     # q, k, v, xh, bias, grep_w, grep_b, grep_a, o, lengths, B, H, S, D,
     # strides, sm_scale, stream
     "iclk_gated_bias_fwd": [_p] * 10 + [_i] * 4 + [_strides, ctypes.c_float, _p],
+    # the same arguments, batched schedule (K8)
+    "iclk_gated_bias_batched": [_p] * 10 + [_i] * 4 + [_strides, ctypes.c_float, _p],
+    # q, k, v, scale_rows, bias, o, lengths, B, H, S, D, strides, sm_scale,
+    # stream
+    "iclk_gated_bias_rows": [_p] * 7 + [_i] * 4 + [_strides, ctypes.c_float, _p],
+    # q, k, v, k_s, v_s, k_new, v_new, o, lengths, B, H, Hkv, S, D, strides,
+    # sm_scale, stream
+    "iclk_flash_decode": [_p] * 9 + [_i] * 5 + [_strides, ctypes.c_float, _p],
     # cache_k, cache_v, new_k, new_v, positions, L, B, Hkv, S, D,
     # elem_bytes, stream
     "iclk_append_kv": [_p] * 5 + [_i] * 6 + [_p],

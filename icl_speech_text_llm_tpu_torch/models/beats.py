@@ -5,8 +5,10 @@ fbank → normalization → 16×16 patch embedding (a GEMM) → LayerNorm → li
 512→768 → grouped-conv positional embedding → LayerNorm → post-LN layers with
 deep-norm residuals and the WavLM gated relative-position bias → (B, 1496,
 768) for 30 s. Attention goes through the gated-bias op over the 1496 real
-tokens: the kernel masks ragged tiles itself, so there is no 1496→1536
-padding of tokens or bias table.
+tokens: the kernels mask ragged tiles themselves, so there is no 1496→1536
+padding of tokens or bias table. ``lean_bias_flash`` (the JAX package's
+option) precomputes the gate rows once per layer and takes K9 where
+``flash_bias_rows_usable`` allows, else K3, the default.
 """
 
 from __future__ import annotations
@@ -19,7 +21,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.flash_attention import flash_attention, gate_rows, gated_bias_attention
+from ..ops.flash_attention import (
+    flash_attention,
+    flash_bias_rows_usable,
+    gate_rows,
+    gated_bias_attention,
+    gated_bias_attention_rows,
+)
 from ..ops.mel import framed_dft
 from .common import dense_init, full_f32, gelu, layer_at, layer_norm, linear, normal_init
 
@@ -41,6 +49,7 @@ class BeatsConfig:
     gated_rel_pos: bool = True
     rel_pos_buckets: int = 320
     rel_pos_max_distance: int = 800
+    lean_bias_flash: bool = False  # precomputed gate rows → K9
 
     @property
     def deep_norm_alpha(self) -> float:
@@ -204,10 +213,11 @@ def _layer_forward(cfg: BeatsConfig, layer, x: torch.Tensor,
     q = linear(x, a["wq"], a["bq"]).view(B, T, H, hd).transpose(1, 2)
     k = linear(x, a["wk"], a["bk"]).view(B, T, H, hd).transpose(1, 2)
     v = linear(x, a["wv"], a["bv"]).view(B, T, H, hd).transpose(1, 2)
-    if bias is not None:
+    if bias is not None and cfg.lean_bias_flash and flash_bias_rows_usable(B, H, T, hd):
+        out = gated_bias_attention_rows(q, k, v, _gate_scale_rows(cfg, a, x), bias)
+    elif bias is not None:
         xh = x.view(B, T, H, hd).transpose(1, 2)
-        out = gated_bias_attention(q, k, v, xh, bias, a["grep_w"], a["grep_b"],
-                                   a["grep_a"])
+        out = gated_bias_attention(q, k, v, xh, bias, a["grep_w"], a["grep_b"], a["grep_a"])
     else:
         out = flash_attention(q, k, v, None, causal=False)
     out = linear(out.transpose(1, 2).reshape(B, T, d), a["wo"], a["bo"])

@@ -13,9 +13,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from icl_speech_text_llm_tpu.utils.tokenization import Tokenizer, get_tokenizer
-
 from ..inference.engine import SalmonnEngine
+from ..utils.tokenization import Tokenizer, get_tokenizer
 from .salmonn import SalmonnConfig, init_salmonn, salmonn_7b, salmonn_13b, salmonn_bench, salmonn_tiny
 
 logger = logging.getLogger(__name__)
@@ -33,7 +32,7 @@ class SalmonnModel:
     """Config + params + tokenizer + the generation engine."""
 
     def __init__(self, cfg: SalmonnConfig, params: Dict[str, Any], tokenizer: Tokenizer,
-                 generation=None, device=None):
+                 generation=None, device="cuda"):
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -41,7 +40,7 @@ class SalmonnModel:
 
 
 def create_model(model_type: str = "salmonn-tiny", tokenizer: Optional[str] = None,
-                 seed: int = 0, generation=None, device="cpu",
+                 seed: int = 0, generation=None, device="cuda",
                  trainable_dtype=None) -> SalmonnModel:
     """A SALMONN preset with random weights from ``seed`` on ``device``;
     ``trainable_dtype`` (training: f32) stores LoRA and the Q-Former apart

@@ -13,12 +13,17 @@ LoRA added inside the q/v projections, and a KV cache updated in place.
   ``remat`` recomputes layers in the backward as the JAX package's
   ``jax.checkpoint`` options do.
 - ``decode_step`` is the single-token cached step of the JAX package's
-  ``_decode_step_zero_copy(attn_mode="xla")``: each layer attends its cache
-  slice ``cache_k[l]`` read-only with the current token folded in as one
-  extra column, and ONE ``append_kv`` writes every layer's new k/v after the
-  loop. With an int8 cache (``init_kv_cache(quant=True)``) the new rows
-  are quantized per (position, head) and their scales written beside them;
-  the current token is attended unquantized, the cache through its scales.
+  ``_decode_step_zero_copy``: each layer attends its cache slice
+  ``cache_k[l]`` read-only with the current token folded in as one extra
+  column, and ONE ``append_kv`` writes every layer's new k/v after the
+  loop. The attention is ``DecodeAttention.XLA`` (``_xla_decode_attn``,
+  JAX's default ``"xla"`` math) or ``DecodeAttention.FLASH`` (the K7
+  flash-decode kernel, JAX's ``use_flash_decode=True``; its plain version
+  on the CPU) where ``flash_decode_usable`` admits the shapes, else the
+  same math as ``XLA``, as JAX's generic path. With an int8 cache
+  (``init_kv_cache(quant=True)``) the new rows are quantized per (position,
+  head) and their scales written beside them; the current token is
+  attended unquantized, the cache through its scales.
 
 Matmul weights may be plain tensors or the JAX package's quantized dicts
 (int8 ``{"q", "s"}``, int4 ``{"q4", "s"}``): every product goes through
@@ -27,6 +32,7 @@ Matmul weights may be plain tensors or the JAX package's quantized dicts
 
 from __future__ import annotations
 
+import enum
 import functools
 import logging
 from dataclasses import dataclass
@@ -40,7 +46,13 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from ..ops.flash_attention import append_kv, flash_attention
+from ..ops.flash_attention import (
+    append_kv,
+    flash_attention,
+    flash_decode_attention,
+    flash_decode_attention_q8,
+    flash_decode_usable,
+)
 from ..ops.quant import dequant_matmul, quantize_kv
 from .common import (
     apply_rope,
@@ -278,7 +290,7 @@ def _inv_freq(cfg: DecoderConfig, device) -> torch.Tensor:
 
 
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device=None, quant: bool = False) -> Dict[str, torch.Tensor]:
+                  device="cuda", quant: bool = False) -> Dict[str, torch.Tensor]:
     """Stacked KV cache {"k", "v"}: (L, B, Hkv, max_len, hd). ``quant``: int8
     k/v and f32 per-position scales {"k_s", "v_s"} (L, B, Hkv, max_len)."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
@@ -402,18 +414,52 @@ def _xla_decode_attn(cfg: DecoderConfig, q, ck, cv, k_self, v_self, lengths,
     return (out / l).reshape(B, H, 1, hd).to(q.dtype)
 
 
+class DecodeAttention(enum.Enum):
+    """The decode step's attention, the JAX package's tri-state
+    ``use_flash_decode`` as an enum: ``XLA`` is ``_xla_decode_attn`` (JAX's
+    ``"xla"``, the default), ``FLASH`` the K7 flash-decode kernel (JAX's
+    ``True``), ``GENERIC`` the scanned-cache path JAX needs under GSPMD
+    (``False``), which waits for the port's parallelism."""
+
+    XLA = "xla"
+    FLASH = "flash"
+    GENERIC = "generic"
+
+    @classmethod
+    def of(cls, value) -> "DecodeAttention":
+        """A member, or JAX's value for it: ``"xla"``, ``True``, ``False``."""
+        if isinstance(value, cls):
+            return value
+        if value is True:
+            return cls.FLASH
+        if value is False:
+            return cls.GENERIC
+        if value == "xla":
+            return cls.XLA
+        raise ValueError(f"use_flash_decode must be 'xla', True or False, got {value!r}")
+
+
 def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
                 cache: Dict[str, torch.Tensor], cache_positions: torch.Tensor,
                 lora: Optional[Dict[str, Any]] = None, lora_scaling: float = 1.0,
+                attention: DecodeAttention = DecodeAttention.XLA,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One cached decode step: x (B, 1, dim) at positions cache_positions (B,)
     (each sample's count of cached tokens). Every layer attends its cache
-    slice read-only plus the current token; after the loop ONE append_kv
-    writes all layers' new k/v at cache_positions, in place. With an int8
-    cache the new rows are quantized first and their scales written with a
-    per-sample index write, as the JAX package's DUS does."""
+    slice read-only plus the current token (``attention``: the plain
+    ``_xla_decode_attn``, or the K7 kernel over the stacked cache where
+    ``flash_decode_usable`` admits the shapes, as JAX routes); after the
+    loop ONE append_kv writes all layers' new k/v at cache_positions, in
+    place. With an int8 cache the new rows are quantized first and their
+    scales written with a per-sample index write, as the JAX package's DUS
+    does."""
+    if attention is DecodeAttention.GENERIC:
+        raise NotImplementedError(
+            "use_flash_decode=False (the GSPMD scanned-cache decode) is not ported")
     B = x.shape[0]
     L, hd = cfg.n_layers, cfg.hd
+    flash = attention is DecodeAttention.FLASH and flash_decode_usable(
+        (B, cfg.n_heads, 1, hd), (B, cfg.n_kv_heads) + tuple(cache["k"].shape[-2:]))
     quant = "k_s" in cache
     inv_freq = _inv_freq(cfg, x.device)
     positions = cache_positions[:, None]
@@ -427,12 +473,22 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
         lo = layer_at(lora, l) if lora is not None else None
         q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq)
         if quant:
-            out = _xla_decode_attn(cfg, q, cache["k"][l], cache["v"][l], k, v, cache_positions,
-                                   cache["k_s"][l], cache["v_s"][l])
+            if flash:
+                out = flash_decode_attention_q8(q, cache["k"], cache["v"], cache["k_s"],
+                                                cache["v_s"], cache_positions,
+                                                self_kv=(k, v), layer=l)
+            else:
+                out = _xla_decode_attn(cfg, q, cache["k"][l], cache["v"][l], k, v,
+                                       cache_positions, cache["k_s"][l], cache["v_s"][l])
             new_k[l], new_ks[l] = quantize_kv(k)
             new_v[l], new_vs[l] = quantize_kv(v)
         else:
-            out = _xla_decode_attn(cfg, q, cache["k"][l], cache["v"][l], k, v, cache_positions)
+            if flash:
+                out = flash_decode_attention(q, cache["k"], cache["v"], cache_positions,
+                                             self_kv=(k, v), layer=l)
+            else:
+                out = _xla_decode_attn(cfg, q, cache["k"][l], cache["v"][l], k, v,
+                                       cache_positions)
             new_k[l] = k
             new_v[l] = v
         x = _attn_out_mlp(cfg, layer, lo, lora_scaling, x,

@@ -1,12 +1,21 @@
 """Attention kernels of the main path, each beside its plain PyTorch version.
 
-Counterpart of ``icl_speech_text_llm_tpu/ops/flash_attention.py``. Six
-Hopper kernels (``csrc/``) replace the Pallas kernels the port runs:
+Counterpart of ``icl_speech_text_llm_tpu/ops/flash_attention.py``. Ten
+Hopper kernels (``csrc/``) replace the Pallas kernels of the JAX package:
 
 - ``flash_attention_causal``    — causal flash forward (LLM prefill, training);
 - ``flash_attention_noncausal`` — non-causal flash forward (Whisper);
-- ``gated_bias_attention``      — BEATs gated relative-position bias;
+- ``gated_bias_attention``      — BEATs gated relative-position bias (K3);
+- ``gated_bias_attention_batched`` — K3's math with one block per (head,
+  q-tile) walking the batch, the bias tile read once per chunk of samples
+  (K8; ``gated_bias_attention(batch_block=True)``);
+- ``gated_bias_attention_rows`` — gated bias with the gate rows precomputed
+  (K9; ``BeatsConfig.lean_bias_flash``);
 - ``append_kv``                 — in-place decode-step KV-cache append;
+- ``flash_decode_attention``    — single-token decode attention over the
+  bf16 cache with the current token folded in (K7);
+- ``flash_decode_attention_q8`` — the same over the int8 cache, its scales
+  folded into scores and probabilities (K7, int8 KV);
 - ``flash_attention_bwd_dq``    — flash backward, dq and delta;
 - ``flash_attention_bwd_dkv``   — flash backward, dk and dv.
 
@@ -33,6 +42,8 @@ from .. import kernels
 from .attention import repeat_kv
 
 _MAX_SCORE_ELEMS = 1 << 28  # plain versions: chunk the batch above 1 GiB of f32 scores
+LOG2E = 1.4426950408889634  # exp → exp2 fold of the gated-bias schedules
+DECODE_MAX_REP = 8  # K7: query heads per kv head (the Pallas kernel's 8 sublanes)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -189,6 +200,87 @@ def gated_bias_attention_plain(q, k, v, xh, bias, grep_w, grep_b, grep_a,
         s = s.masked_fill(~valid[sl], float("-inf"))
         o[sl] = _softmax_pv(s, v[sl])[0].to(q.dtype)
     return o
+
+
+def gated_bias_rows_plain(q, k, v, scale_rows, bias, lengths=None, pallas_rounding=True):
+    """Plain version of K9 (and, with ``gate_rows`` for the gate, of K8), in
+    the exp2 domain of the Pallas kernels: q pre-multiplied by
+    D^-½·log2e in q's dtype, the gate rows (B, H, S) times log2e in f32, the
+    bias (H, S, S) rounded to bf16, s − max rounded to v's dtype before the
+    exp2 (so at bf16 the probabilities carry the kernels' bf16 rounding), the
+    sum in f32 and P·V with P in v's dtype. Returns o like q.
+
+    ``pallas_rounding=False`` scales q and takes the exp2 in f32 instead:
+    the CUDA kernels' arithmetic, which the card's check holds them to."""
+    B, H, S, D = q.shape
+    c = D ** -0.5 * LOG2E
+    qs = q * torch.tensor(c, dtype=q.dtype) if pallas_rounding else q.float() * c
+    bias_f = bias.to(torch.bfloat16).float()
+    gate2 = scale_rows.float() * LOG2E
+    valid = _key_valid(lengths, B, S, q.device)
+    o = torch.empty_like(q)
+    for sl in _batch_chunks(B, H * S * S):
+        s = torch.matmul(qs[sl].float(), k[sl].float().transpose(-1, -2))
+        s = s + gate2[sl][..., None] * bias_f[None]
+        s = s.masked_fill(~valid[sl], float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.exp2((s - m).to(v.dtype) if pallas_rounding else s - m).float()
+        l = p.sum(dim=-1, keepdim=True)
+        oc = torch.matmul(p.to(v.dtype).float(), v[sl].float())
+        o[sl] = torch.where(l == 0, torch.zeros_like(oc), oc / l).to(q.dtype)
+    return o
+
+
+def gated_bias_batched_plain(q, k, v, xh, bias, grep_w, grep_b, grep_a, lengths=None,
+                             pallas_rounding=True):
+    """Plain version of K8: the gate of ``gate_rows`` into ``gated_bias_rows_plain``
+    (the batched Pallas kernel's exp2-domain math)."""
+    return gated_bias_rows_plain(q, k, v, gate_rows(xh, grep_w, grep_b, grep_a), bias, lengths,
+                                 pallas_rounding)
+
+
+def flash_decode_attention_plain(q, k, v, lengths, sm_scale=None, self_kv=None,
+                                 k_s=None, v_s=None):
+    """Plain version of K7, bf16 and int8 cache: q (B, H, 1, D); k/v (B, Hkv,
+    S, D) of q's dtype, or int8 with per-position scales k_s/v_s (B, Hkv, S)
+    f32; lengths (B,) cached positions to attend (PREVIOUS tokens when
+    ``self_kv`` = (k_new, v_new), each (B, Hkv, 1, D), is given: the current
+    token is one extra, always valid column, never quantized).
+
+    The Pallas ``_decode_kernel``'s math: f32 scores q·k·sm_scale, k's scale
+    on the score column, keys at or past the length masked, an e-domain
+    softmax; v's scale multiplies p after p is summed into l; p is cast to
+    q's dtype for the P·V product; the self column is the f32 Σq·k_new and
+    p_self·v_new is added in f32; a row with l == 0 gives 0. GQA: query head
+    h reads kv head h // (H / Hkv)."""
+    B, H, _, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    scale = D ** -0.5 if sm_scale is None else sm_scale
+    ct = _acc_dtype(q)
+    qg = q.reshape(B, Hkv, H // Hkv, D).to(ct)
+    s = torch.matmul(qg, k.to(q.dtype).to(ct).transpose(-1, -2)) * scale  # (B, Hkv, g, S)
+    if k_s is not None:
+        s = s * k_s.to(ct)[:, :, None, :]
+    valid = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    if self_kv is not None:
+        kn, vn = (t.reshape(B, Hkv, 1, D).to(q.dtype).to(ct) for t in self_kv)
+        s_self = (qg * kn).sum(-1, keepdim=True) * scale  # (B, Hkv, g, 1)
+        m = torch.maximum(m, s_self)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_s is not None:
+        p = p * v_s.to(ct)[:, :, None, :]
+    o = torch.matmul(p.to(q.dtype).to(ct), v.to(q.dtype).to(ct))
+    if self_kv is not None:
+        p_self = torch.exp(s_self - m)
+        l = l + p_self
+        o = o + p_self * vn
+    o = torch.where(l == 0, torch.zeros_like(o), o / torch.where(l == 0, torch.ones_like(l), l))
+    return o.reshape(B, H, 1, D).to(q.dtype)
 
 
 def append_kv_plain(cache_k, cache_v, new_k, new_v, positions):
@@ -397,42 +489,108 @@ def flash_attention(q, k, v, lengths=None, causal=True):
     return fn(q, k, v, lengths)[0]
 
 
-def gated_bias_attention(q, k, v, xh, bias, grep_w, grep_b, grep_a,
-                         lengths=None):
-    """BEATs gated-bias attention → o like q. q/k/v/xh (B, H, S, D) (any
-    strides with a contiguous last axis); bias (H, S, S); grep_w (D, 8);
-    grep_b (8,); grep_a (H,); lengths (B,) or None."""
-    if not _on_cuda(q):
-        return gated_bias_attention_plain(q, k, v, xh, bias, grep_w, grep_b,
-                                          grep_a, lengths)
-    _refuse_detach("gated_bias_attention", q, k, v, xh, bias, grep_w, grep_b, grep_a)
+def _gated_bias_check(name, q, tensors, bias):
+    """Operand checks shared by the gated-bias kernels (K3, K8, K9) → the
+    bias as contiguous bf16 on q's device."""
+    _refuse_detach(name, *tensors, bias)
     B, H, S, D = q.shape
     if D != 64:
-        raise ValueError(f"gated-bias kernel takes head_dim 64, got {D}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("xh", xh)):
-        _check_attn_operand(name, t, q.device, D)
+        raise ValueError(f"{name}: the kernel takes head_dim 64, got {D}")
+    for i, t in enumerate(tensors):
+        _check_attn_operand(f"{name} operand {i}", t, q.device, D)
         if t.shape != q.shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
+            raise ValueError(f"{name}: operand shape {tuple(t.shape)} != q {tuple(q.shape)}")
     if bias.shape != (H, S, S):
-        raise ValueError(f"bias must be ({H}, {S}, {S}), got {tuple(bias.shape)}")
-    bias = bias.to(device=q.device, dtype=torch.bfloat16).contiguous()
-    gw = grep_w.to(device=q.device, dtype=torch.float32).contiguous()
-    gb = grep_b.to(device=q.device, dtype=torch.float32).contiguous()
-    ga = grep_a.to(device=q.device, dtype=torch.float32).contiguous()
+        raise ValueError(f"{name}: bias must be ({H}, {S}, {S}), got {tuple(bias.shape)}")
+    return bias.to(device=q.device, dtype=torch.bfloat16).contiguous()
+
+
+def _grep_args(q, grep_w, grep_b, grep_a):
+    D, H = q.shape[3], q.shape[1]
+    gw, gb, ga = (t.to(device=q.device, dtype=torch.float32).contiguous()
+                  for t in (grep_w, grep_b, grep_a))
     if gw.shape != (D, 8) or gb.shape != (8,) or ga.shape != (H,):
         raise ValueError("grep_w/grep_b/grep_a must be (D, 8), (8,), (H,)")
+    return gw, gb, ga
+
+
+def _gated_bias_launch(entry, q, k, v, xh, bias, gw, gb, ga, lengths, B, H, S, D):
     lens = _lengths_arg(lengths, B, q.device)
     o = torch.empty_like(q)
     strides = kernels.strides_arg(
         [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
          *xh.stride()[:3]])
-    err = kernels.lib().iclk_gated_bias_fwd(
+    err = getattr(kernels.lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), xh.data_ptr(), bias.data_ptr(),
         gw.data_ptr(), gb.data_ptr(), ga.data_ptr(), o.data_ptr(),
         None if lens is None else lens.data_ptr(), B, H, S, D, strides,
-        D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(err, "gated-bias attention")
+        D ** -0.5, torch._C._cuda_getCurrentRawStream(q.device.index))
+    kernels.check(err, entry)
+    return o
+
+
+def gated_bias_attention(q, k, v, xh, bias, grep_w, grep_b, grep_a,
+                         lengths=None, batch_block=False):
+    """BEATs gated-bias attention → o like q. q/k/v/xh (B, H, S, D) (any
+    strides with a contiguous last axis); bias (H, S, S); grep_w (D, 8);
+    grep_b (8,); grep_a (H,); lengths (B,) or None. ``batch_block`` takes
+    the batched schedule, ``gated_bias_attention_batched`` (K8), as the JAX
+    package's opt-in argument of the same name does."""
+    if batch_block:
+        return gated_bias_attention_batched(q, k, v, xh, bias, grep_w, grep_b, grep_a,
+                                            lengths)
+    if not _on_cuda(q):
+        return gated_bias_attention_plain(q, k, v, xh, bias, grep_w, grep_b,
+                                          grep_a, lengths)
+    bias = _gated_bias_check("gated_bias_attention", q, (q, k, v, xh), bias)
+    o = _gated_bias_launch("iclk_gated_bias_fwd", q, k, v, xh, bias,
+                           *_grep_args(q, grep_w, grep_b, grep_a), lengths, *q.shape)
     gated_bias_attention.launches += 1
+    return o
+
+
+def gated_bias_attention_batched(q, k, v, xh, bias, grep_w, grep_b, grep_a, lengths=None):
+    """K8: K3's inputs and function, one block per (q-tile, head, chunk of
+    samples): each key tile's bias tile is read once and serves every
+    sample of the chunk. Exp2-domain math (``gated_bias_batched_plain``)."""
+    if not _on_cuda(q):
+        return gated_bias_batched_plain(q, k, v, xh, bias, grep_w, grep_b, grep_a, lengths)
+    bias = _gated_bias_check("gated_bias_attention_batched", q, (q, k, v, xh), bias)
+    o = _gated_bias_launch("iclk_gated_bias_batched", q, k, v, xh, bias,
+                           *_grep_args(q, grep_w, grep_b, grep_a), lengths, *q.shape)
+    gated_bias_attention_batched.launches += 1
+    return o
+
+
+def flash_bias_rows_usable(B: int, H: int, S: int, D: int) -> bool:
+    """Shape gate of K9 (``gated_bias_attention_rows``): head_dim 64, any
+    sequence length (the kernel masks the ragged last tile)."""
+    return D == 64 and min(B, H, S) > 0
+
+
+def gated_bias_attention_rows(q, k, v, scale_rows, bias, lengths=None):
+    """K9: gated-bias attention with the gate precomputed, ``scale_rows``
+    (B, H, S) f32 (``gate_rows``, not log2e-scaled); q/k/v (B, H, S, D);
+    bias (H, S, S); lengths (B,) or None → o like q. The blocks of one
+    (q-tile, head) run for every sample back to back, so the bias rows they
+    share are read from device memory about once."""
+    if not _on_cuda(q):
+        return gated_bias_rows_plain(q, k, v, scale_rows, bias, lengths)
+    bias = _gated_bias_check("gated_bias_attention_rows", q, (q, k, v), bias)
+    B, H, S, D = q.shape
+    rows = scale_rows.to(device=q.device, dtype=torch.float32).contiguous()
+    if rows.shape != (B, H, S):
+        raise ValueError(f"scale_rows must be ({B}, {H}, {S}), got {tuple(rows.shape)}")
+    lens = _lengths_arg(lengths, B, q.device)
+    o = torch.empty_like(q)
+    strides = kernels.strides_arg(
+        [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], 0, 0, 0])
+    err = kernels.lib().iclk_gated_bias_rows(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rows.data_ptr(), bias.data_ptr(),
+        o.data_ptr(), None if lens is None else lens.data_ptr(), B, H, S, D, strides,
+        D ** -0.5, torch._C._cuda_getCurrentRawStream(q.device.index))
+    kernels.check(err, "iclk_gated_bias_rows")
+    gated_bias_attention_rows.launches += 1
     return o
 
 
@@ -467,5 +625,96 @@ def append_kv(cache_k, cache_v, new_k, new_v, positions) -> Tuple[torch.Tensor, 
     return cache_k, cache_v
 
 
+def flash_decode_usable(q_shape, kv_shape) -> bool:
+    """Shape gate of K7: one query position, head_dim 128, H a multiple of
+    Hkv with at most ``DECODE_MAX_REP`` query heads per kv head. Shapes are
+    (B, H, 1, D) and (B, Hkv, S, D)."""
+    if len(q_shape) != 4 or len(kv_shape) != 4:
+        return False
+    B, H, Tq, D = q_shape
+    Bk, Hkv, S, Dk = kv_shape
+    return (Tq == 1 and D == 128 and Dk == D and Bk == B and S > 0 and Hkv > 0
+            and H % Hkv == 0 and H // Hkv <= DECODE_MAX_REP)
+
+
+def _decode_launch(name, q, k, v, k_s, v_s, lengths, sm_scale, self_kv):
+    """Checks and one launch of ``iclk_flash_decode`` (k_s/v_s None for the
+    bf16 cache) → o (B, H, 1, D)."""
+    B, H, _, D = q.shape
+    if not flash_decode_usable(q.shape, k.shape) or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} are not ones the kernel takes")
+    quant = k_s is not None
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: q must be bfloat16 for the CUDA kernel, got {q.dtype}")
+    want = torch.int8 if quant else torch.bfloat16
+    if k.dtype != want or v.dtype != want:
+        raise TypeError(f"{name}: the cache must be {want}, got {k.dtype}/{v.dtype}")
+    for t in (k, v) + ((k_s, v_s) if quant else ()):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensor on {t.device}, q on {q.device}")
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or (t.dim() == 4 and any(
+                (s * t.element_size()) % 16 for s in t.stride()[:3])):
+            raise ValueError(f"{name}: cache rows must be contiguous and 16-byte aligned")
+    if quant and (k_s.shape != k.shape[:3] or v_s.shape != k.shape[:3]
+                  or k_s.dtype != torch.float32 or v_s.dtype != torch.float32):
+        raise ValueError(f"{name}: scales must be f32 {tuple(k.shape[:3])}")
+    if lengths is None:
+        raise ValueError(f"{name}: lengths (B,) are required")
+    qc = q.contiguous()
+    lens = _lengths_arg(lengths, B, q.device)
+    Hkv, S = k.shape[1], k.shape[2]
+    kn = vn = None
+    if self_kv is not None:
+        kn, vn = (t.to(q.dtype).reshape(B, Hkv, D).contiguous() for t in self_kv)
+    o = torch.empty((B, H, 1, D), dtype=q.dtype, device=q.device)
+    strides = kernels.strides_arg(
+        [*k.stride()[:3], *v.stride()[:3],
+         *(k_s.stride() if quant else (0, 0, 0)), *(v_s.stride() if quant else (0, 0, 0))])
+    err = kernels.lib().iclk_flash_decode(
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_s.data_ptr() if quant else None, v_s.data_ptr() if quant else None,
+        None if kn is None else kn.data_ptr(), None if vn is None else vn.data_ptr(),
+        o.data_ptr(), lens.data_ptr(), B, H, Hkv, S, D, strides,
+        D ** -0.5 if sm_scale is None else sm_scale,
+        torch._C._cuda_getCurrentRawStream(q.device.index))
+    kernels.check(err, name)
+    return o
+
+
+def flash_decode_attention(q, k, v, lengths, sm_scale=None, self_kv=None, layer=None):
+    """K7 over a bf16 cache: q (B, H, 1, D); k/v (B, Hkv, S, D), or the
+    stacked (L, B, Hkv, S, D) cache with ``layer`` an int, read in place
+    (``k[layer]`` is a view); lengths (B,) positions to attend, PREVIOUS
+    tokens when ``self_kv`` = (k_new, v_new) (B, Hkv, 1, D) is given → o
+    (B, H, 1, D) like q. Math: ``flash_decode_attention_plain``."""
+    if layer is not None:
+        k, v = k[layer], v[layer]
+    if not _on_cuda(q):
+        return flash_decode_attention_plain(q, k, v, lengths, sm_scale, self_kv)
+    o = _decode_launch("flash_decode_attention", q, k, v, None, None, lengths, sm_scale,
+                       self_kv)
+    flash_decode_attention.launches += 1
+    return o
+
+
+def flash_decode_attention_q8(q, k8, v8, k_s, v_s, lengths, sm_scale=None, self_kv=None,
+                              layer=None):
+    """K7 over an int8 cache: k8/v8 (B, Hkv, S, D) int8 with per-position
+    f32 scales k_s/v_s (B, Hkv, S), or their stacked (L, ...) forms with
+    ``layer``; the current token's ``self_kv`` stays unquantized. Otherwise
+    as ``flash_decode_attention``."""
+    if layer is not None:
+        k8, v8, k_s, v_s = k8[layer], v8[layer], k_s[layer], v_s[layer]
+    if not _on_cuda(q):
+        return flash_decode_attention_plain(q, k8, v8, lengths, sm_scale, self_kv, k_s, v_s)
+    o = _decode_launch("flash_decode_attention_q8", q, k8, v8, k_s, v_s, lengths, sm_scale,
+                       self_kv)
+    flash_decode_attention_q8.launches += 1
+    return o
+
+
 kernels.register(flash_attention_causal, flash_attention_noncausal, gated_bias_attention,
-                 append_kv, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+                 gated_bias_attention_batched, gated_bias_attention_rows, append_kv,
+                 flash_decode_attention, flash_decode_attention_q8,
+                 flash_attention_bwd_dq, flash_attention_bwd_dkv)

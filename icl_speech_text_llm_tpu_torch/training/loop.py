@@ -22,13 +22,12 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from icl_speech_text_llm_tpu.registry import DatasetType
-
 from .. import kernels
 from ..data.collate import collate_icl_batch
 from ..data.packing import PackConfig
 from ..data.pipeline import PrefetchIterator
 from ..evaluation import evaluate_predictions
+from ..registry import DatasetType
 from .checkpoint import copy_into, load_checkpoint, save_checkpoint
 from .step import TrainState, merge_params
 

@@ -8,7 +8,10 @@ outputs within 2e-2 of the f32-softmax plain version on valid rows, row
 max m within 1e-3, the KV append bit-exact, the backward kernels' bf16
 gradients within 2e-2 × max |plain gradient| per tensor over valid rows, and
 the int4 (K10) and int8 (W8A16) matmuls within 1e-2 × max |plain| of their
-f32 plain versions on the same bf16 x.
+f32 plain versions on the same bf16 x. The flash-decode kernel (K7, bf16
+and int8 cache) and the batched and row schedules of the gated-bias kernel
+(K8, K9) are held to their plain versions within 2e-2, as the other
+attention kernels are.
 """
 
 import numpy as np
@@ -240,3 +243,72 @@ def test_cuda_dequant_matmul_routes_by_rows(cuda_device):
             counts = now
     with pytest.raises(TypeError):
         tint4.int4_matmul(x.float()[0, :4], q4["q4"], q4["s"])
+
+
+def _attn_bound(ref):
+    """2e-2 × max |plain| (~2.5 bf16 steps of the largest output), never
+    above 2e-2."""
+    return min(2e-2, 2e-2 * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,quant", [(4, 4, False), (4, 2, False), (7, 1, False),
+                                         (4, 4, True), (4, 2, True)])
+def test_cuda_flash_decode_kernel_matches_plain(cuda_device, H, Hkv, quant):
+    """K7 on a stacked (L, B, Hkv, S, D) cache read at a layer, ragged
+    lengths (one sample with no cached row), with and without the self
+    column; bf16 and int8 (scales from quantize_kv) caches."""
+    L, B, S, D = 3, 3, 300, 128
+    q, = _cuda_inputs([(B, H, 1, D)], cuda_device, 50)
+    ck, cv = _cuda_inputs([(L, B, Hkv, S, D)] * 2, cuda_device, 51)
+    kn, vn = _cuda_inputs([(B, Hkv, 1, D)] * 2, cuda_device, 52)
+    lens = torch.tensor([300, 131, 0], device=cuda_device)
+    if quant:
+        (ck, ks), (cv, vs) = tquant.quantize_kv(ck), tquant.quantize_kv(cv)
+        fn, args = tfa.flash_decode_attention_q8, (q, ck, cv, ks, vs, lens)
+    else:
+        fn, args = tfa.flash_decode_attention, (q, ck, cv, lens)
+    for layer in (0, 2):
+        for self_kv in (None, (kn, vn)):
+            before = fn.launches
+            o = fn(*args, self_kv=self_kv, layer=layer)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1 and o.shape == (B, H, 1, D)
+            cache = [t[layer] for t in args[1:-1]]
+            ref = tfa.flash_decode_attention_plain(
+                q, cache[0], cache[1], lens, self_kv=self_kv,
+                k_s=cache[2] if quant else None, v_s=cache[3] if quant else None)
+            assert (o.float() - ref.float()).abs().max().item() < _attn_bound(ref)
+            if self_kv is None:
+                assert torch.all(o[2] == 0)  # no key at all: o = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [300, 1496])
+def test_cuda_gated_bias_schedules_match_plain(cuda_device, S):
+    """K8 (batch_block) and K9 (gate rows) at a batch that is not a multiple
+    of K8's 4-sample chunk, ragged lengths and the BEATs length 1496, held to
+    the f32-exp2 form of their plain versions (the kernels' arithmetic)."""
+    B, H, D = 5, 2, 64
+    q, k, v, xh = _cuda_inputs([(B, H, S, D)] * 4, cuda_device, 53)
+    bias, = _cuda_inputs([(H, S, S)], cuda_device, 54)
+    grep_w = torch.randn(D, 8, device=cuda_device) * 0.2
+    grep_b = torch.randn(8, device=cuda_device) * 0.1
+    grep_a = 1 + 0.1 * torch.randn(H, device=cuda_device)
+    lens_list = [S, S - 100, 77, S, 1]
+    lens = torch.tensor(lens_list, device=cuda_device)
+    counts = kernels.launch_counts()
+    o8 = tfa.gated_bias_attention(q, k, v, xh, bias, grep_w, grep_b, grep_a, lens,
+                                  batch_block=True)
+    ref8 = tfa.gated_bias_batched_plain(q, k, v, xh, bias, grep_w, grep_b, grep_a, lens,
+                                        pallas_rounding=False)
+    rows = tfa.gate_rows(xh, grep_w, grep_b, grep_a)
+    o9 = tfa.gated_bias_attention_rows(q, k, v, rows, bias, lens)
+    ref9 = tfa.gated_bias_rows_plain(q, k, v, rows, bias, lens, pallas_rounding=False)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["gated_bias_attention_batched"] == counts["gated_bias_attention_batched"] + 1
+    assert after["gated_bias_attention_rows"] == counts["gated_bias_attention_rows"] + 1
+    assert after["gated_bias_attention"] == counts["gated_bias_attention"]
+    assert _valid_rows_max(o8.float().cpu(), ref8.float().cpu(), [S] * B) < _attn_bound(ref8)
+    assert _valid_rows_max(o9.float().cpu(), ref9.float().cpu(), [S] * B) < _attn_bound(ref9)

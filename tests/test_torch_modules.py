@@ -37,7 +37,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "whisper_mel.npz")
 
 
 def _bridge(jax_tree):
-    return params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_tree))
+    return params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_tree), device="cpu")
 
 
 def _close(got, want, tol=TOL):
@@ -168,7 +168,7 @@ def decoder():
 def test_decoder_prefill_and_decode_step_match_jax(decoder):
     cfg, jp, lora, scaling = decoder
     tcfg = tllama.DECODER_CONFIGS["tiny"]
-    tp, tlora = _bridge(jp), params_from_numpy(lora)
+    tp, tlora = _bridge(jp), params_from_numpy(lora, device="cpu")
     B, L, S = 2, 96, 128
     lengths = np.array([96, 61], np.int32)
     seq = (np.random.RandomState(8).randn(B, L, cfg.dim) * 0.5).astype(np.float32)
@@ -181,7 +181,7 @@ def test_decoder_prefill_and_decode_step_match_jax(decoder):
     jh, jcache = jllama.decoder_forward(cfg, jp, jnp.asarray(seq), mask, positions,
                                         cache=jcache, lora=jax.tree_util.tree_map(jnp.asarray, lora),
                                         lora_scaling=scaling)
-    tcache = tllama.init_kv_cache(tcfg, B, S, dtype=torch.float32)
+    tcache = tllama.init_kv_cache(tcfg, B, S, dtype=torch.float32, device="cpu")
     th, tcache = tllama.decoder_forward(tcfg, tp, torch.from_numpy(seq),
                                         torch.from_numpy(lengths), cache=tcache,
                                         lora=tlora, lora_scaling=scaling)

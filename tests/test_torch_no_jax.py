@@ -1,5 +1,7 @@
 """The port must import on a machine that has torch but no jax, optax,
-orbax, pandas, sklearn or nltk (the machine with the GPU has none of them)."""
+orbax, pandas, sklearn or nltk (the machine with the GPU has none of them),
+and it imports nothing of the JAX package ``icl_speech_text_llm_tpu``, not
+even its modules that need no jax."""
 
 import os
 import re
@@ -8,11 +10,13 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "icl_speech_text_llm_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "optax", "orbax", "pandas", "sklearn", "nltk")
+BLOCKED = ("jax", "jaxlib", "optax", "orbax", "pandas", "sklearn", "nltk",
+           "icl_speech_text_llm_tpu")
 #: modules the walk must reach (the training and quantized slices' among them)
 REQUIRED = ("training.step", "training.loop", "training.schedulers", "training.checkpoint",
             "cli.train", "data.pipeline", "ops.flash_attention", "models.salmonn",
-            "ops.quant", "ops.int4_matmul")
+            "ops.quant", "ops.int4_matmul", "inference.beam", "registry",
+            "utils.tokenization")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys

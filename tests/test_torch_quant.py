@@ -83,7 +83,7 @@ def test_quantize_kv_bit_identical_to_jax():
 def test_dequant_int4_matches_jax(jdt, tdt, tol):
     qt = jquant.quantize_tensor_int4(jnp.asarray(_w((2, 256, 40), 3)), group=64)
     want = np.asarray(jquant._dequant_int4(qt, jdt).astype(jnp.float32))
-    got = tquant._dequant_int4(params_from_numpy(_np(qt)), tdt).float().numpy()
+    got = tquant._dequant_int4(params_from_numpy(_np(qt), device="cpu"), tdt).float().numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
@@ -98,7 +98,8 @@ def test_dequant_matmul_matches_jax(kind, jdt, tdt, tol):
     wj = {"plain": jnp.asarray(w), "int8": jquant.quantize_tensor(jnp.asarray(w)),
           "int4": jquant.quantize_tensor_int4(jnp.asarray(w), group=128)}[kind]
     want = np.asarray(jquant.dequant_matmul(jnp.asarray(x).astype(jdt), wj).astype(jnp.float32))
-    got = tquant.dequant_matmul(torch.from_numpy(x).to(tdt), params_from_numpy(_np(wj)))
+    got = tquant.dequant_matmul(torch.from_numpy(x).to(tdt),
+                                params_from_numpy(_np(wj), device="cpu"))
     assert got.dtype == tdt and got.shape == (2, 5, 48)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
@@ -112,7 +113,7 @@ def test_int4_matmul_plain_matches_pallas_kernel(interpret_mode, M, K, N, group,
     x = _w((M, K), 6, scale=0.5)
     qt = jquant.quantize_tensor_int4(jnp.asarray(_w((K, N), 7)), group=group)
     want = np.asarray(jint4.int4_matmul(jnp.asarray(x), qt["q4"], qt["s"], block_n=block_n))
-    t = params_from_numpy(_np(qt))
+    t = params_from_numpy(_np(qt), device="cpu")
     got = tint4.int4_matmul_plain(torch.from_numpy(x), t["q4"], t["s"])
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
@@ -125,7 +126,7 @@ def test_int4_matmul_plain_on_a_stacked_view_matches_the_pallas_layer_form(inter
     qt = jquant.quantize_tensor_int4(jnp.asarray(_w((L, K, N), 9)), group=128)
     want = np.asarray(jint4.int4_matmul(jnp.asarray(x), qt["q4"], qt["s"][layer],
                                         layer=jnp.asarray([layer], jnp.int32)))
-    t = params_from_numpy(_np(qt))
+    t = params_from_numpy(_np(qt), device="cpu")
     view = t["q4"][layer]
     assert view.is_contiguous() and view.data_ptr() == t["q4"].data_ptr() + layer * view.numel()
     got = tint4.int4_matmul_plain(torch.from_numpy(x), view, t["s"][layer])
@@ -136,7 +137,7 @@ def test_int8_matmul_plain_is_the_jax_int8_product():
     x = _w((4, 256), 10, scale=1.0)
     qt = jquant.quantize_tensor(jnp.asarray(_w((256, 128), 11)))
     want = np.asarray(jquant.dequant_matmul(jnp.asarray(x), qt))
-    t = params_from_numpy(_np(qt))
+    t = params_from_numpy(_np(qt), device="cpu")
     got = tint4.int8_matmul_plain(torch.from_numpy(x), t["q"], t["s"])
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
@@ -144,8 +145,10 @@ def test_int8_matmul_plain_is_the_jax_int8_product():
 def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
     kernels.reset_launch_counts()
     x = torch.from_numpy(_w((4, 256), 12, scale=1.0))
-    q4 = params_from_numpy(_np(jquant.quantize_tensor_int4(jnp.asarray(_w((256, 128), 13)))))
-    q8 = params_from_numpy(_np(jquant.quantize_tensor(jnp.asarray(_w((256, 128), 14)))))
+    q4 = params_from_numpy(_np(jquant.quantize_tensor_int4(jnp.asarray(_w((256, 128), 13)))),
+                           device="cpu")
+    q8 = params_from_numpy(_np(jquant.quantize_tensor(jnp.asarray(_w((256, 128), 14)))),
+                           device="cpu")
     assert torch.equal(tint4.int4_matmul(x, q4["q4"], q4["s"]),
                        tint4.int4_matmul_plain(x, q4["q4"], q4["s"]))
     assert torch.equal(tint4.int8_matmul(x, q8["q"], q8["s"]),
@@ -215,7 +218,7 @@ def test_quantize_decoder_tree_matches_jax_at_salmonn_tiny(bits):
     hidden 352 group 88, the lm_head stays int8; quantized in place."""
     _, params = _tiny_decoder()
     want = _np(jquant.quantize_decoder(jax.tree_util.tree_map(jnp.asarray, params), bits=bits))
-    tree = params_from_numpy(params)
+    tree = params_from_numpy(params, device="cpu")
     got = tquant.quantize_decoder(tree, bits=bits)
     assert got is tree
     _assert_trees_equal(got, want)
@@ -266,7 +269,7 @@ def test_bridge_keeps_quantized_scales_f32():
     bytes unchanged and the scales stay f32; other floats become bf16."""
     _, params = _tiny_decoder(1)
     jq = _np(jquant.quantize_decoder(jax.tree_util.tree_map(jnp.asarray, params), bits=4))
-    t = params_from_numpy(jq, dtype=torch.bfloat16)
+    t = params_from_numpy(jq, dtype=torch.bfloat16, device="cpu")
     wq = t["layers"]["attn"]["wq"]
     assert wq["q4"].dtype == torch.uint8 and wq["s"].dtype == torch.float32
     np.testing.assert_array_equal(wq["q4"].numpy(), jq["layers"]["attn"]["wq"]["q4"])
@@ -275,12 +278,12 @@ def test_bridge_keeps_quantized_scales_f32():
     assert t["tok_embed"].dtype == torch.bfloat16
     assert t["layers"]["ln_attn"].dtype == torch.bfloat16
     cache = _np(jllama.init_kv_cache(jllama.DECODER_CONFIGS["tiny"], 1, 8, quant=True))
-    tc = params_from_numpy(cache, dtype=torch.bfloat16)
+    tc = params_from_numpy(cache, dtype=torch.bfloat16, device="cpu")
     assert tc["k"].dtype == torch.int8 and tc["k_s"].dtype == torch.float32
 
 
 def test_init_kv_cache_quant_layout_matches_jax():
     cfg = jllama.DECODER_CONFIGS["tiny"]
     want = _np(jllama.init_kv_cache(cfg, 2, 128, quant=True))
-    got = tllama.init_kv_cache(tllama.DECODER_CONFIGS["tiny"], 2, 128, quant=True)
+    got = tllama.init_kv_cache(tllama.DECODER_CONFIGS["tiny"], 2, 128, quant=True, device="cpu")
     _assert_trees_equal(got, want)

@@ -25,8 +25,6 @@ from icl_speech_text_llm_tpu.models.salmonn import init_salmonn, salmonn_tiny
 from icl_speech_text_llm_tpu.ops import flash_attention as jfa
 from icl_speech_text_llm_tpu.ops import quant as jquant
 from icl_speech_text_llm_tpu.ops.attention import make_decode_mask, make_prefill_mask
-from icl_speech_text_llm_tpu.registry import DatasetSplit, DatasetType
-from icl_speech_text_llm_tpu.utils.tokenization import get_tokenizer
 from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
 from icl_speech_text_llm_tpu_torch.cli import inference as tcli
 from icl_speech_text_llm_tpu_torch.data import collate as tcollate
@@ -36,6 +34,8 @@ from icl_speech_text_llm_tpu_torch.inference import engine as tengine
 from icl_speech_text_llm_tpu_torch.models import llama as tllama
 from icl_speech_text_llm_tpu_torch.models import salmonn as tsalmonn
 from icl_speech_text_llm_tpu_torch.models.factory import create_model
+from icl_speech_text_llm_tpu_torch.registry import DatasetSplit, DatasetType
+from icl_speech_text_llm_tpu_torch.utils.tokenization import get_tokenizer
 
 torch.set_num_threads(1)
 
@@ -83,7 +83,8 @@ def test_prefill_and_decode_step_with_int8_cache_match_jax(jax_flash_prefill, de
     jp = jax.tree_util.tree_map(jnp.asarray, _quantized(params, bits))
     jlora = jax.tree_util.tree_map(jnp.asarray, lora)
     tcfg = tllama.DECODER_CONFIGS["tiny"]
-    tp, tlora = params_from_numpy(_quantized(params, bits)), params_from_numpy(lora)
+    tp = params_from_numpy(_quantized(params, bits), device="cpu")
+    tlora = params_from_numpy(lora, device="cpu")
     B, L, S = 2, 128, 256
     lengths = np.array([128, 77], np.int32)
     seq = (np.random.RandomState(8).randn(B, L, cfg.dim) * 0.5).astype(np.float32)
@@ -95,7 +96,7 @@ def test_prefill_and_decode_step_with_int8_cache_match_jax(jax_flash_prefill, de
     jh, jcache = jllama.decoder_forward(cfg, jp, jnp.asarray(seq), mask, positions, cache=jcache,
                                         lora=jlora, lora_scaling=scaling,
                                         flash_lengths=jnp.asarray(lengths))
-    tcache = tllama.init_kv_cache(tcfg, B, S, quant=True)
+    tcache = tllama.init_kv_cache(tcfg, B, S, quant=True, device="cpu")
     th, tcache = tllama.decoder_forward(tcfg, tp, torch.from_numpy(seq), torch.from_numpy(lengths),
                                         cache=tcache, lora=tlora, lora_scaling=scaling)
     for b, n in enumerate(lengths):
@@ -115,7 +116,7 @@ def test_prefill_and_decode_step_with_int8_cache_match_jax(jax_flash_prefill, de
     # moves later attention by ~1e-4) does not carry into the next step.
     cur = lengths.copy()
     for step in range(2):
-        tcache = params_from_numpy(_np(jcache))
+        tcache = params_from_numpy(_np(jcache), device="cpu")
         x = (np.random.RandomState(9 + step).randn(B, 1, cfg.dim) * 0.5).astype(np.float32)
         jx, jcache = jllama.decoder_forward(
             cfg, jp, jnp.asarray(x), make_decode_mask(jnp.asarray(cur) + 1, S),
@@ -158,7 +159,8 @@ def test_salmonn_tiny_greedy_tokens_identical_to_jax(jax_flash_prefill, tiny_wor
         jengine.salmonn_generate, salmonn_tiny(), jengine.GenerationConfig(**gen_kw)))(
         jax.tree_util.tree_map(jnp.asarray, params), {k: jnp.asarray(v) for k, v in batch.items()}))
     got = tengine.salmonn_generate(
-        tsalmonn.salmonn_tiny(), tengine.GenerationConfig(**gen_kw), params_from_numpy(params),
+        tsalmonn.salmonn_tiny(), tengine.GenerationConfig(**gen_kw),
+        params_from_numpy(params, device="cpu"),
         {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}).numpy()
     assert got.shape == (2, 10)
     np.testing.assert_array_equal(got, want)

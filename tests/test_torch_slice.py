@@ -21,24 +21,30 @@ from icl_speech_text_llm_tpu.data import factory as jfactory
 from icl_speech_text_llm_tpu.data.packing import PackConfig as JPackConfig
 from icl_speech_text_llm_tpu.inference import engine as jengine
 from icl_speech_text_llm_tpu.models.salmonn import init_salmonn, salmonn_tiny
-from icl_speech_text_llm_tpu.registry import DatasetSplit, DatasetType
-from icl_speech_text_llm_tpu.utils.tokenization import get_tokenizer
+from icl_speech_text_llm_tpu import registry as jregistry
+from icl_speech_text_llm_tpu.utils.tokenization import get_tokenizer as jax_tokenizer
 from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
 from icl_speech_text_llm_tpu_torch.data import collate as tcollate
 from icl_speech_text_llm_tpu_torch.data import factory as tfactory
 from icl_speech_text_llm_tpu_torch.data.packing import PackConfig
 from icl_speech_text_llm_tpu_torch.evaluation import clean_prediction, evaluate_predictions
+from icl_speech_text_llm_tpu_torch import registry as tregistry
 from icl_speech_text_llm_tpu_torch.inference import engine as tengine
 from icl_speech_text_llm_tpu_torch.models import salmonn as tsalmonn
+from icl_speech_text_llm_tpu_torch.registry import DatasetType
+from icl_speech_text_llm_tpu_torch.utils.tokenization import get_tokenizer
 
 torch.set_num_threads(1)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 K = 2  # speech exemplars per request
 
 
-def _dataset(factory):
+def _dataset(factory, registry):
+    """The same synthetic requests through either package, each with its own
+    registry's enums."""
     return factory.create_dataset(
-        DatasetType.VOXCELEB, split=DatasetSplit.TEST, input_mode="speech_only",
+        registry.DatasetType.VOXCELEB, split=registry.DatasetSplit.TEST,
+        input_mode="speech_only",
         fewshot_mode="speech", num_examples=K, max_samples=4, synthetic=True,
         synthetic_size=8, seed=3)
 
@@ -51,13 +57,13 @@ def _pack_cfg(cls):
 @pytest.fixture(scope="module")
 def packed():
     tok = get_tokenizer()
-    samples = [_dataset(tfactory)[i] for i in range(2)]
+    samples = [_dataset(tfactory, tregistry)[i] for i in range(2)]
     return tcollate.collate_icl_batch(samples, tok, _pack_cfg(PackConfig))
 
 
 def test_data_pipeline_packs_the_same_batch_as_jax(packed):
-    tok = get_tokenizer()
-    ref = jcollate.collate_icl_batch([_dataset(jfactory)[i] for i in range(2)], tok,
+    ref = jcollate.collate_icl_batch([_dataset(jfactory, jregistry)[i] for i in range(2)],
+                                     jax_tokenizer(),
                                      _pack_cfg(JPackConfig))
     for name in ("text_tokens", "gather_idx", "seq_mask", "seq_lengths", "labels",
                  "labels_shifted", "num_slots_used"):
@@ -69,7 +75,7 @@ def test_data_pipeline_packs_the_same_batch_as_jax(packed):
 @pytest.fixture(scope="module")
 def tiny_world(packed):
     jparams = init_salmonn(jax.random.PRNGKey(0), salmonn_tiny())
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     batch = {"text_tokens": packed.text_tokens, "gather_idx": packed.gather_idx,
              "seq_lengths": packed.seq_lengths, "wavs": packed.audio["wavs"]}
     return jparams, tparams, batch
@@ -109,11 +115,13 @@ def test_tokens_after_eos_are_pad_as_in_jax(tiny_world, default_tokens):
 
 
 def test_generation_config_refuses_unported_options():
+    """Only JAX's GSPMD decode (``use_flash_decode=False``) stays unported;
+    the generation options and the flash-decode kernel are accepted."""
+    with pytest.raises(NotImplementedError):
+        tengine.GenerationConfig(use_flash_decode=False).check_supported()
     for kw in ({"do_sample": True}, {"num_beams": 2}, {"repetition_penalty": 1.2},
-               {"min_new_tokens": 1}):
-        with pytest.raises(NotImplementedError):
-            tengine.GenerationConfig(**kw).check_supported()
-    tengine.GenerationConfig(kv_int8=True).check_supported()  # ported
+               {"min_new_tokens": 1}, {"kv_int8": True}, {"use_flash_decode": True}):
+        tengine.GenerationConfig(**kw).check_supported()
 
 
 def test_cli_runs_the_slice_on_cpu(tmp_path):
@@ -130,7 +138,8 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
     assert all(len(r["tokens"]) == 4 for r in results["results"])
     assert results["perf"]["batches"] == 2 and "voxceleb" in metrics
     with pytest.raises(NotImplementedError):
-        inference.main(["--do_sample", "--device", "cpu", "--results_dir", str(tmp_path)])
+        inference.main(["--peft_model_path", str(tmp_path), "--device", "cpu",
+                        "--results_dir", str(tmp_path)])
 
 
 def test_clean_prediction_matches_golden():

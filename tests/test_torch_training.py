@@ -24,19 +24,19 @@ import pytest
 import torch
 
 from icl_speech_text_llm_tpu.models import salmonn as jsalmonn
-from icl_speech_text_llm_tpu.registry import DatasetSplit, DatasetType
 from icl_speech_text_llm_tpu.training import checkpoint as jckpt
 from icl_speech_text_llm_tpu.training import schedulers as jsched
 from icl_speech_text_llm_tpu.training import step as jstep
-from icl_speech_text_llm_tpu.utils.tokenization import get_tokenizer
 from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
 from icl_speech_text_llm_tpu_torch.data.collate import collate_icl_batch
 from icl_speech_text_llm_tpu_torch.data.factory import create_dataset
 from icl_speech_text_llm_tpu_torch.data.packing import PackConfig
 from icl_speech_text_llm_tpu_torch.models import salmonn as tsalmonn
+from icl_speech_text_llm_tpu_torch.registry import DatasetSplit, DatasetType
 from icl_speech_text_llm_tpu_torch.training import checkpoint as tckpt
 from icl_speech_text_llm_tpu_torch.training import schedulers as tsched
 from icl_speech_text_llm_tpu_torch.training import step as tstep
+from icl_speech_text_llm_tpu_torch.utils.tokenization import get_tokenizer
 
 torch.set_num_threads(1)
 REMATS = [False, True, "dots", "1in2"]
@@ -95,7 +95,7 @@ def jax_loss_and_grads(world):
 def port_loss_and_grads(world):
     params, batch = world
     cfg = tsalmonn.salmonn_tiny()
-    tparams = params_from_numpy(params)
+    tparams = params_from_numpy(params, device="cpu")
     out = {}
     for remat in REMATS:
         trainable, frozen = tstep.split_params(tparams)
@@ -147,7 +147,7 @@ def test_one_in_k_that_does_not_divide_degrades_to_full_remat(world, caplog):
     """salmonn-tiny has 2 LLM layers: '1in3' falls back to full remat with
     the JAX package's warning, and the loss is unchanged."""
     params, batch = world
-    tparams = params_from_numpy(params)
+    tparams = params_from_numpy(params, device="cpu")
     tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
     cfg = tsalmonn.salmonn_tiny()
     with torch.no_grad():
@@ -184,7 +184,8 @@ def test_cross_entropy_matches_jax_including_masked_and_out_of_vocab_labels():
 def test_pipeline_and_sp_are_not_ported(world):
     params, batch = world
     with pytest.raises(NotImplementedError):
-        tsalmonn.salmonn_train_loss(tsalmonn.salmonn_tiny(), params_from_numpy(params), {},
+        tsalmonn.salmonn_train_loss(tsalmonn.salmonn_tiny(),
+                                    params_from_numpy(params, device="cpu"), {},
                                     pipeline=(None, 2))
 
 
@@ -222,7 +223,7 @@ def _run_both(params, settings_kw, batches, loss_j=_jax_loss, loss_t=_port_loss)
     jstate, jfrozen = jstep.init_train_state(jax.tree_util.tree_map(jnp.asarray, params), jopt)
     jfn = jstep.make_train_step(cfg, jopt, loss_fn=loss_j)
     topt = tstep.AdamW(tstep.OptimizerSettings(**tkw))
-    tstate, tfrozen = tstep.init_train_state(params_from_numpy(params), topt)
+    tstate, tfrozen = tstep.init_train_state(params_from_numpy(params, device="cpu"), topt)
     tfn = tstep.make_train_step(tsalmonn.salmonn_tiny(), topt, loss_fn=loss_t)
     for b in batches:
         jstate, jm = jfn(jstate, jfrozen, {k: jnp.asarray(v) for k, v in b.items()})
@@ -272,7 +273,7 @@ def test_nonfinite_loss_is_noop_update(world):
     untouched (the JAX package's non-finite guard)."""
     params, _ = world
     topt = tstep.AdamW(tstep.OptimizerSettings(learning_rate=1e-2, grad_accum_steps=2))
-    state, frozen = tstep.init_train_state(params_from_numpy(params), topt)
+    state, frozen = tstep.init_train_state(params_from_numpy(params, device="cpu"), topt)
 
     def nan_loss(cfg, p, batch, remat=False):
         return tstep.tree_leaves(p["lora"])[0].sum() * float("nan")
@@ -319,7 +320,7 @@ def test_schedules_match_jax(name):
 def test_checkpoint_round_trip_and_jax_reads_it(world, tmp_path):
     params, _ = world
     topt = tstep.AdamW(tstep.OptimizerSettings())
-    state, _ = tstep.init_train_state(params_from_numpy(params), topt)
+    state, _ = tstep.init_train_state(params_from_numpy(params, device="cpu"), topt)
     path = tckpt.save_checkpoint(str(tmp_path / "epoch_0_loss_1.2345"), state.trainable,
                                  opt_state=state.opt_state, step=7, epoch=1, loss=1.2345,
                                  metadata={"note": "port"})
@@ -335,7 +336,7 @@ def test_checkpoint_round_trip_and_jax_reads_it(world, tmp_path):
             np.testing.assert_array_equal(got[k], want[k])
     assert mine["opt_state"]["count"] == 0 and "mu" in mine["opt_state"]
     # resume: copy the saved tree back into live tensors
-    fresh, _ = tstep.init_train_state(params_from_numpy(params), topt)
+    fresh, _ = tstep.init_train_state(params_from_numpy(params, device="cpu"), topt)
     with torch.no_grad():
         for t in tstep.tree_leaves(fresh.trainable):
             t.zero_()
