@@ -6,13 +6,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. device  — the card's name and power limit (nvidia-smi); exits non-zero
                without CUDA;
   2. build   — compiles the Hopper kernels of icl_speech_text_llm_tpu_torch/csrc
-               (one nvcc per source, in parallel);
+               (one nvcc per source, in parallel); prints each kernel's
+               registers, shared memory and spills (ptxas -v) and, where
+               cuobjdump exists, whether the flash forward's SASS holds
+               HGMMA (wgmma) and UTMALDG (TMA loads);
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the shapes of the paths below, with the stated tolerances, plus
                CUDA-event times of both, its bound (the least time the H100
                could take: the bytes it must move at 3.35 TB/s or its matmul
                FLOPs at 989 TFLOP/s bf16, the larger) and, where one PyTorch
-               call computes the same function, that call's time;
+               call computes the same function, that call's time (K1 and K2
+               timed in turns with theirs: kernel, SDPA, SDPA, kernel); the
+               streaming probe (K11) on two 75.5 MB buffers, with its GB/s;
   4. check   — one-layer-per-stack models, the bf16 kernel path on the card
                against the f32 plain path on the CPU with the same weights and
                inputs: at salmonn-7b widths the first-token logits and 3
@@ -33,16 +38,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                sampled beams (4); then the batched BEATs attention schedule,
                which no model config selects, through its entry point
                gated_bias_attention(batch_block=True) on every BEATs layer of
-               a main-path batch of 24 clips;
+               a main-path batch of 24 clips; then the streaming probe (K11)
+               through its entry point, ops.probes.stream_rate, on the two
+               buffers of the JAX probes;
   6. train   — the port's training CLI on salmonn-7b at full width: 4 optimizer
                steps (batch 4, seq 1024), validation by generation and a
                checkpoint, with each step's kernel launches read; then 2 steps
                with full activation checkpointing.
-The line before the last is a JSON object of the kernels (launch counts from
-the run of each kernel's own path: the salmonn-13b int4 run for the int4 and
-int8 matmuls, the flash-decode runs of phase main for the flash-decode
-kernels and the K9 schedule, phase main's BEATs-layer run for the K8
-schedule, the train phase for the others); the last
+The line before the last is a JSON object of the thirteen kernels (launch
+counts from the run of each kernel's own path: the salmonn-13b int4 run for
+the int4 and int8 matmuls, the flash-decode runs of phase main for the
+flash-decode kernels and the K9 schedule, phase main's BEATs-layer run for
+the K8 schedule, its probe run for K11, the train phase for the others); the
+last
 line is {"ok": true, "device": {...}} and is printed only when every phase
 passed. Takes ~4 minutes on one H100.
 """
@@ -138,6 +146,102 @@ def _device_ms(fn, reps=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _in_turns(label, kernel, library, bound):
+    """Device times of a kernel and of the library call computing the same
+    function, in turns (kernel, library, library, kernel) → (kernel ms,
+    library ms), each the mean of its two turns; prints the four times and
+    the kernel's share of its bound."""
+    t = [_device_ms(kernel), _device_ms(library), _device_ms(library), _device_ms(kernel)]
+    ms, lib_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    print(f"  {label}: kernel, SDPA, SDPA, kernel {[round(x, 4) for x in t]} ms; kernel "
+          f"{ms:.4f} ms = {100 * bound[0] / ms:.1f}% of its bound {bound[0]:.4f} ms "
+          f"({bound[1]}); {'faster' if ms < lib_ms else 'slower'} than SDPA "
+          f"({lib_ms / ms:.2f}x)", flush=True)
+    return ms, lib_ms
+
+
+def _build_report(lib_path, log):
+    """Each kernel's registers, shared memory and spills from nvcc's ptxas -v
+    output (the flash forward's dynamic shared memory from its C entry), and,
+    where cuobjdump exists, whether the flash forward's SASS holds HGMMA
+    (wgmma) and UTMALDG (TMA tensor loads); fails if it does not."""
+    import shutil
+
+    from icl_speech_text_llm_tpu_torch import kernels
+
+    name, props = "", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            props = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            print(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}; {props}", flush=True)
+            name = ""
+    smem = kernels.lib().iclk_flash_fwd_smem_bytes
+    print(f"  flash_fwd_wgmma_kernel dynamic shared memory: D = 64 {smem(64)} bytes, "
+          f"D = 128 {smem(128)} bytes", flush=True)
+    tool = next((c for c in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "cuobjdump"),
+                             shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump")
+                 if c and os.path.isfile(c)), None)
+    if tool is None:
+        print("  cuobjdump not found: SASS not checked", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    found = 0
+    for fn in sass.split("Function : ")[1:]:
+        fname = fn.split("\n", 1)[0].strip()
+        if "flash_fwd_wgmma_kernel" not in fname:
+            continue
+        found += 1
+        hgmma, utma = fn.count("HGMMA"), fn.count("UTMALDG")
+        print(f"  SASS {fname}: {hgmma} HGMMA, {utma} UTMALDG", flush=True)
+        if not (hgmma and utma):
+            raise AssertionError(f"{fname}: no wgmma or no TMA load in the SASS")
+    if found != 4:
+        raise AssertionError(f"expected 4 flash forward kernels in the SASS, found {found}")
+
+
+def _probe_kernel_rows(report, gen):
+    """K11, the streaming probe, on the JAX probes' two buffers: the (73728,
+    512) bf16 matrix of probe_stream_matrix.py and one layer's k + v of the
+    7B cache, (2, 4, 32, 1152, 128), the shape of probe_kernel_variants.py;
+    75.5 MB each, above the 50 MB L2. Bound on the partial sums: 1e-5 × the
+    largest block's Σ|x| (f32 sums of 36,864 terms in another order). The
+    library call: torch.sum over the (blocks, chunk) view in f32."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.ops import probes
+
+    dev = torch.device("cuda")
+    errs, timed = [], None
+    for label, shape in (("(73728, 512)", (73728, 512)),
+                         ("7B cache layer k + v (2, 4, 32, 1152, 128)", (2, 4, 32, 1152, 128))):
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        got = probes.stream_read(x)
+        ref = probes.stream_read_plain(x)
+        tol = 1e-5 * probes.stream_read_plain(x.abs()).max().item()
+        torch.cuda.synchronize()
+        errs.append((f"{label} partial sums (bound 1e-5 × max block Σ|x| = {tol:.3e})",
+                     (got - ref).abs().max().item(), tol))
+        nbytes = x.numel() * x.element_size() + 4 * probes.PROBE_BLOCKS
+        ms = _device_ms(lambda i=0: probes.stream_read(x))
+        lib_ms = _device_ms(lambda i=0: torch.sum(x.view(probes.PROBE_BLOCKS, -1), dim=1,
+                                                  dtype=torch.float32))
+        print(f"  stream_read {label}: {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s against the "
+              f"data sheet's 3350 GB/s; torch.sum {lib_ms:.4f} ms "
+              f"({nbytes / lib_ms / 1e6:.1f} GB/s)", flush=True)
+        if timed is None:
+            plain_ms = _device_ms(lambda i=0: probes.stream_read_plain(x), reps=5)
+            timed = (ms, plain_ms, _bound(nbytes, 0.0), lib_ms)
+        del x, got, ref
+    report("stream_read", "cuda", "icl_speech_text_llm_tpu_torch/csrc/stream_probe.cu",
+           "scripts/probe_stream_matrix.py:67, scripts/probe_kernel_variants.py:50", errs,
+           *timed)
+    torch.cuda.empty_cache()
 
 
 def _wq_kernel_rows(report, gen):
@@ -400,18 +504,21 @@ def _kernel_phase():
     errs += [(f"13B (4, 40, 1024, 128) {what}", e, tol)
              for what, e, tol in stat_errs(ker_13, ref_13, lens)]
     del q13, k13, v13, ker_13, ref_13, kg, vg, ker_g, ref_g
-    # library: one SDPA call with the causal and key-length mask
+    # library: one SDPA call with the causal and key-length mask, timed in
+    # turns with the kernel, both queued behind a device spin
     rows_i = torch.arange(S, device=dev)
     sdpa_mask = ((rows_i[None, :] <= rows_i[:, None])[None]
                  & (rows_i[None, None, :] < lengths[:, None, None]))[:, None]
     nbytes = 2 * 2 * B * H * S * D + 2 * 2 * H * D * sum(lens) + 2 * 4 * B * H * S
+    bound = _bound(nbytes, 4.0 * D * H * _causal_pairs(S, lens))
+    ms, lib_ms = _in_turns(
+        "flash_attention_causal (4, 32, 1024, 128)",
+        lambda i=0: fa.flash_attention_causal(q, k, v, lengths),
+        lambda i=0: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), bound)
     report("flash_attention_causal", "cuda",
            "icl_speech_text_llm_tpu_torch/csrc/flash_fwd.cu",
-           "icl_speech_text_llm_tpu/ops/flash_attention.py:145", errs,
-           _time_ms(lambda: fa.flash_attention_causal(q, k, v, lengths)),
-           _time_ms(lambda: fa.flash_attention_plain(q, k, v, lengths, True)),
-           _bound(nbytes, 4.0 * D * H * _causal_pairs(S, lens)),
-           _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)))
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:145", errs, ms,
+           _time_ms(lambda: fa.flash_attention_plain(q, k, v, lengths, True)), bound, lib_ms)
     del sdpa_mask
 
     # K2: Whisper encoder, (24, 20, 1500, 64) non-causal, all 1500 keys valid
@@ -419,15 +526,17 @@ def _kernel_phase():
     q, k, v = randn(B, H, S, D), randn(B, H, S, D), randn(B, H, S, D)
     ker = fa.flash_attention_noncausal(q, k, v)
     ref = fa.flash_attention_plain(q, k, v, None, causal=False)
+    errs = stat_errs(ker, ref, [S] * B)
+    del ker, ref
+    bound = _bound(4 * 2 * B * H * S * D + 2 * 4 * B * H * S, 4.0 * D * B * H * S * S)
+    ms, lib_ms = _in_turns("flash_attention_noncausal (24, 20, 1500, 64)",
+                           lambda i=0: fa.flash_attention_noncausal(q, k, v),
+                           lambda i=0: F.scaled_dot_product_attention(q, k, v), bound)
     report("flash_attention_noncausal", "cuda",
            "icl_speech_text_llm_tpu_torch/csrc/flash_fwd.cu",
-           "icl_speech_text_llm_tpu/ops/flash_attention.py:238",
-           stat_errs(ker, ref, [S] * B),
-           _time_ms(lambda: fa.flash_attention_noncausal(q, k, v)),
-           _time_ms(lambda: fa.flash_attention_plain(q, k, v, None, False)),
-           _bound(4 * 2 * B * H * S * D + 2 * 4 * B * H * S, 4.0 * D * B * H * S * S),
-           _time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
-    del q, k, v, ker, ref
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:238", errs, ms,
+           _time_ms(lambda: fa.flash_attention_plain(q, k, v, None, False)), bound, lib_ms)
+    del q, k, v
 
     # K3: BEATs gated relative-position bias, (24, 12, 1496, 64)
     B, H, S, D = 24, 12, 1496, 64
@@ -437,6 +546,18 @@ def _kernel_phase():
     grep_b = torch.randn((8,), generator=gen, device=dev) * 0.1
     grep_a = 1.0 + 0.1 * torch.randn((H,), generator=gen, device=dev)
     args = (q, k, v, xh, bias, grep_w, grep_b, grep_a)
+    gate = fa.gate_rows(xh, grep_w, grep_b, grep_a)
+    # library, for K3, K8 and K9: one SDPA call with the additive mask g·bias
+    # (every key valid at this shape) materialised as (B, H, S, S) bf16
+    # outside the timed call, 1.29 GB
+    add_mask = torch.empty((B, H, S, S), dtype=bf, device=dev)
+    for b in range(B):
+        add_mask[b] = (gate[b][..., None] * bias.float()).to(bf)
+    gated_lib_ms = _device_ms(
+        lambda i=0: F.scaled_dot_product_attention(q, k, v, attn_mask=add_mask), reps=10)
+    print(f"  SDPA with the (24, 12, 1496, 1496) bf16 additive mask: {gated_lib_ms:.4f} ms",
+          flush=True)
+    del add_mask
     ker = fa.gated_bias_attention(*args)
     ref = fa.gated_bias_attention_plain(*args)
     # the work of K3, K8 and K9: q·kᵀ and p·v over every (row, key) pair; the
@@ -449,7 +570,7 @@ def _kernel_phase():
            [_row_case("o", ker, ref)],
            _time_ms(lambda: fa.gated_bias_attention(*args)),
            _time_ms(lambda: fa.gated_bias_attention_plain(*args)),
-           _bound(5 * 2 * B * H * S * D + bias_bytes, gated_flops), None)
+           _bound(5 * 2 * B * H * S * D + bias_bytes, gated_flops), gated_lib_ms)
     del ker, ref
     # K8: the batched schedule, the main path's ragged-free BEATs shape and a
     # ragged one (the last chunk short: B = 22, lengths ≤ S). K8 and K9 are
@@ -470,10 +591,9 @@ def _kernel_phase():
            "icl_speech_text_llm_tpu/ops/flash_attention.py:802", errs,
            _time_ms(lambda: fa.gated_bias_attention(*args, batch_block=True)),
            _time_ms(lambda: fa.gated_bias_batched_plain(*args, pallas_rounding=False)),
-           _bound(5 * 2 * B * H * S * D + bias_bytes, gated_flops), None)
+           _bound(5 * 2 * B * H * S * D + bias_bytes, gated_flops), gated_lib_ms)
     del ker, ref, sub22
     # K9: the gate rows precomputed (as BEATs lean_bias_flash computes them)
-    gate = fa.gate_rows(xh, grep_w, grep_b, grep_a)
     rargs = (q, k, v, gate, bias)
     ker = fa.gated_bias_attention_rows(*rargs)
     ref = fa.gated_bias_rows_plain(*rargs, pallas_rounding=False)
@@ -486,7 +606,8 @@ def _kernel_phase():
            "icl_speech_text_llm_tpu/ops/flash_attention.py:1044", errs,
            _time_ms(lambda: fa.gated_bias_attention_rows(*rargs)),
            _time_ms(lambda: fa.gated_bias_rows_plain(*rargs, pallas_rounding=False)),
-           _bound(4 * 2 * B * H * S * D + 4 * B * H * S + bias_bytes, gated_flops), None)
+           _bound(4 * 2 * B * H * S * D + 4 * B * H * S + bias_bytes, gated_flops),
+           gated_lib_ms)
     del args, rargs, sub22, q, k, v, xh, bias, gate, ker, ref
     torch.cuda.empty_cache()
 
@@ -568,15 +689,31 @@ def _kernel_phase():
             qo = 2 * B * H * S * D  # bytes of one (B, H, S, D) bf16 tensor
             kv_len = 2 * 2 * Hkv * D * sum(lens)  # k and v rows below the lengths
             # dq: q·kᵀ, do·vᵀ, ds·k; dk/dv: those two and pᵀ·do, dsᵀ·q. No
-            # single PyTorch call returns dq alone or dk/dv alone.
+            # single PyTorch call returns dq alone or dk/dv alone: the library
+            # column of both rows is one SDPA backward (dq, dk, dv) of K1's
+            # masked call, a retained graph's torch.autograd.grad, timed
+            # against K5 + K6 together
+            rows_i = torch.arange(S, device=dev)
+            sdpa_mask = ((rows_i[None, :] <= rows_i[:, None])[None]
+                         & (rows_i[None, None, :] < lengths[:, None, None]))[:, None]
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
+            sdpa_bwd_ms = _device_ms(
+                lambda i=0: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=10)
+            k56_ms = _device_ms(lambda i=0: (fa.flash_attention_bwd_dq(*args),
+                                             fa.flash_attention_bwd_dkv(*args_kv)), reps=10)
+            print(f"  {label} backward: K5 + K6 {k56_ms:.4f} ms, SDPA backward (dq, dk, dv) "
+                  f"{sdpa_bwd_ms:.4f} ms", flush=True)
+            del leaves, out, sdpa_mask
             timed = {
                 "dq": (_time_ms(lambda: fa.flash_attention_bwd_dq(*args)),
                        _time_ms(lambda: fa.flash_attention_bwd_dq_plain(*args)),
-                       _bound(4 * qo + kv_len + 3 * 4 * B * H * S, 6.0 * D * pairs), None),
+                       _bound(4 * qo + kv_len + 3 * 4 * B * H * S, 6.0 * D * pairs),
+                       sdpa_bwd_ms),
                 "dkv": (_time_ms(lambda: fa.flash_attention_bwd_dkv(*args_kv)),
                         _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args_kv)),
                         _bound(2 * qo + kv_len + 2 * 2 * B * Hkv * S * D + 3 * 4 * B * H * S,
-                               8.0 * D * pairs), None)}
+                               8.0 * D * pairs), sdpa_bwd_ms)}
         del q, k, v, do, o, m, l, dq, dk, dv, delta, f, dq_p, dk_p, dv_p, delta_p
         torch.cuda.empty_cache()
     report("flash_attention_bwd_dq", "cuda", "icl_speech_text_llm_tpu_torch/csrc/flash_bwd.cu",
@@ -586,6 +723,7 @@ def _kernel_phase():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     _wq_kernel_rows(report, gen)
+    _probe_kernel_rows(report, gen)
     return rows
 
 
@@ -1025,12 +1163,44 @@ def _beats_batched_run():
     return counts
 
 
+def _probe_run():
+    """K11's path: the port's probe entry point, ops.probes.stream_rate, on
+    the two buffers of the JAX probes (random bf16 from seed 5). Launch
+    counts are set to 0 just before and read just after; returns them."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.ops import probes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    print("  streaming probe through ops.probes.stream_rate:", flush=True)
+    kernels.reset_launch_counts()
+    for label, shape in (("(73728, 512)", (73728, 512)),
+                         ("7B cache layer k + v (2, 4, 32, 1152, 128)", (2, 4, 32, 1152, 128))):
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        rate = probes.stream_rate(x)
+        print(f"    {label}, {x.numel() * 2 / 1e6:.1f} MB: {rate:.1f} GB/s "
+              f"({100 * rate / 3350:.1f}% of the data sheet's 3350 GB/s)", flush=True)
+        if not 0 < rate < 1e5:
+            raise AssertionError(f"stream_rate gave {rate} GB/s")
+        del x
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"    launches stream_read: {counts['stream_read']} (need >= 42)", flush=True)
+    if counts["stream_read"] < 42:
+        raise AssertionError(f"the probe run did not run K11: {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _main_phase(out_dir):
     """The inference main paths → {kernel: launches of the run of its path}:
     7B bf16, 13B int4 weights + int8 KV cache, 7B int8 weights, 7B beams
     through the CLI; 7B with the flash-decode kernel and BEATs' row
     schedule, 13B int4 + int8 KV with the flash-decode kernel and sampled
-    beams through the library; BEATs' batched schedule through its op."""
+    beams through the library; BEATs' batched schedule through its op; the
+    streaming probe through its entry point."""
     _main_run(os.path.join(out_dir, "7b"), "salmonn-7b", [], 8, {
         "flash_attention_noncausal": 32 * 2, "gated_bias_attention": 12 * 2,
         "flash_attention_causal": 32 * 2, "append_kv": 9 * 2})
@@ -1064,11 +1234,14 @@ def _main_phase(out_dir):
                             "int4_matmul": 7 * 40 * 9, "append_kv": 9})
     # (d) BEATs' batched schedule (K8 ×12, one a layer)
     batched = _beats_batched_run()
+    # (e) the streaming probe (K11)
+    probe = _probe_run()
     return {"int4_matmul": quant["int4_matmul"], "int8_matmul": quant["int8_matmul"],
             "flash_decode_attention": flash["flash_decode_attention"],
             "gated_bias_attention_rows": flash["gated_bias_attention_rows"],
             "flash_decode_attention_q8": flash_q8["flash_decode_attention_q8"],
-            "gated_bias_attention_batched": batched["gated_bias_attention_batched"]}
+            "gated_bias_attention_batched": batched["gated_bias_attention_batched"],
+            "stream_read": probe["stream_read"]}
 
 
 def _train_run(out_dir, n_steps, extra, k1_per_step):
@@ -1169,9 +1342,8 @@ def main():
     kernels.lib()
     print(f"  built {kernels.library_path()} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {kernels.build_seconds:.2f} s)", flush=True)
-    for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    _build_report(kernels.library_path(),
+                  (kernels.library_path().parent / "build.log").read_text())
 
     print("phase kernels:", flush=True)
     t0 = time.perf_counter()

@@ -1,6 +1,7 @@
-// Flash-attention forward skeleton shared by flash_fwd.cu (causal and
-// non-causal attention) and gated_bias.cu (BEATs gated relative-position
-// bias attention, in three schedules).
+// Flash-attention forward skeleton (mma.sync) of gated_bias.cu: BEATs
+// gated relative-position bias attention, in three schedules. (The plain
+// causal and non-causal forward, flash_fwd.cu, is a wgmma/TMA kernel of its
+// own; the kGateNone mode here is no longer instantiated.)
 //
 // One block of 4 warps owns 64 query rows of one (batch, head); each warp
 // owns 16 rows. The block walks the key/value sequence in 64-row tiles

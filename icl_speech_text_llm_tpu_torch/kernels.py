@@ -8,8 +8,11 @@ goes to ``build/torch_kernels/<hash>/`` at the repository root (listed in
 source rebuilds and an unchanged tree reuses the library. Nothing here runs
 at import: the CPU paths never touch it.
 
-Every C entry returns the ``cudaGetLastError()`` of its launch; ``check``
-turns a non-zero code into an exception.
+Every C entry that launches returns the ``cudaGetLastError()`` of its
+launch; ``check`` turns a non-zero code into an exception. The flash forward
+builds TMA tensor maps with ``cuTensorMapEncodeTiled``, which it reaches
+through the runtime's ``cudaGetDriverEntryPoint``: the library needs no link
+against ``libcuda``.
 
 The launch-count registry lives here too: each ops module ``register``s its
 kernel wrappers, each wrapper adds one to ``<wrapper>.launches`` where it
@@ -76,6 +79,10 @@ _SIGNATURES = {
     "iclk_int4_matmul": [_p] * 5 + [_i] * 5 + [_p],
     # x, q, s, y, ws, M, N, K, n_groups (ignored), splits, stream
     "iclk_int8_matmul": [_p] * 5 + [_i] * 5 + [_p],
+    # x, partial, n_vec (16-byte vectors), blocks, stream
+    "iclk_stream_read": [_p, _p, ctypes.c_longlong, _i, _p],
+    # D → dynamic shared memory of a flash-forward block, in bytes
+    "iclk_flash_fwd_smem_bytes": [_i],
 }
 
 

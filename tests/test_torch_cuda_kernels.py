@@ -5,13 +5,15 @@ This file imports no jax, so it also runs on the machine with the card:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 (``--noconftest`` because ``tests/conftest.py`` sets up jax). Bounds: bf16
 outputs within 2e-2 of the f32-softmax plain version on valid rows, row
-max m within 1e-3, the KV append bit-exact, the backward kernels' bf16
+max m within 1e-3 and row sum l within 1e-3 relative (the flash forward),
+the KV append bit-exact, the backward kernels' bf16
 gradients within 2e-2 × max |plain gradient| per tensor over valid rows, and
 the int4 (K10) and int8 (W8A16) matmuls within 1e-2 × max |plain| of their
 f32 plain versions on the same bf16 x. The flash-decode kernel (K7, bf16
 and int8 cache) and the batched and row schedules of the gated-bias kernel
 (K8, K9) are held to their plain versions within 2e-2, as the other
-attention kernels are.
+attention kernels are. The streaming probe (K11) is held to its plain
+version within 1e-5 × the largest block's Σ|x| (f32 sums in another order).
 """
 
 import numpy as np
@@ -45,12 +47,35 @@ def _cuda_inputs(shapes, dev, seed):
     return [torch.from_numpy(a).to(dev, torch.bfloat16) for a in _arrays(shapes, seed, 1.0)]
 
 
+def _check_flash(o, m, l, o_p, m_p, l_p, rows):
+    """o within 2e-2, m within 1e-3 and l within 1e-3 relative of the plain
+    version over valid rows; a row without a valid key has l = 0, o = 0
+    and m = -inf, as the plain version's."""
+    assert _valid_rows_max(o.float().cpu(), o_p.float().cpu(), rows) < 2e-2
+    m, m_p, l, l_p = (t.cpu() for t in (m, m_p, l, l_p))
+    empty = l_p == 0
+    assert torch.equal(l == 0, empty) and torch.all(o.cpu()[empty] == 0)
+    assert torch.all(m[empty] == -np.inf)
+    m = torch.where(empty, torch.zeros_like(m), m)
+    m_p = torch.where(empty, torch.zeros_like(m_p), m_p)
+    assert _valid_rows_max(m[..., None], m_p[..., None], rows) < 1e-3
+    rel = torch.where(empty, torch.ones_like(l), l / torch.where(empty, torch.ones_like(l_p), l_p))
+    assert _valid_rows_max(rel[..., None], torch.ones_like(rel)[..., None], rows) < 1e-3
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("causal,D,Hkv,lengths", [
-    (True, 128, 4, [200, 77]), (True, 128, 2, [200, 1]), (False, 64, 4, [200, 130]),
-    (False, 64, 4, None)])
-def test_cuda_flash_kernel_matches_plain(cuda_device, causal, D, Hkv, lengths):
-    B, H, S = 2, 4, 200
+@pytest.mark.parametrize("causal,D,H,Hkv,S,lengths", [
+    (True, 128, 4, 4, 200, [200, 77]), (True, 128, 4, 2, 200, [200, 1]),
+    (False, 64, 4, 4, 200, [200, 130]), (False, 64, 4, 4, 200, None),
+    (False, 64, 4, 4, 1500, None),            # Whisper's ragged last key tile (92 rows)
+    (False, 128, 4, 4, 300, [300, 0]),        # a sample with no key
+    (True, 128, 4, 4, 300, [0, 1]),           # lengths 0 and 1
+    (True, 128, 8, 2, 256, [256, 100]),       # GQA n_rep 4
+    (False, 64, 8, 1, 300, [1, 300]),         # GQA n_rep 8
+    (True, 64, 6, 3, 333, [333, 200]),        # causal at D = 64 (192-row blocks)
+])
+def test_cuda_flash_kernel_matches_plain(cuda_device, causal, D, H, Hkv, S, lengths):
+    B = 2
     q, = _cuda_inputs([(B, H, S, D)], cuda_device, 20)
     k, v = _cuda_inputs([(B, Hkv, S, D)] * 2, cuda_device, 21)
     lens = None if lengths is None else torch.tensor(lengths, device=cuda_device)
@@ -59,9 +84,25 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, causal, D, Hkv, lengths):
     o, m, l = fn(q, k, v, lens)
     assert fn.launches == before + 1
     o_p, m_p, l_p = tfa.flash_attention_plain(q, k, v, lens, causal)
-    rows = [S] * B if (lengths is None or not causal) else lengths
-    assert _valid_rows_max(o.float().cpu(), o_p.float().cpu(), rows) < 2e-2
-    assert _valid_rows_max(m.cpu()[..., None], m_p.cpu()[..., None], rows) < 1e-3
+    _check_flash(o, m, l, o_p, m_p, l_p, [S] * B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,D", [(True, 128), (False, 64)])
+def test_cuda_flash_kernel_reads_fused_qkv_views(cuda_device, causal, D):
+    """q, k, v as strided views of one (B, S, 3, H, D) tensor, the output
+    written into a view of the same layout's strides: the tensor maps take
+    the strides as they come."""
+    B, S, H = 2, 300, 4
+    qkv, = _cuda_inputs([(B, S, 3, H, D)], cuda_device, 33)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous()
+    lens = torch.tensor([300, 151], device=cuda_device)
+    fn = tfa.flash_attention_causal if causal else tfa.flash_attention_noncausal
+    o, m, l = fn(q, k, v, lens)
+    o_p, m_p, l_p = tfa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                              lens, causal)
+    _check_flash(o, m, l, o_p, m_p, l_p, [S] * B)
 
 
 @pytest.mark.cuda
@@ -312,3 +353,24 @@ def test_cuda_gated_bias_schedules_match_plain(cuda_device, S):
     assert after["gated_bias_attention"] == counts["gated_bias_attention"]
     assert _valid_rows_max(o8.float().cpu(), ref8.float().cpu(), [S] * B) < _attn_bound(ref8)
     assert _valid_rows_max(o9.float().cpu(), ref9.float().cpu(), [S] * B) < _attn_bound(ref9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,blocks", [((73728, 64), 1024), ((3, 1000, 8), 7), ((64,), 16)])
+def test_cuda_stream_probe_matches_plain(cuda_device, shape, blocks):
+    """K11 reads every element: its partial sums equal the plain version's
+    up to the f32 summation order (1e-5 × the largest block's Σ|x|), also
+    with more blocks than 16-byte vectors; stream_rate gives a rate."""
+    from icl_speech_text_llm_tpu_torch.ops import probes
+
+    x, = _cuda_inputs([shape], cuda_device, 60)
+    before = probes.stream_read.launches
+    got = probes.stream_read(x, blocks)
+    torch.cuda.synchronize()
+    assert probes.stream_read.launches == before + 1 and got.shape == (blocks,)
+    ref = probes.stream_read_plain(x, blocks)
+    tol = 1e-5 * max(probes.stream_read_plain(x.abs(), blocks).max().item(), 1.0)
+    assert (got - ref).abs().max().item() <= tol
+    assert probes.stream_rate(x, reps=3) > 0
+    with pytest.raises(ValueError):
+        probes.stream_read(x.reshape(-1)[:-1])  # not a multiple of 8 elements
