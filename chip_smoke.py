@@ -8,15 +8,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. build   — compiles the Hopper kernels of icl_speech_text_llm_tpu_torch/csrc
                (one nvcc per source, in parallel); prints each kernel's
                registers, shared memory and spills (ptxas -v) and, where
-               cuobjdump exists, whether the flash forward's SASS holds
-               HGMMA (wgmma) and UTMALDG (TMA loads);
+               cuobjdump exists, whether the SASS of the wgmma/TMA kernels
+               (the flash forward K1/K2, the gated bias K3/K8) holds HGMMA
+               (wgmma) and UTMALDG (TMA loads);
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the shapes of the paths below, with the stated tolerances, plus
                CUDA-event times of both, its bound (the least time the H100
                could take: the bytes it must move at 3.35 TB/s or its matmul
                FLOPs at 989 TFLOP/s bf16, the larger) and, where one PyTorch
-               call computes the same function, that call's time (K1 and K2
-               timed in turns with theirs: kernel, SDPA, SDPA, kernel); the
+               call computes the same function, that call's time (K1-K4,
+               K8-K10 and K12 timed in turns with theirs: kernel, library,
+               library, kernel); the
                streaming probe (K11) on two 75.5 MB buffers, with its GB/s;
   4. check   — one-layer-per-stack models, the bf16 kernel path on the card
                against the f32 plain path on the CPU with the same weights and
@@ -148,25 +150,26 @@ def _device_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def _in_turns(label, kernel, library, bound):
+def _in_turns(label, kernel, library, bound, lib_name="SDPA", reps=20):
     """Device times of a kernel and of the library call computing the same
     function, in turns (kernel, library, library, kernel) → (kernel ms,
     library ms), each the mean of its two turns; prints the four times and
     the kernel's share of its bound."""
-    t = [_device_ms(kernel), _device_ms(library), _device_ms(library), _device_ms(kernel)]
+    t = [_device_ms(f, reps) for f in (kernel, library, library, kernel)]
     ms, lib_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-    print(f"  {label}: kernel, SDPA, SDPA, kernel {[round(x, 4) for x in t]} ms; kernel "
-          f"{ms:.4f} ms = {100 * bound[0] / ms:.1f}% of its bound {bound[0]:.4f} ms "
-          f"({bound[1]}); {'faster' if ms < lib_ms else 'slower'} than SDPA "
+    print(f"  {label}: kernel, {lib_name}, {lib_name}, kernel {[round(x, 4) for x in t]} ms; "
+          f"kernel {ms:.4f} ms = {100 * bound[0] / ms:.1f}% of its bound {bound[0]:.4f} ms "
+          f"({bound[1]}); {'faster' if ms < lib_ms else 'slower'} than {lib_name} "
           f"({lib_ms / ms:.2f}x)", flush=True)
     return ms, lib_ms
 
 
 def _build_report(lib_path, log):
     """Each kernel's registers, shared memory and spills from nvcc's ptxas -v
-    output (the flash forward's dynamic shared memory from its C entry), and,
-    where cuobjdump exists, whether the flash forward's SASS holds HGMMA
-    (wgmma) and UTMALDG (TMA tensor loads); fails if it does not."""
+    output (the wgmma kernels' dynamic shared memory from their C entries),
+    and, where cuobjdump exists, whether the SASS of the flash forward (4
+    instances) and of the gated-bias kernel (K3 and K8) holds HGMMA (wgmma)
+    and UTMALDG (TMA tensor loads); fails if one does not."""
     import shutil
 
     from icl_speech_text_llm_tpu_torch import kernels
@@ -181,8 +184,10 @@ def _build_report(lib_path, log):
             print(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}; {props}", flush=True)
             name = ""
     smem = kernels.lib().iclk_flash_fwd_smem_bytes
-    print(f"  flash_fwd_wgmma_kernel dynamic shared memory: D = 64 {smem(64)} bytes, "
-          f"D = 128 {smem(128)} bytes", flush=True)
+    gsmem = kernels.lib().iclk_gated_bias_smem_bytes
+    print(f"  dynamic shared memory: flash_fwd_wgmma_kernel D = 64 {smem(64)} bytes, "
+          f"D = 128 {smem(128)} bytes; gated_bias_wgmma_kernel K3 {gsmem(0)} bytes, "
+          f"K8 {gsmem(1)} bytes", flush=True)
     tool = next((c for c in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "cuobjdump"),
                              shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump")
                  if c and os.path.isfile(c)), None)
@@ -191,18 +196,22 @@ def _build_report(lib_path, log):
         return
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
-    found = 0
+    found = {"flash_fwd_wgmma_kernel": 0, "gated_bias_wgmma_kernel": 0}
     for fn in sass.split("Function : ")[1:]:
         fname = fn.split("\n", 1)[0].strip()
-        if "flash_fwd_wgmma_kernel" not in fname:
+        kind = next((k for k in found if k in fname), None)
+        if kind is None:
             continue
-        found += 1
+        found[kind] += 1
         hgmma, utma = fn.count("HGMMA"), fn.count("UTMALDG")
-        print(f"  SASS {fname}: {hgmma} HGMMA, {utma} UTMALDG", flush=True)
+        depbar = fn.count("WARPGROUP.DEPBAR")
+        print(f"  SASS {fname}: {hgmma} HGMMA, {utma} UTMALDG, {depbar} WARPGROUP.DEPBAR",
+              flush=True)
         if not (hgmma and utma):
             raise AssertionError(f"{fname}: no wgmma or no TMA load in the SASS")
-    if found != 4:
-        raise AssertionError(f"expected 4 flash forward kernels in the SASS, found {found}")
+    if found != {"flash_fwd_wgmma_kernel": 4, "gated_bias_wgmma_kernel": 2}:
+        raise AssertionError(f"expected 4 flash forward and 2 gated-bias wgmma kernels in "
+                             f"the SASS, found {found}")
 
 
 def _probe_kernel_rows(report, gen):
@@ -250,7 +259,9 @@ def _wq_kernel_rows(report, gen):
     scales; timed calls cycle over copies (or layers) whose bytes exceed the
     50 MB L2, so each call streams its weight from device memory as a decode
     step does. Bound: 1e-2 × max |plain| over the output, the plain version
-    computing in f32 from the same bf16 x."""
+    computing in f32 from the same bf16 x. Library: torch's weight-only
+    matmuls (aten._weight_int4pack_mm, _weight_int8pack_mm) on the same
+    weights, repacked outside the timed calls and held to the same bound."""
     import torch
 
     from icl_speech_text_llm_tpu_torch.ops import int4_matmul as wq
@@ -276,14 +287,35 @@ def _wq_kernel_rows(report, gen):
 
     group = 128
 
-    for name, kernel, plain, source, replaces, cases in (
-            ("int4_matmul", wq.int4_matmul, wq.int4_matmul_plain,
+    def int4_library(packed, scales):
+        """The same weight for aten._weight_int4pack_mm (tinygemm's layout,
+        bf16 scale and zero per group, weight (q − 8)·scale + zero): the
+        nibbles of rows k and k + K/2 (one byte here) become rows of an
+        (N, K) matrix packed two consecutive k a byte, even k in the high
+        nibble, zero 0 → a call computing the kernel's function with its
+        scales rounded to bf16. Packed outside the timed calls."""
+        q = torch.cat([packed & 0xF, packed >> 4], 0).t()
+        wpk = torch.ops.aten._convert_weight_to_int4pack(
+            ((q[:, ::2] << 4) | q[:, 1::2]).contiguous(), 8)
+        sz = torch.stack([scales.to(torch.bfloat16),
+                          torch.zeros(scales.shape, dtype=torch.bfloat16, device=dev)], -1)
+        sz = sz.contiguous()
+        return lambda x: torch.ops.aten._weight_int4pack_mm(x, wpk, group, sz)
+
+    def int8_library(q, s):
+        """aten._weight_int8pack_mm: the int8 weight as (N, K), the f32
+        per-column scales as they are; transposed outside the timed calls."""
+        wt = q.t().contiguous()
+        return lambda x: torch.ops.aten._weight_int8pack_mm(x, wt, s)
+
+    for name, kernel, plain, library, source, replaces, cases in (
+            ("int4_matmul", wq.int4_matmul, wq.int4_matmul_plain, int4_library,
              "icl_speech_text_llm_tpu_torch/csrc/wq_matmul.cu",
              "icl_speech_text_llm_tpu/ops/int4_matmul.py:199",
              [("13B w_gate M=4", 4, 5120, 13824, 4), ("13B w_down M=4", 4, 13824, 5120, 4),
               ("13B wq stacked [17] M=4", 4, 5120, 5120, 40),
               ("13B w_gate M=256", 256, 5120, 13824, 4)]),
-            ("int8_matmul", wq.int8_matmul, wq.int8_matmul_plain,
+            ("int8_matmul", wq.int8_matmul, wq.int8_matmul_plain, int8_library,
              "icl_speech_text_llm_tpu_torch/csrc/wq_matmul.cu",
              "icl_speech_text_llm_tpu/ops/quant.py:141 (XLA convert; no Pallas kernel)",
              [("13B lm_head M=4", 4, 5120, 32000, 1), ("7B w_down M=4", 4, 11008, 4096, 4)])):
@@ -297,18 +329,33 @@ def _wq_kernel_rows(report, gen):
             ref = plain(x.float(), w[first], s[first])
             torch.cuda.synchronize()
             errs.append((f"{label} (bound 1e-2 × max |plain|)", *bound(y, ref)))
-            ms = _device_ms(lambda i=0: kernel(x, w[i % copies], s[i % copies]))
-            plain_ms = _device_ms(lambda i=0: plain(x, w[i % copies], s[i % copies]), reps=5)
             nbytes = w[0].numel() + 4 * s[0].numel() + 2 * (M * K + M * N)
+            if timed is None:
+                # the timed case: the kernel in turns with the library call,
+                # which must also meet the bound
+                libs = [library(w[c], s[c]) for c in range(copies)]
+                lib_err, lib_tol = bound(libs[first](x), ref)
+                print(f"  {name} {label}: library call vs plain {lib_err:.3e} (tolerance "
+                      f"{lib_tol:.1e}) {'ok' if lib_err <= lib_tol else 'FAIL'}", flush=True)
+                if lib_err > lib_tol:
+                    raise AssertionError(f"{name} library call error {lib_err} > {lib_tol}")
+                ms, lib_ms = _in_turns(f"{name} {label}",
+                                       lambda i=0: kernel(x, w[i % copies], s[i % copies]),
+                                       lambda i=0: libs[i % copies](x),
+                                       _bound(nbytes, 2.0 * M * K * N),
+                                       lib_name=f"aten._weight_{name[:4]}pack_mm")
+                del libs
+            else:
+                ms = _device_ms(lambda i=0: kernel(x, w[i % copies], s[i % copies]))
+            plain_ms = _device_ms(lambda i=0: plain(x, w[i % copies], s[i % copies]), reps=5)
             splits = wq.split_k(M, N, w.shape[1] // wq.CHUNK_K, sms)
             print(f"  {name} {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of "
                   f"{nbytes / 1e6:.1f} MB, {splits} K splits), plain {plain_ms:.4f} ms",
                   flush=True)
             if timed is None:
-                timed = (ms, plain_ms, _bound(nbytes, 2.0 * M * K * N))
+                timed = (ms, plain_ms, _bound(nbytes, 2.0 * M * K * N), lib_ms)
             del x, w, s, y, ref
-        # no single PyTorch call takes these weight layouts: library_ms null
-        report(name, "cuda", source, replaces, errs, *timed, None)
+        report(name, "cuda", source, replaces, errs, *timed)
     torch.cuda.empty_cache()
 
 
@@ -549,51 +596,53 @@ def _kernel_phase():
     gate = fa.gate_rows(xh, grep_w, grep_b, grep_a)
     # library, for K3, K8 and K9: one SDPA call with the additive mask g·bias
     # (every key valid at this shape) materialised as (B, H, S, S) bf16
-    # outside the timed call, 1.29 GB
+    # outside the timed call, 1.29 GB; K3, K8 and K9 are timed in turns with it
     add_mask = torch.empty((B, H, S, S), dtype=bf, device=dev)
     for b in range(B):
         add_mask[b] = (gate[b][..., None] * bias.float()).to(bf)
-    gated_lib_ms = _device_ms(
-        lambda i=0: F.scaled_dot_product_attention(q, k, v, attn_mask=add_mask), reps=10)
-    print(f"  SDPA with the (24, 12, 1496, 1496) bf16 additive mask: {gated_lib_ms:.4f} ms",
-          flush=True)
-    del add_mask
-    ker = fa.gated_bias_attention(*args)
-    ref = fa.gated_bias_attention_plain(*args)
+
+    def masked_sdpa(i=0):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=add_mask)
+
     # the work of K3, K8 and K9: q·kᵀ and p·v over every (row, key) pair; the
     # bias (H, S, S) bf16 read once; K9 reads f32 gate rows instead of xh
     gated_flops = 4.0 * D * B * H * S * S + 2.0 * 8 * D * B * H * S
     bias_bytes = 2 * H * S * S
-    report("gated_bias_attention", "cuda",
-           "icl_speech_text_llm_tpu_torch/csrc/gated_bias.cu",
-           "icl_speech_text_llm_tpu/ops/flash_attention.py:840",
-           [_row_case("o", ker, ref)],
-           _time_ms(lambda: fa.gated_bias_attention(*args)),
-           _time_ms(lambda: fa.gated_bias_attention_plain(*args)),
-           _bound(5 * 2 * B * H * S * D + bias_bytes, gated_flops), gated_lib_ms)
-    del ker, ref
-    # K8: the batched schedule, the main path's ragged-free BEATs shape and a
-    # ragged one (the last chunk short: B = 22, lengths ≤ S). K8 and K9 are
-    # held to the f32-exp2 form of their plain versions, the kernels'
-    # arithmetic; the Pallas kernels' bf16 rounding (the CPU path's) would
-    # put a floor of ~8e-3 under the comparison
-    ker = fa.gated_bias_attention(*args, batch_block=True)
-    ref = fa.gated_bias_batched_plain(*args, pallas_rounding=False)
-    errs = [_row_case("o (24, 12, 1496, 64)", ker, ref)]
+    gated_bound = _bound(5 * 2 * B * H * S * D + bias_bytes, gated_flops)
+    # K3 and K8 at the main path's shape, and at B = 22 with ragged lengths.
+    # K8 (and K9) are held to the
+    # f32-exp2 form of their plain versions, the kernels' arithmetic; the
+    # Pallas kernels' bf16 rounding (the CPU path's) would put a floor of
+    # ~8e-3 under the comparison
     lens22 = [S - 37 * i for i in range(22)]
     sub22 = (q[:22], k[:22], v[:22], xh[:22], bias, grep_w, grep_b, grep_a,
              torch.tensor(lens22, device=dev))
-    errs.append(_row_case("o B = 22, ragged lengths",
-                         fa.gated_bias_attention(*sub22, batch_block=True),
-                         fa.gated_bias_batched_plain(*sub22, pallas_rounding=False)))
+    errs = [_row_case("o (24, 12, 1496, 64)", fa.gated_bias_attention(*args),
+                      fa.gated_bias_attention_plain(*args)),
+            _row_case("o B = 22, ragged lengths", fa.gated_bias_attention(*sub22),
+                      fa.gated_bias_attention_plain(*sub22))]
+    ms, lib_ms = _in_turns("gated_bias_attention (24, 12, 1496, 64)",
+                           lambda i=0: fa.gated_bias_attention(*args), masked_sdpa, gated_bound)
+    report("gated_bias_attention", "cuda",
+           "icl_speech_text_llm_tpu_torch/csrc/gated_bias.cu",
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:840", errs, ms,
+           _time_ms(lambda: fa.gated_bias_attention_plain(*args)), gated_bound, lib_ms)
+    errs = [_row_case("o (24, 12, 1496, 64)", fa.gated_bias_attention(*args, batch_block=True),
+                      fa.gated_bias_batched_plain(*args, pallas_rounding=False)),
+            _row_case("o B = 22, ragged lengths",
+                      fa.gated_bias_attention(*sub22, batch_block=True),
+                      fa.gated_bias_batched_plain(*sub22, pallas_rounding=False))]
+    ms, lib_ms = _in_turns("gated_bias_attention_batched (24, 12, 1496, 64)",
+                           lambda i=0: fa.gated_bias_attention(*args, batch_block=True),
+                           masked_sdpa, gated_bound)
     report("gated_bias_attention_batched", "cuda",
            "icl_speech_text_llm_tpu_torch/csrc/gated_bias.cu",
-           "icl_speech_text_llm_tpu/ops/flash_attention.py:802", errs,
-           _time_ms(lambda: fa.gated_bias_attention(*args, batch_block=True)),
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:802", errs, ms,
            _time_ms(lambda: fa.gated_bias_batched_plain(*args, pallas_rounding=False)),
-           _bound(5 * 2 * B * H * S * D + bias_bytes, gated_flops), gated_lib_ms)
-    del ker, ref, sub22
-    # K9: the gate rows precomputed (as BEATs lean_bias_flash computes them)
+           gated_bound, lib_ms)
+    del sub22
+    # K9: the gate rows precomputed (as BEATs lean_bias_flash computes them),
+    # timed in turns with the same SDPA call
     rargs = (q, k, v, gate, bias)
     ker = fa.gated_bias_attention_rows(*rargs)
     ref = fa.gated_bias_rows_plain(*rargs, pallas_rounding=False)
@@ -601,13 +650,16 @@ def _kernel_phase():
     sub22 = (q[:22], k[:22], v[:22], gate[:22], bias, torch.tensor(lens22, device=dev))
     errs.append(_row_case("o B = 22, ragged lengths", fa.gated_bias_attention_rows(*sub22),
                          fa.gated_bias_rows_plain(*sub22, pallas_rounding=False)))
+    rows_bound = _bound(4 * 2 * B * H * S * D + 4 * B * H * S + bias_bytes, gated_flops)
+    ms, lib_ms = _in_turns("gated_bias_attention_rows (24, 12, 1496, 64)",
+                           lambda i=0: fa.gated_bias_attention_rows(*rargs), masked_sdpa,
+                           rows_bound)
     report("gated_bias_attention_rows", "cuda",
            "icl_speech_text_llm_tpu_torch/csrc/gated_bias.cu",
-           "icl_speech_text_llm_tpu/ops/flash_attention.py:1044", errs,
-           _time_ms(lambda: fa.gated_bias_attention_rows(*rargs)),
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:1044", errs, ms,
            _time_ms(lambda: fa.gated_bias_rows_plain(*rargs, pallas_rounding=False)),
-           _bound(4 * 2 * B * H * S * D + 4 * B * H * S + bias_bytes, gated_flops),
-           gated_lib_ms)
+           rows_bound, lib_ms)
+    del add_mask
     del args, rargs, sub22, q, k, v, xh, bias, gate, ker, ref
     torch.cuda.empty_cache()
 
@@ -633,15 +685,33 @@ def _kernel_phase():
     L, B, Hkv, S, D = 32, 4, 32, 1152, 128
     ck, cv = randn(L, B, Hkv, S, D), randn(L, B, Hkv, S, D)
     nk, nv = randn(L, B, Hkv, 1, D), randn(L, B, Hkv, 1, D)
-    # bytes: the new rows read once and written once, k and v; no single
-    # PyTorch call writes both caches (index_put_ is one call a cache)
+    # library: index_put_ of each cache's new rows, one call a cache (no
+    # single PyTorch call writes both), the index and value tensors made
+    # outside the timed calls; on a copy of the cache it must write what the
+    # kernel writes
+    b_idx, pos_l = torch.arange(B, device=dev), pos.long()
+    rows_k, rows_v = (t[:, :, :, 0].permute(1, 0, 2, 3).contiguous() for t in (nk, nv))
+
+    def index_put(i=0, ck=ck, cv=cv):
+        ck.permute(1, 3, 0, 2, 4).index_put_((b_idx, pos_l), rows_k)
+        cv.permute(1, 3, 0, 2, 4).index_put_((b_idx, pos_l), rows_v)
+
+    ck2, cv2 = ck.clone(), cv.clone()
+    errs = [("7B bf16 cache (bit-exact)", append_err(ck, cv, nk, nv, pos), 0.0),
+            ("13B int8 cache (40, 4, 40, 1152, 128) (bit-exact)", err_i8, 0.0)]
+    index_put(0, ck2, cv2)
+    errs.append(("index_put_ (library) vs kernel (bit-exact)",
+                 0.0 if torch.equal(ck, ck2) and torch.equal(cv, cv2) else 1.0, 0.0))
+    del ck2, cv2
+    # bytes: the new rows read once and written once, k and v
+    bound = _bound(4 * L * B * Hkv * D * 2, 0.0)
+    ms, lib_ms = _in_turns("append_kv 7B bf16 (32, 4, 32, 1152, 128)",
+                           lambda i=0: fa.append_kv(ck, cv, nk, nv, pos), index_put, bound,
+                           lib_name="index_put_ ×2", reps=50)
     report("append_kv", "cuda", "icl_speech_text_llm_tpu_torch/csrc/append_kv.cu",
-           "icl_speech_text_llm_tpu/ops/flash_attention.py:1438",
-           [("7B bf16 cache (bit-exact)", append_err(ck, cv, nk, nv, pos), 0.0),
-            ("13B int8 cache (40, 4, 40, 1152, 128) (bit-exact)", err_i8, 0.0)],
-           _time_ms(lambda: fa.append_kv(ck, cv, nk, nv, pos), reps=50),
-           _time_ms(lambda: fa.append_kv_plain(ck, cv, nk, nv, pos), reps=50),
-           _bound(4 * L * B * Hkv * D * 2, 0.0), None)
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:1438", errs, ms,
+           _device_ms(lambda i=0: fa.append_kv_plain(ck, cv, nk, nv, pos), reps=50),
+           bound, lib_ms)
     del ck, cv
     torch.cuda.empty_cache()
     _decode_kernel_rows(report, gen)

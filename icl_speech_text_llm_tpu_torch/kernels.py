@@ -10,9 +10,9 @@ at import: the CPU paths never touch it.
 
 Every C entry that launches returns the ``cudaGetLastError()`` of its
 launch; ``check`` turns a non-zero code into an exception. The flash forward
-builds TMA tensor maps with ``cuTensorMapEncodeTiled``, which it reaches
-through the runtime's ``cudaGetDriverEntryPoint``: the library needs no link
-against ``libcuda``.
+and the gated-bias kernels build TMA tensor maps with
+``cuTensorMapEncodeTiled``, which they reach through the runtime's
+``cudaGetDriverEntryPoint``: the library needs no link against ``libcuda``.
 
 The launch-count registry lives here too: each ops module ``register``s its
 kernel wrappers, each wrapper adds one to ``<wrapper>.launches`` where it
@@ -56,7 +56,8 @@ _SIGNATURES = {
     # sm_scale, stream
     "iclk_flash_fwd": [_p] * 7 + [_i] * 7 + [_strides, ctypes.c_float, _p],
     # q, k, v, xh, bias, grep_w, grep_b, grep_a, o, lengths, B, H, S, D,
-    # strides, sm_scale, stream
+    # strides (q, k, v, o, xh as (b, h, s), then the bias row stride),
+    # sm_scale, stream
     "iclk_gated_bias_fwd": [_p] * 10 + [_i] * 4 + [_strides, ctypes.c_float, _p],
     # the same arguments, batched schedule (K8)
     "iclk_gated_bias_batched": [_p] * 10 + [_i] * 4 + [_strides, ctypes.c_float, _p],
@@ -83,6 +84,8 @@ _SIGNATURES = {
     "iclk_stream_read": [_p, _p, ctypes.c_longlong, _i, _p],
     # D → dynamic shared memory of a flash-forward block, in bytes
     "iclk_flash_fwd_smem_bytes": [_i],
+    # batched (0: K3, 1: K8) → dynamic shared memory of a gated-bias block
+    "iclk_gated_bias_smem_bytes": [_i],
 }
 
 

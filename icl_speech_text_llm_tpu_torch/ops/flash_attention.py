@@ -6,9 +6,9 @@ Hopper kernels (``csrc/``) replace the Pallas kernels of the JAX package:
 - ``flash_attention_causal``    — causal flash forward (LLM prefill, training);
 - ``flash_attention_noncausal`` — non-causal flash forward (Whisper);
 - ``gated_bias_attention``      — BEATs gated relative-position bias (K3);
-- ``gated_bias_attention_batched`` — K3's math with one block per (head,
-  q-tile) walking the batch, the bias tile read once per chunk of samples
-  (K8; ``gated_bias_attention(batch_block=True)``);
+- ``gated_bias_attention_batched`` — K3's function with each bias tile
+  staged once per chunk of two samples (K8;
+  ``gated_bias_attention(batch_block=True)``);
 - ``gated_bias_attention_rows`` — gated bias with the gate rows precomputed
   (K9; ``BeatsConfig.lean_bias_flash``);
 - ``append_kv``                 — in-place decode-step KV-cache append;
@@ -514,12 +514,27 @@ def _grep_args(q, grep_w, grep_b, grep_a):
     return gw, gb, ga
 
 
+def tma_bias_rows(bias: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """The (H, S, S) bias table as K3/K8's TMA reads it → (table, row stride
+    in elements): the table itself when S is a multiple of 8 (BEATs' token
+    counts are: 16-byte rows), else a copy whose rows are padded with zeros
+    to the next multiple of 8 keys (the kernel reads only the first S)."""
+    S = bias.shape[-1]
+    pad = -S % 8
+    if not pad:
+        return bias, S
+    padded = torch.zeros((*bias.shape[:-1], S + pad), dtype=bias.dtype, device=bias.device)
+    padded[..., :S] = bias
+    return padded, S + pad
+
+
 def _gated_bias_launch(entry, q, k, v, xh, bias, gw, gb, ga, lengths, B, H, S, D):
     lens = _lengths_arg(lengths, B, q.device)
     o = torch.empty_like(q)
+    bias, bias_row = tma_bias_rows(bias)
     strides = kernels.strides_arg(
         [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-         *xh.stride()[:3]])
+         *xh.stride()[:3], bias_row])
     err = getattr(kernels.lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), xh.data_ptr(), bias.data_ptr(),
         gw.data_ptr(), gb.data_ptr(), ga.data_ptr(), o.data_ptr(),
@@ -550,9 +565,9 @@ def gated_bias_attention(q, k, v, xh, bias, grep_w, grep_b, grep_a,
 
 
 def gated_bias_attention_batched(q, k, v, xh, bias, grep_w, grep_b, grep_a, lengths=None):
-    """K8: K3's inputs and function, one block per (q-tile, head, chunk of
-    samples): each key tile's bias tile is read once and serves every
-    sample of the chunk. Exp2-domain math (``gated_bias_batched_plain``)."""
+    """K8: K3's inputs and function, a work item per (head, q-block, chunk
+    of two samples): each key tile's bias tile lands in shared memory once
+    and serves both samples. Exp2-domain math (``gated_bias_batched_plain``)."""
     if not _on_cuda(q):
         return gated_bias_batched_plain(q, k, v, xh, bias, grep_w, grep_b, grep_a, lengths)
     bias = _gated_bias_check("gated_bias_attention_batched", q, (q, k, v, xh), bias)

@@ -356,6 +356,59 @@ def test_cuda_gated_bias_schedules_match_plain(cuda_device, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [300, 1496])
+def test_cuda_gated_bias_wgmma_kernels_match_plain(cuda_device, S):
+    """K3 and K8 (the wgmma/TMA kernel, one sample and two samples a work
+    item) on BEATs' layout: q, k, v and xh are (B, H, S, 64) views of
+    (B, S, H, 64) tensors; B = 5 is not a multiple of K8's chunk; ragged
+    lengths, one of a single key; S = 300 takes the padded bias rows (600
+    bytes is not a multiple of 16), S = 1496 the table in place. Each is
+    held to its plain version, and K8 to K3."""
+    B, H, D = 5, 3, 64
+    qkvx = _cuda_inputs([(B, S, H, D)] * 4, cuda_device, 55)
+    q, k, v, xh = (t.transpose(1, 2) for t in qkvx)
+    assert not q.is_contiguous()
+    bias, = _cuda_inputs([(H, S, S)], cuda_device, 56)
+    bias = bias * 0.5
+    grep_w = torch.randn(D, 8, device=cuda_device) * 0.2
+    grep_b = torch.randn(8, device=cuda_device) * 0.1
+    grep_a = 1 + 0.1 * torch.randn(H, device=cuda_device)
+    lens = torch.tensor([S, S - 100, 77, S, 1], device=cuda_device)
+    args = (q, k, v, xh, bias, grep_w, grep_b, grep_a, lens)
+    counts = kernels.launch_counts()
+    o3 = tfa.gated_bias_attention(*args)
+    o8 = tfa.gated_bias_attention(*args, batch_block=True)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["gated_bias_attention"] == counts["gated_bias_attention"] + 1
+    assert after["gated_bias_attention_batched"] == counts["gated_bias_attention_batched"] + 1
+    ref3 = tfa.gated_bias_attention_plain(*args)
+    ref8 = tfa.gated_bias_batched_plain(*args, pallas_rounding=False)
+    assert _valid_rows_max(o3.float().cpu(), ref3.float().cpu(), [S] * B) < _attn_bound(ref3)
+    assert _valid_rows_max(o8.float().cpu(), ref8.float().cpu(), [S] * B) < _attn_bound(ref8)
+    assert _valid_rows_max(o8.float().cpu(), o3.float().cpu(), [S] * B) < _attn_bound(o3)
+    assert torch.isfinite(o3).all() and torch.isfinite(o8).all()
+
+
+@pytest.mark.cuda
+def test_cuda_gated_bias_wgmma_kernels_write_zero_rows_without_keys(cuda_device):
+    """A sample of length 0 writes o = 0 in both kernels; the others match
+    their plain versions (B = 3: K8's second chunk holds one sample)."""
+    B, H, S, D = 3, 2, 136, 64
+    q, k, v, xh = _cuda_inputs([(B, H, S, D)] * 4, cuda_device, 57)
+    bias, = _cuda_inputs([(H, S, S)], cuda_device, 58)
+    gw, gb, ga = (torch.randn(D, 8, device=cuda_device) * 0.2,
+                  torch.zeros(8, device=cuda_device), torch.ones(H, device=cuda_device))
+    lens = torch.tensor([0, 129, 136], device=cuda_device)
+    args = (q, k, v, xh, bias, gw, gb, ga, lens)
+    for batch_block in (False, True):
+        o = tfa.gated_bias_attention(*args, batch_block=batch_block)
+        ref = tfa.gated_bias_attention_plain(*args)
+        assert torch.all(o[0] == 0)
+        assert _valid_rows_max(o.float().cpu(), ref.float().cpu(), [S] * B) < _attn_bound(ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,blocks", [((73728, 64), 1024), ((3, 1000, 8), 7), ((64,), 16)])
 def test_cuda_stream_probe_matches_plain(cuda_device, shape, blocks):
     """K11 reads every element: its partial sums equal the plain version's

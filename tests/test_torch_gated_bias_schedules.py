@@ -190,3 +190,18 @@ def test_f32_exp2_form_is_k3s_arithmetic_at_bf16():
         assert _valid_rows_max(got.float(), k3, LENGTHS) <= step
         assert (got.float() - k3).abs().mean() < 1e-6
     assert (pallas_form.float() - k3).abs().mean() > 1e-5
+
+
+@pytest.mark.parametrize("S_", [300, 1496])
+def test_tma_bias_rows_pads_rows_to_16_bytes(S_):
+    """K3/K8 read the bias table by TMA, whose row strides must be 16-byte
+    multiples: BEATs' S (a multiple of 8) passes the table in place; another
+    S gets a copy padded with zeros to the next multiple of 8 keys."""
+    bias = torch.randn(3, S_, S_).to(torch.bfloat16)
+    table, row = tfa.tma_bias_rows(bias)
+    assert row % 8 == 0 and row - S_ < 8 and table.stride(1) == row
+    torch.testing.assert_close(table[..., :S_], bias, rtol=0, atol=0)
+    if row == S_:
+        assert table.data_ptr() == bias.data_ptr()
+    else:
+        assert torch.count_nonzero(table[..., S_:]) == 0

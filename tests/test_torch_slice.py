@@ -190,5 +190,12 @@ def test_single_label_metrics_match_golden(dataset_type, pairs):
 
 
 def test_other_task_metrics_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        evaluate_predictions(_preds([("thanks", "thanks")]), DatasetType.HVB)
+    """Every task is scored now: an HVB batch gets the multi-label dict of
+    the golden case (tests/test_torch_metrics.py holds every task to JAX)."""
+    with open(os.path.join(GOLDEN, "metrics.json")) as f:
+        golden = json.load(f)
+    pairs = [("acknowledge, answer_agree", "acknowledge"), ("thanks", "thanks, other"),
+             ("backchannel", "backchannel"), ("statement_open, thanks", "statement_open, thanks"),
+             ("question_check", "nonsense"), ("other", ""),
+             ("acknowledge", "acknowledge, acknowledge"), ("disfluency, self", "self")]
+    _approx_equal(golden["hvb"], evaluate_predictions(_preds(pairs), DatasetType.HVB))
