@@ -9,8 +9,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                (one nvcc per source, in parallel); prints each kernel's
                registers, shared memory and spills (ptxas -v) and, where
                cuobjdump exists, whether the SASS of the wgmma/TMA kernels
-               (the flash forward K1/K2, the gated bias K3/K8) holds HGMMA
-               (wgmma) and UTMALDG (TMA loads);
+               (the flash forward K1/K2, the gated bias K3/K8/K9, the flash
+               backward K5/K6) holds HGMMA (wgmma) and UTMALDG (TMA loads);
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the shapes of the paths below, with the stated tolerances, plus
                CUDA-event times of both, its bound (the least time the H100
@@ -18,7 +18,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                FLOPs at 989 TFLOP/s bf16, the larger) and, where one PyTorch
                call computes the same function, that call's time (K1-K4,
                K8-K10 and K12 timed in turns with theirs: kernel, library,
-               library, kernel); the
+               library, kernel; K5 + K6 together in turns with one SDPA
+               backward); the
                streaming probe (K11) on two 75.5 MB buffers, with its GB/s;
   4. check   — one-layer-per-stack models, the bf16 kernel path on the card
                against the f32 plain path on the CPU with the same weights and
@@ -164,12 +165,19 @@ def _in_turns(label, kernel, library, bound, lib_name="SDPA", reps=20):
     return ms, lib_ms
 
 
+#: the wgmma/TMA kernels and their instances in the SASS: the flash forward
+#: (D 64/128 × causal or not), the gated bias (K3, K8, K9), the backward's
+#: K5 and K6 (D 64/128 × causal or not each)
+SASS_INSTANCES = {"flash_fwd_wgmma_kernel": 4, "gated_bias_wgmma_kernel": 3,
+                  "flash_bwd_dq_wgmma_kernel": 4, "flash_bwd_dkv_wgmma_kernel": 4}
+
+
 def _build_report(lib_path, log):
     """Each kernel's registers, shared memory and spills from nvcc's ptxas -v
     output (the wgmma kernels' dynamic shared memory from their C entries),
-    and, where cuobjdump exists, whether the SASS of the flash forward (4
-    instances) and of the gated-bias kernel (K3 and K8) holds HGMMA (wgmma)
-    and UTMALDG (TMA tensor loads); fails if one does not."""
+    and, where cuobjdump exists, the HGMMA (wgmma), UTMALDG (TMA tensor load)
+    and WARPGROUP.DEPBAR counts of each instance of ``SASS_INSTANCES``; fails
+    if an instance is missing or lacks wgmma or TMA."""
     import shutil
 
     from icl_speech_text_llm_tpu_torch import kernels
@@ -185,9 +193,12 @@ def _build_report(lib_path, log):
             name = ""
     smem = kernels.lib().iclk_flash_fwd_smem_bytes
     gsmem = kernels.lib().iclk_gated_bias_smem_bytes
+    bsmem = kernels.lib().iclk_flash_bwd_smem_bytes
     print(f"  dynamic shared memory: flash_fwd_wgmma_kernel D = 64 {smem(64)} bytes, "
-          f"D = 128 {smem(128)} bytes; gated_bias_wgmma_kernel K3 {gsmem(0)} bytes, "
-          f"K8 {gsmem(1)} bytes", flush=True)
+          f"D = 128 {smem(128)} bytes; gated_bias_wgmma_kernel K3/K9 {gsmem(0)} bytes, "
+          f"K8 {gsmem(1)} bytes; flash_bwd K5 D = 64 {bsmem(64, 0)}, D = 128 "
+          f"{bsmem(128, 0)} bytes, K6 D = 64 {bsmem(64, 1)}, D = 128 {bsmem(128, 1)} bytes",
+          flush=True)
     tool = next((c for c in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "cuobjdump"),
                              shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump")
                  if c and os.path.isfile(c)), None)
@@ -196,7 +207,7 @@ def _build_report(lib_path, log):
         return
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
-    found = {"flash_fwd_wgmma_kernel": 0, "gated_bias_wgmma_kernel": 0}
+    found = dict.fromkeys(SASS_INSTANCES, 0)
     for fn in sass.split("Function : ")[1:]:
         fname = fn.split("\n", 1)[0].strip()
         kind = next((k for k in found if k in fname), None)
@@ -209,9 +220,9 @@ def _build_report(lib_path, log):
               flush=True)
         if not (hgmma and utma):
             raise AssertionError(f"{fname}: no wgmma or no TMA load in the SASS")
-    if found != {"flash_fwd_wgmma_kernel": 4, "gated_bias_wgmma_kernel": 2}:
-        raise AssertionError(f"expected 4 flash forward and 2 gated-bias wgmma kernels in "
-                             f"the SASS, found {found}")
+    if found != SASS_INSTANCES:
+        raise AssertionError(f"expected the wgmma kernel instances {SASS_INSTANCES} in the "
+                             f"SASS, found {found}")
 
 
 def _probe_kernel_rows(report, gen):
@@ -761,29 +772,34 @@ def _kernel_phase():
             # dq: q·kᵀ, do·vᵀ, ds·k; dk/dv: those two and pᵀ·do, dsᵀ·q. No
             # single PyTorch call returns dq alone or dk/dv alone: the library
             # column of both rows is one SDPA backward (dq, dk, dv) of K1's
-            # masked call, a retained graph's torch.autograd.grad, timed
-            # against K5 + K6 together
+            # masked call, a retained graph's torch.autograd.grad, timed in
+            # turns with K5 + K6 together (bound: the function's bytes and
+            # its five products, q·kᵀ and do·vᵀ once); each kernel alone is
+            # timed behind the device spin too
             rows_i = torch.arange(S, device=dev)
             sdpa_mask = ((rows_i[None, :] <= rows_i[:, None])[None]
                          & (rows_i[None, None, :] < lengths[:, None, None]))[:, None]
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
-            sdpa_bwd_ms = _device_ms(
-                lambda i=0: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=10)
-            k56_ms = _device_ms(lambda i=0: (fa.flash_attention_bwd_dq(*args),
-                                             fa.flash_attention_bwd_dkv(*args_kv)), reps=10)
-            print(f"  {label} backward: K5 + K6 {k56_ms:.4f} ms, SDPA backward (dq, dk, dv) "
-                  f"{sdpa_bwd_ms:.4f} ms", flush=True)
+            stats = 3 * 4 * B * H * S  # m, l, delta
+            _, sdpa_bwd_ms = _in_turns(
+                f"{label} backward K5 + K6 (4, 32, 1024, 128)",
+                lambda i=0: (fa.flash_attention_bwd_dq(*args),
+                             fa.flash_attention_bwd_dkv(*args_kv)),
+                lambda i=0: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                _bound(4 * qo + kv_len + 2 * 2 * B * Hkv * S * D + stats, 10.0 * D * pairs),
+                lib_name="SDPA backward", reps=10)
             del leaves, out, sdpa_mask
             timed = {
-                "dq": (_time_ms(lambda: fa.flash_attention_bwd_dq(*args)),
+                "dq": (_device_ms(lambda i=0: fa.flash_attention_bwd_dq(*args)),
                        _time_ms(lambda: fa.flash_attention_bwd_dq_plain(*args)),
-                       _bound(4 * qo + kv_len + 3 * 4 * B * H * S, 6.0 * D * pairs),
-                       sdpa_bwd_ms),
-                "dkv": (_time_ms(lambda: fa.flash_attention_bwd_dkv(*args_kv)),
+                       _bound(4 * qo + kv_len + stats, 6.0 * D * pairs), sdpa_bwd_ms),
+                "dkv": (_device_ms(lambda i=0: fa.flash_attention_bwd_dkv(*args_kv)),
                         _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args_kv)),
-                        _bound(2 * qo + kv_len + 2 * 2 * B * Hkv * S * D + 3 * 4 * B * H * S,
+                        _bound(2 * qo + kv_len + 2 * 2 * B * Hkv * S * D + stats,
                                8.0 * D * pairs), sdpa_bwd_ms)}
+            print(f"  {label} backward alone: K5 {timed['dq'][0]:.4f} ms, K6 "
+                  f"{timed['dkv'][0]:.4f} ms", flush=True)
         del q, k, v, do, o, m, l, dq, dk, dv, delta, f, dq_p, dk_p, dv_p, delta_p
         torch.cuda.empty_cache()
     report("flash_attention_bwd_dq", "cuda", "icl_speech_text_llm_tpu_torch/csrc/flash_bwd.cu",

@@ -1,14 +1,14 @@
 // Shared device helpers for the port's Hopper kernels (sm_90a).
 //
-// The attention kernels use the warp-level bf16 tensor-core instruction
-// mma.sync.m16n8k16 (f32 accumulate). Fragment layout, with
-// g = lane / 4 and t = lane % 4:
+// The weight-quantized matmuls (wq_matmul.cu) use the warp-level bf16
+// tensor-core instruction mma.sync.m16n8k16 (f32 accumulate). Fragment
+// layout, with g = lane / 4 and t = lane % 4:
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
 //                         a2 = A[g][2t+8..2t+9], a3 = A[g+8][2t+8..2t+9]
 //   B (16x8, col-major):  b0 = B[2t..2t+1][g],   b1 = B[2t+8..2t+9][g]
 //   C (16x8, f32):        c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..2t+1]
-// Two neighbouring C tiles of a score row block are exactly one A fragment,
-// so softmax probabilities feed the P·V product without leaving registers.
+// The attention kernels use wgmma (hopper.cuh), whose accumulator rows
+// follow the same per-warp layout.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,13 +32,6 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two bf16 scalars from shared memory → one register (lo in the low half).
-__device__ __forceinline__ uint32_t pack_bf16_raw(const bf16* lo, const bf16* hi) {
-  uint32_t l = *reinterpret_cast<const uint16_t*>(lo);
-  uint32_t h = *reinterpret_cast<const uint16_t*>(hi);
-  return l | (h << 16);
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {

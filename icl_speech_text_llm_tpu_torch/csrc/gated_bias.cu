@@ -9,12 +9,14 @@
 //   K9  flash_attention_gated_bias_rows / _flash_bias_rows_kernel
 //       (BeatsConfig.lean_bias_flash: the gate rows arrive precomputed)
 //
-// Which design serves which kernel: K3 and K8 are one warp-specialised
-// wgmma/TMA kernel (gated_bias_wgmma_kernel, below), built from hopper.cuh
-// like the flash forward (flash_fwd.cu); K8 is its batch-shared instance.
-// K9 is the mma.sync skeleton of attn_fwd.cuh.
+// The three are instances of one warp-specialised wgmma/TMA kernel
+// (gated_bias_wgmma_kernel, below), built from hopper.cuh like the flash
+// forward (flash_fwd.cu): K3 (three consumer warpgroups, one sample a work
+// item, the gate computed from xh), K8 (two consumers, two samples an item,
+// the gate from xh) and K9 (K3's shape, the gate read from precomputed
+// (B, H, S) f32 rows, `scale_rows`, one f32 a row in place of xh's 64 bf16).
 //
-// What bounds K3/K8 on the H100. At the BEATs shape (24, 12, 1496, 64) the
+// What bounds them on the H100. At the BEATs shape (24, 12, 1496, 64) the
 // work is 165 GFLOP of Q·Kᵀ and P·V (0.167 ms at the bf16 peak) and 0.64e9
 // exp2 (about as long on MUFU), so like K2 the exponentials of one tile must
 // run under the products of another. On top of K2's work comes the bias:
@@ -59,18 +61,20 @@
 //   8i + 2t, +1: one 32-bit load a pair, conflict-free under the swizzle)
 //   and adds bias · g/D^-½ to the raw score with one FMA, so the softmax is
 //   flash_fwd.cu's: p = exp2(s·D^-½·log2 e − m·D^-½·log2 e).
-// - The gate, once per work item, in f32: the consumers read their rows of
-//   xh from global memory (16-byte loads, issued before Q is waited for);
-//   the four threads of a row each take 16 of its 64 dims against the sums
-//   of grep_w's first and last four columns (staged in shared memory when
-//   the block starts) and add their parts with two shuffles.
+// - The gate, once per work item, in f32. From xh (K3, K8): the consumers
+//   read their rows of xh from global memory (16-byte loads, issued before Q
+//   is waited for); the four threads of a row each take 16 of its 64 dims
+//   against the sums of grep_w's first and last four columns (staged in
+//   shared memory when the block starts) and add their parts with two
+//   shuffles. From the rows (K9): each thread loads the gate of its two rows
+//   from `scale_rows`; the weights are not staged.
 // - Schedule: a persistent grid, one block per SM, walking items in
 //   zig-zag order, numbered with the sample chunk fastest, then the query
 //   block, then the head: the items of one (head, query block) run together
 //   for every sample, so its bias rows (192 × 1496 × 2 bytes) are read from
 //   HBM once and from L2 by the other chunks, and a head's K/V (9 MB for 24
 //   samples) stays in L2 over its query blocks.
-//   Bias bytes a call at (24, 12, 1496, 64), full lengths: K3 reads
+//   Bias bytes a call at (24, 12, 1496, 64), full lengths: K3 and K9 read
 //   1.29 GB from L2 into shared memory (one tile per sample) and ~54 MB
 //   from HBM; K8 reads 0.64 GB from L2 (one tile per two samples) and
 //   ~54 MB from HBM.
@@ -79,13 +83,8 @@
 //   zero-fills rows past S (and keys past S_kv), which are not stored; a row
 //   with no valid key writes o = 0; a chunk past the batch's end takes only
 //   its samples that exist.
-//
-// K9 (attn_fwd.cuh) reads the precomputed gate rows and the bias from
-// global memory inside its score loop, one block of 4 warps per (sample,
-// q-tile, head), with the batch as the fastest grid axis.
 #include <algorithm>
 
-#include "attn_fwd.cuh"
 #include "hopper.cuh"
 
 using namespace iclk;
@@ -117,7 +116,8 @@ struct GCfg {
 };
 
 struct GArgs {
-  const bf16* xh;
+  const bf16* xh;          // the gate from xh (K3, K8) ...
+  const float* gate_rows;  // ... or from (B, H, S) f32 rows (K9)
   bf16* o;
   const int* lengths;  // (B,) valid key count; null = all S keys
   const float* grep_w;  // (64, 8)
@@ -270,8 +270,9 @@ __device__ __forceinline__ void gate_pair(const GArgs& p, const float* wts, int 
 
 // One consumer warpgroup's share of a work item: rows q0 + 64·cw.. of each
 // sample of the chunk. `q_phase` is the parity of the item's Q load; the
-// item's K/V steps start at ring index kv0, its bias tiles at bt0.
-template <int NC, int C>
+// item's K/V steps start at ring index kv0, its bias tiles at bt0. ROWS: the
+// gate is read from p.gate_rows, else computed from xh.
+template <int NC, int C, bool ROWS>
 __device__ __forceinline__ void gb_consumer_item(const GArgs& p, const GSmem<NC, C>& sm, int cw,
                                                  const GWork<C>& w, uint32_t q_phase, int kv0,
                                                  int bt0) {
@@ -285,10 +286,17 @@ __device__ __forceinline__ void gb_consumer_item(const GArgs& p, const GSmem<NC,
   float gr[C][2];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    if (w.nt[c] > 0) {
-      gate_pair(p, sm.weights(), w.b0 + c, w.h, row0, t, gr[c]);
-    } else {
+    if (w.nt[c] == 0) {
       gr[c][0] = gr[c][1] = 0.f;
+    } else if constexpr (ROWS) {
+      const long long r0 = ((long long)(w.b0 + c) * p.H + w.h) * p.S;
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        const int row = row0 + 8 * ri;
+        gr[c][ri] = row < p.S ? p.gate_rows[r0 + row] / p.sm_scale : 0.f;
+      }
+    } else {
+      gate_pair(p, sm.weights(), w.b0 + c, w.h, row0, t, gr[c]);
     }
   }
   float o[C][32];
@@ -407,7 +415,7 @@ __device__ __forceinline__ void gb_consumer_item(const GArgs& p, const GSmem<NC,
   }
 }
 
-template <int NC, int C>
+template <int NC, int C, bool ROWS>
 __global__ void __launch_bounds__(GCfg<NC, C>::kThreads, 1)
     gated_bias_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -435,16 +443,18 @@ __global__ void __launch_bounds__(GCfg<NC, C>::kThreads, 1)
     mbar_init(sm.q_empty(), 4 * NC);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the gate weights: wa[d] = Σ grep_w[d, :4], wb[d] = Σ grep_w[d, 4:],
-  // ba = Σ grep_b[:4], bb = Σ grep_b[4:]
+  // the gate weights of the gate from xh: wa[d] = Σ grep_w[d, :4], wb[d] =
+  // Σ grep_w[d, 4:], ba = Σ grep_b[:4], bb = Σ grep_b[4:]
   float* wts = sm.weights();
-  if (threadIdx.x < 64) {
-    const float* wr = p.grep_w + 8 * threadIdx.x;
-    wts[threadIdx.x] = (wr[0] + wr[1]) + (wr[2] + wr[3]);
-    wts[64 + threadIdx.x] = (wr[4] + wr[5]) + (wr[6] + wr[7]);
-  } else if (threadIdx.x == 64) {
-    wts[128] = (p.grep_b[0] + p.grep_b[1]) + (p.grep_b[2] + p.grep_b[3]);
-    wts[129] = (p.grep_b[4] + p.grep_b[5]) + (p.grep_b[6] + p.grep_b[7]);
+  if constexpr (!ROWS) {
+    if (threadIdx.x < 64) {
+      const float* wr = p.grep_w + 8 * threadIdx.x;
+      wts[threadIdx.x] = (wr[0] + wr[1]) + (wr[2] + wr[3]);
+      wts[64 + threadIdx.x] = (wr[4] + wr[5]) + (wr[6] + wr[7]);
+    } else if (threadIdx.x == 64) {
+      wts[128] = (p.grep_b[0] + p.grep_b[1]) + (p.grep_b[2] + p.grep_b[3]);
+      wts[129] = (p.grep_b[4] + p.grep_b[5]) + (p.grep_b[6] + p.grep_b[7]);
+    }
   }
   __syncthreads();
 
@@ -494,7 +504,7 @@ __global__ void __launch_bounds__(GCfg<NC, C>::kThreads, 1)
       const int item = item_of(k);
       if (item >= n_items) continue;
       const GWork<C> w = gwork_of<C, G::kBlockM>(p, item, n_q, n_chunks);
-      gb_consumer_item<NC, C>(p, sm, wg - 1, w, n_q_loads & 1, tkv, tb);
+      gb_consumer_item<NC, C, ROWS>(p, sm, wg - 1, w, n_q_loads & 1, tkv, tb);
       if (w.nt_max > 0) ++n_q_loads;
       tkv += w.n_steps;
       tb += w.nt_max;
@@ -518,39 +528,39 @@ bool encode_bias(CUtensorMap* map, const void* ptr, int S, int H, long long row,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// K3 (NC = 3, C = 1) and K8 (NC = 2, C = 2): strides are 16 int64, q, k, v,
-// o, xh as (b, h, s), then the bias table's row stride in elements.
-template <int NC, int C>
-int launch_gated(const void* q, const void* k, const void* v, const void* xh, const void* bias,
-                 const void* grep_w, const void* grep_b, const void* grep_a, void* o,
-                 const void* lengths, int B, int H, int S, int D, const long long* st,
-                 float sm_scale, void* stream) {
-  using G = GCfg<NC, C>;
-  if (B <= 0 || S <= 0 || H <= 0 || D != 64) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv, tb;
-  if (!encode_operand(&tq, q, 64, S, H, B, st[0], st[1], st[2], G::kBlockM) ||
-      !encode_operand(&tk, k, 64, S, H, B, st[3], st[4], st[5], kBlockN) ||
-      !encode_operand(&tv, v, 64, S, H, B, st[6], st[7], st[8], kBlockN) ||
-      !encode_bias(&tb, bias, S, H, st[15], G::kBlockM))
-    return (int)cudaErrorInvalidValue;
+// The arguments every instance takes: o, lengths and the shape; st holds
+// q, k, v, o as (b, h, s) element strides first.
+GArgs common_args(void* o, const void* lengths, int B, int H, int S, const long long* st,
+                  float sm_scale) {
   GArgs a = {};
-  a.xh = static_cast<const bf16*>(xh);
   a.o = static_cast<bf16*>(o);
   a.lengths = static_cast<const int*>(lengths);
-  a.grep_w = static_cast<const float*>(grep_w);
-  a.grep_b = static_cast<const float*>(grep_b);
-  a.grep_a = static_cast<const float*>(grep_a);
   a.B = B;
   a.H = H;
   a.S = S;
   a.o_sb = st[9];
   a.o_sh = st[10];
   a.o_ss = st[11];
-  a.x_sb = st[12];
-  a.x_sh = st[13];
-  a.x_ss = st[14];
   a.sm_scale = sm_scale;
-  auto kern = gated_bias_wgmma_kernel<NC, C>;
+  return a;
+}
+
+// K3 (NC = 3, C = 1), K8 (NC = 2, C = 2) and K9 (NC = 3, C = 1, ROWS): the
+// tensor maps of q, k, v (strides st[0..8]) and of the bias table (rows
+// `bias_row` elements apart), then the persistent grid.
+template <int NC, int C, bool ROWS>
+int launch_gated(const void* q, const void* k, const void* v, const void* bias,
+                 long long bias_row, const GArgs& a, int D, const long long* st, void* stream) {
+  using G = GCfg<NC, C>;
+  const int B = a.B, H = a.H, S = a.S;
+  if (B <= 0 || S <= 0 || H <= 0 || D != 64) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tb;
+  if (!encode_operand(&tq, q, 64, S, H, B, st[0], st[1], st[2], G::kBlockM) ||
+      !encode_operand(&tk, k, 64, S, H, B, st[3], st[4], st[5], kBlockN) ||
+      !encode_operand(&tv, v, 64, S, H, B, st[6], st[7], st[8], kBlockN) ||
+      !encode_bias(&tb, bias, S, H, bias_row, G::kBlockM))
+    return (int)cudaErrorInvalidValue;
+  auto kern = gated_bias_wgmma_kernel<NC, C, ROWS>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
   int dev = 0, sms = 0;
@@ -563,6 +573,23 @@ int launch_gated(const void* q, const void* k, const void* v, const void* xh, co
   const unsigned grid = (unsigned)std::min<long long>(n_items, sms);
   kern<<<grid, G::kThreads, G::kSmem, static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, tb, a);
   return (int)cudaGetLastError();
+}
+
+// K3 and K8 (the gate from xh): the arguments past `a` filled in.
+template <int NC, int C>
+int launch_gated_xh(const void* q, const void* k, const void* v, const void* xh,
+                    const void* bias, const void* grep_w, const void* grep_b,
+                    const void* grep_a, void* o, const void* lengths, int B, int H, int S,
+                    int D, const long long* st, float sm_scale, void* stream) {
+  GArgs a = common_args(o, lengths, B, H, S, st, sm_scale);
+  a.xh = static_cast<const bf16*>(xh);
+  a.grep_w = static_cast<const float*>(grep_w);
+  a.grep_b = static_cast<const float*>(grep_b);
+  a.grep_a = static_cast<const float*>(grep_a);
+  a.x_sb = st[12];
+  a.x_sh = st[13];
+  a.x_ss = st[14];
+  return launch_gated<NC, C, false>(q, k, v, bias, st[15], a, D, st, stream);
 }
 
 }  // namespace
@@ -579,8 +606,8 @@ extern "C" int iclk_gated_bias_fwd(const void* q, const void* k, const void* v,
                                    int B, int H, int S, int D,
                                    const long long* strides, float sm_scale,
                                    void* stream) {
-  return launch_gated<3, 1>(q, k, v, xh, bias, grep_w, grep_b, grep_a, o, lengths, B, H, S, D,
-                            strides, sm_scale, stream);
+  return launch_gated_xh<3, 1>(q, k, v, xh, bias, grep_w, grep_b, grep_a, o, lengths, B, H, S,
+                               D, strides, sm_scale, stream);
 }
 
 // K8: the arguments of iclk_gated_bias_fwd, two samples a work item.
@@ -591,40 +618,26 @@ extern "C" int iclk_gated_bias_batched(const void* q, const void* k, const void*
                                        int B, int H, int S, int D,
                                        const long long* strides, float sm_scale,
                                        void* stream) {
-  return launch_gated<2, 2>(q, k, v, xh, bias, grep_w, grep_b, grep_a, o, lengths, B, H, S, D,
-                            strides, sm_scale, stream);
+  return launch_gated_xh<2, 2>(q, k, v, xh, bias, grep_w, grep_b, grep_a, o, lengths, B, H, S,
+                               D, strides, sm_scale, stream);
 }
 
-// Dynamic shared memory of a K3 (batched = 0) or K8 (1) block, for the
+// Dynamic shared memory of a K3/K9 (batched = 0) or K8 (1) block, for the
 // build report.
 extern "C" int iclk_gated_bias_smem_bytes(int batched) {
   return batched ? GCfg<2, 2>::kSmem : GCfg<3, 1>::kSmem;
 }
 
-// K9. q/k/v (B, H, S, 64) bf16 strided (15 int64 strides: q, k, v, o, then
-// three unused); scale_rows (B, H, S) f32 contiguous (the gate, not
-// log2e-scaled); bias (H, S, S) bf16 contiguous; lengths (B,) int32 or null.
+// K9: K3 with the gate precomputed. q/k/v (B, H, S, 64) bf16 strided;
+// scale_rows (B, H, S) f32 contiguous (the gate, not log2e-scaled); bias as
+// K3's; lengths (B,) int32 or null. strides: 13 int64, q, k, v, o as
+// (b, h, s), then the bias row stride.
 extern "C" int iclk_gated_bias_rows(const void* q, const void* k, const void* v,
                                     const void* scale_rows, const void* bias, void* o,
                                     const void* lengths, int B, int H, int S, int D,
                                     const long long* strides, float sm_scale,
                                     void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != 64 || B > 2147483647 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  AttnArgs a = {};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.o = static_cast<bf16*>(o);
-  a.bias = static_cast<const bf16*>(bias);
+  GArgs a = common_args(o, lengths, B, H, S, strides, sm_scale);
   a.gate_rows = static_cast<const float*>(scale_rows);
-  a.lengths = static_cast<const int*>(lengths);
-  a.H = H;
-  a.S = S;
-  a.sm_scale = sm_scale;
-  a.q_sb = strides[0]; a.q_sh = strides[1]; a.q_ss = strides[2];
-  a.k_sb = strides[3]; a.k_sh = strides[4]; a.k_ss = strides[5];
-  a.v_sb = strides[6]; a.v_sh = strides[7]; a.v_ss = strides[8];
-  a.o_sb = strides[9]; a.o_sh = strides[10]; a.o_ss = strides[11];
-  return (int)launch_gated_bias_rows(a, B, static_cast<cudaStream_t>(stream));
+  return launch_gated<3, 1, true>(q, k, v, bias, strides[12], a, D, strides, stream);
 }

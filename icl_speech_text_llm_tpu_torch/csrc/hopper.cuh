@@ -1,12 +1,14 @@
 // Hopper building blocks shared by the wgmma/TMA attention kernels
-// (flash_fwd.cu: K1/K2; gated_bias.cu: K3/K8), for sm_90a.
+// (flash_fwd.cu: K1/K2; gated_bias.cu: K3/K8/K9; flash_bwd.cu: K5/K6), for
+// sm_90a.
 //
 // - PTX wrappers: mbarriers (init, expect_tx, arrive, parity wait), TMA tile
 //   loads (cp.async.bulk.tensor, rank 3 and 4, completing on an mbarrier),
-//   named barriers, wgmma (fence, commit, wait, the m64n128k16 product with
-//   both operands in shared memory and the m64n64k16 / m64n128k16 products
-//   with A from registers), the shared-memory matrix descriptor with the
-//   128-byte swizzle, and exp2 on the special-function unit.
+//   named barriers, wgmma (fence, commit, wait, the m64n128k16 and m64n64k16
+//   products with both operands in shared memory and the m64n64k16 /
+//   m64n128k16 products with A from registers), the shared-memory matrix
+//   descriptor with the 128-byte swizzle, and exp2 on the special-function
+//   unit.
 // - The online softmax of one 64×128 score tile held as a wgmma accumulator,
 //   in the exp2 domain with the row max in raw-score units, and the
 //   conversion of the probabilities to bf16 A fragments for P·V.
@@ -144,6 +146,17 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" ICLK_R64
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : ICLK_F64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64×64 f32) (+)= A·B, A (64×16) and B (64×16) K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" ICLK_R32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ICLK_F32
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -9,8 +9,8 @@ source rebuilds and an unchanged tree reuses the library. Nothing here runs
 at import: the CPU paths never touch it.
 
 Every C entry that launches returns the ``cudaGetLastError()`` of its
-launch; ``check`` turns a non-zero code into an exception. The flash forward
-and the gated-bias kernels build TMA tensor maps with
+launch; ``check`` turns a non-zero code into an exception. The flash forward,
+the flash backward and the gated-bias kernels build TMA tensor maps with
 ``cuTensorMapEncodeTiled``, which they reach through the runtime's
 ``cudaGetDriverEntryPoint``: the library needs no link against ``libcuda``.
 
@@ -61,8 +61,8 @@ _SIGNATURES = {
     "iclk_gated_bias_fwd": [_p] * 10 + [_i] * 4 + [_strides, ctypes.c_float, _p],
     # the same arguments, batched schedule (K8)
     "iclk_gated_bias_batched": [_p] * 10 + [_i] * 4 + [_strides, ctypes.c_float, _p],
-    # q, k, v, scale_rows, bias, o, lengths, B, H, S, D, strides, sm_scale,
-    # stream
+    # q, k, v, scale_rows, bias, o, lengths, B, H, S, D, strides (q, k, v, o
+    # as (b, h, s), then the bias row stride), sm_scale, stream
     "iclk_gated_bias_rows": [_p] * 7 + [_i] * 4 + [_strides, ctypes.c_float, _p],
     # q, k, v, k_s, v_s, k_new, v_new, o, lengths, B, H, Hkv, S, D, strides,
     # sm_scale, stream
@@ -84,8 +84,10 @@ _SIGNATURES = {
     "iclk_stream_read": [_p, _p, ctypes.c_longlong, _i, _p],
     # D → dynamic shared memory of a flash-forward block, in bytes
     "iclk_flash_fwd_smem_bytes": [_i],
-    # batched (0: K3, 1: K8) → dynamic shared memory of a gated-bias block
+    # batched (0: K3/K9, 1: K8) → dynamic shared memory of a gated-bias block
     "iclk_gated_bias_smem_bytes": [_i],
+    # D, dkv (0: K5, 1: K6) → dynamic shared memory of a backward block
+    "iclk_flash_bwd_smem_bytes": [_i, _i],
 }
 
 

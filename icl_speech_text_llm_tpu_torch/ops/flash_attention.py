@@ -515,7 +515,7 @@ def _grep_args(q, grep_w, grep_b, grep_a):
 
 
 def tma_bias_rows(bias: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """The (H, S, S) bias table as K3/K8's TMA reads it → (table, row stride
+    """The (H, S, S) bias table as K3/K8/K9's TMA reads it → (table, row stride
     in elements): the table itself when S is a multiple of 8 (BEATs' token
     counts are: 16-byte rows), else a copy whose rows are padded with zeros
     to the next multiple of 8 keys (the kernel reads only the first S)."""
@@ -586,9 +586,10 @@ def flash_bias_rows_usable(B: int, H: int, S: int, D: int) -> bool:
 def gated_bias_attention_rows(q, k, v, scale_rows, bias, lengths=None):
     """K9: gated-bias attention with the gate precomputed, ``scale_rows``
     (B, H, S) f32 (``gate_rows``, not log2e-scaled); q/k/v (B, H, S, D);
-    bias (H, S, S); lengths (B,) or None → o like q. The blocks of one
-    (q-tile, head) run for every sample back to back, so the bias rows they
-    share are read from device memory about once."""
+    bias (H, S, S); lengths (B,) or None → o like q. K3's kernel with the
+    gate read from the rows: the work items of one (head, query block) run
+    for every sample back to back, so the bias rows they share are read from
+    device memory about once."""
     if not _on_cuda(q):
         return gated_bias_rows_plain(q, k, v, scale_rows, bias, lengths)
     bias = _gated_bias_check("gated_bias_attention_rows", q, (q, k, v), bias)
@@ -598,8 +599,9 @@ def gated_bias_attention_rows(q, k, v, scale_rows, bias, lengths=None):
         raise ValueError(f"scale_rows must be ({B}, {H}, {S}), got {tuple(rows.shape)}")
     lens = _lengths_arg(lengths, B, q.device)
     o = torch.empty_like(q)
+    bias, bias_row = tma_bias_rows(bias)
     strides = kernels.strides_arg(
-        [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], 0, 0, 0])
+        [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], bias_row])
     err = kernels.lib().iclk_gated_bias_rows(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rows.data_ptr(), bias.data_ptr(),
         o.data_ptr(), None if lens is None else lens.data_ptr(), B, H, S, D, strides,
@@ -607,7 +609,6 @@ def gated_bias_attention_rows(q, k, v, scale_rows, bias, lengths=None):
     kernels.check(err, "iclk_gated_bias_rows")
     gated_bias_attention_rows.launches += 1
     return o
-
 
 
 def append_kv(cache_k, cache_v, new_k, new_v, positions) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,8 +32,10 @@ def _arrays(shapes, seed=0, scale=1.0):
 
 
 def _valid_rows_max(a, b, lengths):
+    """max |a − b| over the first lengths[i] rows of each sample (0 when
+    no row is valid)."""
     d = np.abs(np.asarray(a) - np.asarray(b))
-    return max(d[i, :, :n].max() for i, n in enumerate(lengths))
+    return max([d[i, :, :n].max() for i, n in enumerate(lengths) if n] + [0.0])
 
 
 @pytest.fixture
@@ -137,24 +139,41 @@ def _grad_err(got, want, rows):
     """max |got − want| over valid rows, relative to max |want| there."""
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     return _valid_rows_max(got, want, rows) / max(
-        max(np.abs(want[i, :, :n]).max() for i, n in enumerate(rows)), 1e-30)
+        _valid_rows_max(want, np.zeros_like(want), rows), 1e-30)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("causal,D,H,Hkv,S,lengths", [
-    (True, 128, 4, 4, 200, [200, 77]), (True, 128, 4, 2, 256, [256, 1]),
-    (False, 64, 4, 4, 200, [200, 130]), (False, 64, 2, 2, 150, None)])
-def test_cuda_flash_backward_kernels_match_plain(cuda_device, causal, D, H, Hkv, S, lengths):
+@pytest.mark.parametrize("causal,D,H,Hkv,S,lengths,fused", [
+    (True, 128, 4, 4, 200, [200, 77], False), (True, 128, 4, 2, 256, [256, 1], False),
+    (False, 64, 4, 4, 200, [200, 130], False), (False, 64, 2, 2, 150, None, False),
+    (True, 64, 8, 2, 256, [256, 190], False),   # D = 64 causal, GQA n_rep 4
+    (True, 128, 4, 4, 300, [300, 150], False),  # S = 300: no multiple of 64
+    (False, 64, 4, 4, 300, [300, 65], False),
+    (True, 128, 4, 2, 200, [200, 0], False),    # a sample of length 0
+    (False, 64, 8, 1, 300, [1, 300], False),    # GQA n_rep 8
+    (True, 128, 4, 4, 300, [300, 201], True),   # fused QKV views, strided do
+    (False, 64, 4, 4, 200, [200, 130], True)])
+def test_cuda_flash_backward_kernels_match_plain(cuda_device, causal, D, H, Hkv, S, lengths,
+                                                 fused):
     """K5 (dq, delta) and K6 (dk, dv) against flash_attention_bwd_plain on the
-    same bf16 inputs computed in f32; do is zero past each length."""
+    same bf16 inputs computed in f32; do is zero past each length. ``fused``:
+    q, k, v are strided views of one (B, S, 3, H, D) tensor and do a
+    transposed view of a (B, S, H, D) one, as the model's layouts give them.
+    A sample of length 0 gets dq = dk = dv = 0."""
     B = 2
-    q, do = _cuda_inputs([(B, H, S, D)] * 2, cuda_device, 26)
-    k, v = _cuda_inputs([(B, Hkv, S, D)] * 2, cuda_device, 27)
+    if fused:
+        qkv, do = _cuda_inputs([(B, S, 3, H, D), (B, S, H, D)], cuda_device, 26)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        do = do.transpose(1, 2)
+        assert not (q.is_contiguous() or do.is_contiguous())
+    else:
+        q, do = _cuda_inputs([(B, H, S, D)] * 2, cuda_device, 26)
+        k, v = _cuda_inputs([(B, Hkv, S, D)] * 2, cuda_device, 27)
     lens = None if lengths is None else torch.tensor(lengths, device=cuda_device)
     rows = [S] * B if lengths is None else lengths
     if lengths is not None:
         keep = torch.arange(S, device=cuda_device)[None, :] < lens[:, None]
-        do = do * keep[:, None, :, None].to(do.dtype)
+        do = do.mul_(keep[:, None, :, None].to(do.dtype))
     fwd = tfa.flash_attention_causal if causal else tfa.flash_attention_noncausal
     o, m, l = fwd(q, k, v, lens)
     before = (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches)
@@ -174,6 +193,10 @@ def test_cuda_flash_backward_kernels_match_plain(cuda_device, causal, D, H, Hkv,
     if lengths is not None:  # key rows past the length get exact zeros
         for i, n in enumerate(lengths):
             assert torch.all(dk[i, :, n:] == 0) and torch.all(dv[i, :, n:] == 0)
+            if n == 0:
+                assert torch.all(dq[i] == 0)
+    for g in (dq, dk, dv):
+        assert torch.isfinite(g).all()
 
 
 @pytest.mark.cuda
@@ -358,12 +381,13 @@ def test_cuda_gated_bias_schedules_match_plain(cuda_device, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [300, 1496])
 def test_cuda_gated_bias_wgmma_kernels_match_plain(cuda_device, S):
-    """K3 and K8 (the wgmma/TMA kernel, one sample and two samples a work
-    item) on BEATs' layout: q, k, v and xh are (B, H, S, 64) views of
-    (B, S, H, 64) tensors; B = 5 is not a multiple of K8's chunk; ragged
-    lengths, one of a single key; S = 300 takes the padded bias rows (600
-    bytes is not a multiple of 16), S = 1496 the table in place. Each is
-    held to its plain version, and K8 to K3."""
+    """K3, K8 and K9 (the wgmma/TMA kernel: one sample a work item, two
+    samples, and one with the gate read from precomputed rows) on BEATs'
+    layout: q, k, v and xh are (B, H, S, 64) views of (B, S, H, 64) tensors;
+    B = 5 is not a multiple of K8's chunk; ragged lengths, one of a single
+    key; S = 300 takes the padded bias rows (600 bytes is not a multiple of
+    16), S = 1496 the table in place. Each is held to its plain version, and
+    K8 and K9 to K3."""
     B, H, D = 5, 3, 64
     qkvx = _cuda_inputs([(B, S, H, D)] * 4, cuda_device, 55)
     q, k, v, xh = (t.transpose(1, 2) for t in qkvx)
@@ -375,25 +399,31 @@ def test_cuda_gated_bias_wgmma_kernels_match_plain(cuda_device, S):
     grep_a = 1 + 0.1 * torch.randn(H, device=cuda_device)
     lens = torch.tensor([S, S - 100, 77, S, 1], device=cuda_device)
     args = (q, k, v, xh, bias, grep_w, grep_b, grep_a, lens)
+    rows = tfa.gate_rows(xh, grep_w, grep_b, grep_a)
     counts = kernels.launch_counts()
     o3 = tfa.gated_bias_attention(*args)
     o8 = tfa.gated_bias_attention(*args, batch_block=True)
+    o9 = tfa.gated_bias_attention_rows(q, k, v, rows, bias, lens)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    assert after["gated_bias_attention"] == counts["gated_bias_attention"] + 1
-    assert after["gated_bias_attention_batched"] == counts["gated_bias_attention_batched"] + 1
+    for name in ("gated_bias_attention", "gated_bias_attention_batched",
+                 "gated_bias_attention_rows"):
+        assert after[name] == counts[name] + 1, name
     ref3 = tfa.gated_bias_attention_plain(*args)
     ref8 = tfa.gated_bias_batched_plain(*args, pallas_rounding=False)
+    ref9 = tfa.gated_bias_rows_plain(q, k, v, rows, bias, lens, pallas_rounding=False)
     assert _valid_rows_max(o3.float().cpu(), ref3.float().cpu(), [S] * B) < _attn_bound(ref3)
     assert _valid_rows_max(o8.float().cpu(), ref8.float().cpu(), [S] * B) < _attn_bound(ref8)
-    assert _valid_rows_max(o8.float().cpu(), o3.float().cpu(), [S] * B) < _attn_bound(o3)
-    assert torch.isfinite(o3).all() and torch.isfinite(o8).all()
+    assert _valid_rows_max(o9.float().cpu(), ref9.float().cpu(), [S] * B) < _attn_bound(ref9)
+    for o in (o8, o9):
+        assert _valid_rows_max(o.float().cpu(), o3.float().cpu(), [S] * B) < _attn_bound(o3)
+    assert torch.isfinite(o3).all() and torch.isfinite(o8).all() and torch.isfinite(o9).all()
 
 
 @pytest.mark.cuda
 def test_cuda_gated_bias_wgmma_kernels_write_zero_rows_without_keys(cuda_device):
-    """A sample of length 0 writes o = 0 in both kernels; the others match
-    their plain versions (B = 3: K8's second chunk holds one sample)."""
+    """A sample of length 0 writes o = 0 in K3, K8 and K9; the others
+    match their plain versions (B = 3: K8's second chunk holds one sample)."""
     B, H, S, D = 3, 2, 136, 64
     q, k, v, xh = _cuda_inputs([(B, H, S, D)] * 4, cuda_device, 57)
     bias, = _cuda_inputs([(H, S, S)], cuda_device, 58)
@@ -401,9 +431,9 @@ def test_cuda_gated_bias_wgmma_kernels_write_zero_rows_without_keys(cuda_device)
                   torch.zeros(8, device=cuda_device), torch.ones(H, device=cuda_device))
     lens = torch.tensor([0, 129, 136], device=cuda_device)
     args = (q, k, v, xh, bias, gw, gb, ga, lens)
-    for batch_block in (False, True):
-        o = tfa.gated_bias_attention(*args, batch_block=batch_block)
-        ref = tfa.gated_bias_attention_plain(*args)
+    ref = tfa.gated_bias_attention_plain(*args)
+    for o in (tfa.gated_bias_attention(*args), tfa.gated_bias_attention(*args, batch_block=True),
+              tfa.gated_bias_attention_rows(q, k, v, tfa.gate_rows(xh, gw, gb, ga), bias, lens)):
         assert torch.all(o[0] == 0)
         assert _valid_rows_max(o.float().cpu(), ref.float().cpu(), [S] * B) < _attn_bound(ref)
 

@@ -51,32 +51,54 @@ def _max_err(a, b):
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_plain_backward_matches_pallas_kernels_and_scan_oracle(causal):
-    """K5/K6 math: B=2, H=2, S=256, D=128, ragged lengths [256, 147]."""
-    B, H, S, D = 2, 2, 256, 128
-    lengths = [256, 147]
-    q, k, v = _arrays([(B, H, S, D)] * 3, seed=1)
+@pytest.mark.parametrize("causal,D,H,Hkv,S,lengths", [
+    pytest.param(True, 128, 2, 2, 256, [256, 147], id="True"),
+    pytest.param(False, 128, 2, 2, 256, [256, 147], id="False"),
+    # the Hopper kernels' 64-row tiles: lengths that straddle one, and 0
+    pytest.param(True, 64, 2, 2, 256, [256, 65], id="causal-D64-straddle"),
+    pytest.param(False, 64, 2, 2, 256, [200, 0], id="noncausal-D64-empty"),
+    pytest.param(True, 128, 2, 2, 256, [200, 0], id="causal-D128-empty"),
+    # GQA n_rep 8: dk/dv summed over the eight query heads of a kv head
+    pytest.param(True, 64, 8, 1, 128, [128, 65], id="causal-D64-gqa8"),
+    pytest.param(False, 128, 8, 1, 128, [100, 0], id="noncausal-D128-gqa8-empty"),
+])
+def test_plain_backward_matches_pallas_kernels_and_scan_oracle(causal, D, H, Hkv, S, lengths):
+    """K5/K6 math, B=2: the plain backward against JAX's Pallas backward
+    (interpret mode) and its scan oracle. JAX's kernels take H == Hkv, so
+    with GQA they get repeat_kv'd k/v and their dk/dv are summed over each
+    group, as autodiff through repeat_kv does."""
+    B, n_rep = 2, H // Hkv
+    q, = _arrays([(B, H, S, D)], seed=1)
+    k, v = _arrays([(B, Hkv, S, D)] * 2, seed=12)
     do = _masked_do((B, H, S, D), lengths, seed=2)
     sm = D ** -0.5
     jl = jnp.asarray(lengths, jnp.int32)
+    jq, jk, jv = jnp.asarray(q), jrepeat_kv(jnp.asarray(k), n_rep), jrepeat_kv(jnp.asarray(v), n_rep)
     if causal:
-        o, m, l = jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jl,
-                                     True, sm, 128, 128)
+        o, m, l = jfa._flash_forward(jq, jk, jv, jl, True, sm, 128, 128)
     else:
-        o, m, l = jfa._flash_forward_noncausal(jnp.asarray(q), jnp.asarray(k),
-                                               jnp.asarray(v), jl, sm, 128, 128)
-    res = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jl, o, m[:, :, 0], l[:, :, 0])
+        o, m, l = jfa._flash_forward_noncausal(jq, jk, jv, jl, sm, 128, 128)
+    res = (jq, jk, jv, jl, o, m[:, :, 0], l[:, :, 0])
     want_kern = jfa._flash_bwd_rule(causal, sm, 128, 128, 128, 128, res, jnp.asarray(do))[:3]
     want_scan = jfa._flash_bwd_scan_rule(causal, sm, 128, 128, res, jnp.asarray(do))[:3]
+
+    def group_sum(g, i):  # dk, dv of the repeated heads → of the kv heads
+        g = np.asarray(g, np.float64)
+        return g if i == 0 else g.reshape(B, Hkv, n_rep, S, D).sum(2)
 
     t = torch.from_numpy
     o_t, m_t, l_t = tfa.flash_attention_plain(t(q), t(k), t(v), torch.tensor(lengths), causal)
     got = tfa.flash_attention_bwd_plain(t(q), t(k), t(v), o_t, m_t, l_t, t(do),
                                         torch.tensor(lengths), causal)
-    for name, g, wk, ws in zip(("dq", "dk", "dv"), got, want_kern, want_scan):
+    for i, (name, g, wk, ws) in enumerate(zip(("dq", "dk", "dv"), got, want_kern, want_scan)):
+        wk, ws = group_sum(wk, i), group_sum(ws, i)
+        assert g.shape == wk.shape, (name, g.shape, wk.shape)
+        assert np.isfinite(g.numpy()).all(), name
         assert _max_err(g.numpy(), wk) < TOL, (causal, name, "pallas", _max_err(g.numpy(), wk))
         assert _max_err(g.numpy(), ws) < TOL, (causal, name, "scan", _max_err(g.numpy(), ws))
+    for i, n in enumerate(lengths):
+        if n == 0:  # no valid key: every gradient of the sample is 0
+            assert all(torch.all(g[i] == 0) for g in got)
 
 
 def test_wrapper_parts_equal_the_plain_backward_on_cpu():
