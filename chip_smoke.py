@@ -10,7 +10,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                registers, shared memory and spills (ptxas -v) and, where
                cuobjdump exists, whether the SASS of the wgmma/TMA kernels
                (the flash forward K1/K2, the gated bias K3/K8/K9, the flash
-               backward K5/K6) holds HGMMA (wgmma) and UTMALDG (TMA loads);
+               backward K5/K6) holds HGMMA (wgmma) and UTMALDG (TMA loads),
+               and that of each quantized-matmul instance (K10/K12) HMMA
+               (mma.sync) and UTMALDG;
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the shapes of the paths below, with the stated tolerances, plus
                CUDA-event times of both, its bound (the least time the H100
@@ -55,7 +57,7 @@ flash-decode kernels and the K9 schedule, phase main's BEATs-layer run for
 the K8 schedule, its probe run for K11, the train phase for the others); the
 last
 line is {"ok": true, "device": {...}} and is printed only when every phase
-passed. Takes ~4 minutes on one H100.
+passed. Takes ~2 minutes on one H100.
 """
 
 from __future__ import annotations
@@ -170,14 +172,18 @@ def _in_turns(label, kernel, library, bound, lib_name="SDPA", reps=20):
 #: K5 and K6 (D 64/128 × causal or not each)
 SASS_INSTANCES = {"flash_fwd_wgmma_kernel": 4, "gated_bias_wgmma_kernel": 3,
                   "flash_bwd_dq_wgmma_kernel": 4, "flash_bwd_dkv_wgmma_kernel": 4}
+#: the mma.sync/TMA kernels: the quantized matmuls K10/K12 (int4 or int8 ×
+#: 8, 16 or 64 rows × 128 or 64 columns), each with HMMA (mma.sync) and UTMALDG
+SASS_MMA_INSTANCES = {"wq_matmul_kernel": 12}
 
 
 def _build_report(lib_path, log):
     """Each kernel's registers, shared memory and spills from nvcc's ptxas -v
-    output (the wgmma kernels' dynamic shared memory from their C entries),
-    and, where cuobjdump exists, the HGMMA (wgmma), UTMALDG (TMA tensor load)
-    and WARPGROUP.DEPBAR counts of each instance of ``SASS_INSTANCES``; fails
-    if an instance is missing or lacks wgmma or TMA."""
+    output (the TMA kernels' dynamic shared memory from their C entries),
+    and, where cuobjdump exists, the HGMMA (wgmma), HMMA (mma.sync), UTMALDG
+    (TMA tensor load) and WARPGROUP.DEPBAR counts of each instance of
+    ``SASS_INSTANCES`` and ``SASS_MMA_INSTANCES``; fails if an instance is
+    missing or lacks its tensor-core product or its TMA load."""
     import shutil
 
     from icl_speech_text_llm_tpu_torch import kernels
@@ -194,11 +200,14 @@ def _build_report(lib_path, log):
     smem = kernels.lib().iclk_flash_fwd_smem_bytes
     gsmem = kernels.lib().iclk_gated_bias_smem_bytes
     bsmem = kernels.lib().iclk_flash_bwd_smem_bytes
+    wsmem = kernels.lib().iclk_wq_smem_bytes
     print(f"  dynamic shared memory: flash_fwd_wgmma_kernel D = 64 {smem(64)} bytes, "
           f"D = 128 {smem(128)} bytes; gated_bias_wgmma_kernel K3/K9 {gsmem(0)} bytes, "
           f"K8 {gsmem(1)} bytes; flash_bwd K5 D = 64 {bsmem(64, 0)}, D = 128 "
-          f"{bsmem(128, 0)} bytes, K6 D = 64 {bsmem(64, 1)}, D = 128 {bsmem(128, 1)} bytes",
-          flush=True)
+          f"{bsmem(128, 0)} bytes, K6 D = 64 {bsmem(64, 1)}, D = 128 {bsmem(128, 1)} bytes; "
+          "wq_matmul_kernel (int4/int8, rows, columns) " + ", ".join(
+              f"({'int4' if b else 'int8'}, {mt}, {tn}) {wsmem(b, mt, tn)}"
+              for b in (1, 0) for mt in (8, 16, 64) for tn in (128, 64)) + " bytes", flush=True)
     tool = next((c for c in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "cuobjdump"),
                              shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump")
                  if c and os.path.isfile(c)), None)
@@ -207,22 +216,24 @@ def _build_report(lib_path, log):
         return
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
-    found = dict.fromkeys(SASS_INSTANCES, 0)
+    want = {**SASS_INSTANCES, **SASS_MMA_INSTANCES}
+    found = dict.fromkeys(want, 0)
     for fn in sass.split("Function : ")[1:]:
         fname = fn.split("\n", 1)[0].strip()
         kind = next((k for k in found if k in fname), None)
         if kind is None:
             continue
         found[kind] += 1
-        hgmma, utma = fn.count("HGMMA"), fn.count("UTMALDG")
+        hgmma, hmma, utma = fn.count("HGMMA"), fn.count("HMMA"), fn.count("UTMALDG")
         depbar = fn.count("WARPGROUP.DEPBAR")
-        print(f"  SASS {fname}: {hgmma} HGMMA, {utma} UTMALDG, {depbar} WARPGROUP.DEPBAR",
-              flush=True)
-        if not (hgmma and utma):
-            raise AssertionError(f"{fname}: no wgmma or no TMA load in the SASS")
-    if found != SASS_INSTANCES:
-        raise AssertionError(f"expected the wgmma kernel instances {SASS_INSTANCES} in the "
-                             f"SASS, found {found}")
+        print(f"  SASS {fname}: {hgmma} HGMMA, {hmma} HMMA, {utma} UTMALDG, "
+              f"{depbar} WARPGROUP.DEPBAR", flush=True)
+        product = hmma if kind in SASS_MMA_INSTANCES else hgmma
+        if not (product and utma):
+            raise AssertionError(f"{fname}: no tensor-core product or no TMA load in the SASS")
+    if found != want:
+        raise AssertionError(f"expected the TMA kernel instances {want} in the SASS, "
+                             f"found {found}")
 
 
 def _probe_kernel_rows(report, gen):
@@ -264,110 +275,254 @@ def _probe_kernel_rows(report, gen):
     torch.cuda.empty_cache()
 
 
-def _wq_kernel_rows(report, gen):
-    """K10 (int4) and W8A16 (int8) at the salmonn-13b / 7b decode shapes and
-    an M = 256 prefill. Weights are random bytes with random positive
-    scales; timed calls cycle over copies (or layers) whose bytes exceed the
-    50 MB L2, so each call streams its weight from device memory as a decode
-    step does. Bound: 1e-2 × max |plain| over the output, the plain version
-    computing in f32 from the same bf16 x. Library: torch's weight-only
-    matmuls (aten._weight_int4pack_mm, _weight_int8pack_mm) on the same
-    weights, repacked outside the timed calls and held to the same bound."""
+#: the int4 wrapper's host µs per call before the cluster kernel (two
+#: launches: split-K partials, then a reduce kernel), at 13B w_gate, w_down
+#: and wq M = 4: the least of its two turns (five trials of 200 calls each)
+#: in ``_wq_sweep(baseline=<a checkout of that tree>)`` below, in turns with
+#: this wrapper; NVIDIA H100 80GB HBM3, 700.00 W. Printed beside this run's
+#: host µs.
+WQ_HOST_US_BEFORE = (27.55, 25.22, 35.97)
+
+
+def _host_us(fn, calls=200, trials=5):
+    """Host µs of one call: the least over ``trials`` of the enqueue time of
+    ``calls`` calls queued behind a device spin, so that no call waits for
+    the card."""
     import torch
 
-    from icl_speech_text_llm_tpu_torch.ops import int4_matmul as wq
+    fn(0)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(trials):
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def _wq_weights(gen, name, K, N, copies, group=128):
+    """Random weights of the int4 or int8 matmul, ``copies`` stacked: int4
+    random bytes with scales in [1e-3, 2.1e-2), int8 in [-127, 127]."""
+    import torch
 
     dev = torch.device("cuda")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-
-    def x_of(M, K):
-        return torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-
-    def int4_weights(K, N, copies, group=128):
+    if name == "int4_matmul":
         packed = torch.randint(0, 256, (copies, K // 2, N), generator=gen, device=dev,
                                dtype=torch.uint8)
         scales = torch.rand((copies, K // group, N), generator=gen, device=dev) * 0.02 + 1e-3
         return packed, scales
+    q = torch.randint(-127, 128, (copies, K, N), generator=gen, device=dev, dtype=torch.int8)
+    return q, torch.rand((copies, N), generator=gen, device=dev) * 0.02 + 1e-3
 
-    def int8_weights(K, N, copies):
-        q = torch.randint(-127, 128, (copies, K, N), generator=gen, device=dev, dtype=torch.int8)
-        return q, torch.rand((copies, N), generator=gen, device=dev) * 0.02 + 1e-3
 
-    def bound(y, ref):
-        return (y.float() - ref).abs().max().item(), 1e-2 * ref.abs().max().item()
+def _wq_library(name, w, s, group=128):
+    """torch's weight-only matmul on the same weight, repacked here, outside
+    any timed call. int4: aten._weight_int4pack_mm (tinygemm's layout, bf16
+    scale and zero per group, weight (q − 8)·scale + zero): the nibbles of
+    rows k and k + K/2 (one byte here) become rows of an (N, K) matrix
+    packed two consecutive k a byte, even k in the high nibble, zero 0 → a
+    call computing the kernel's function with its scales rounded to bf16.
+    int8: aten._weight_int8pack_mm, the weight as (N, K), the f32 per-column
+    scales as they are."""
+    import torch
 
-    group = 128
-
-    def int4_library(packed, scales):
-        """The same weight for aten._weight_int4pack_mm (tinygemm's layout,
-        bf16 scale and zero per group, weight (q − 8)·scale + zero): the
-        nibbles of rows k and k + K/2 (one byte here) become rows of an
-        (N, K) matrix packed two consecutive k a byte, even k in the high
-        nibble, zero 0 → a call computing the kernel's function with its
-        scales rounded to bf16. Packed outside the timed calls."""
-        q = torch.cat([packed & 0xF, packed >> 4], 0).t()
+    if name == "int4_matmul":
+        q = torch.cat([w & 0xF, w >> 4], 0).t()
         wpk = torch.ops.aten._convert_weight_to_int4pack(
             ((q[:, ::2] << 4) | q[:, 1::2]).contiguous(), 8)
-        sz = torch.stack([scales.to(torch.bfloat16),
-                          torch.zeros(scales.shape, dtype=torch.bfloat16, device=dev)], -1)
+        sz = torch.stack([s.to(torch.bfloat16), torch.zeros_like(s, dtype=torch.bfloat16)], -1)
         sz = sz.contiguous()
         return lambda x: torch.ops.aten._weight_int4pack_mm(x, wpk, group, sz)
+    wt = w.t().contiguous()
+    return lambda x: torch.ops.aten._weight_int8pack_mm(x, wt, s)
 
-    def int8_library(q, s):
-        """aten._weight_int8pack_mm: the int8 weight as (N, K), the f32
-        per-column scales as they are; transposed outside the timed calls."""
-        wt = q.t().contiguous()
-        return lambda x: torch.ops.aten._weight_int8pack_mm(x, wt, s)
 
-    for name, kernel, plain, library, source, replaces, cases in (
-            ("int4_matmul", wq.int4_matmul, wq.int4_matmul_plain, int4_library,
-             "icl_speech_text_llm_tpu_torch/csrc/wq_matmul.cu",
-             "icl_speech_text_llm_tpu/ops/int4_matmul.py:199",
-             [("13B w_gate M=4", 4, 5120, 13824, 4), ("13B w_down M=4", 4, 13824, 5120, 4),
-              ("13B wq stacked [17] M=4", 4, 5120, 5120, 40),
-              ("13B w_gate M=256", 256, 5120, 13824, 4)]),
-            ("int8_matmul", wq.int8_matmul, wq.int8_matmul_plain, int8_library,
-             "icl_speech_text_llm_tpu_torch/csrc/wq_matmul.cu",
-             "icl_speech_text_llm_tpu/ops/quant.py:141 (XLA convert; no Pallas kernel)",
-             [("13B lm_head M=4", 4, 5120, 32000, 1), ("7B w_down M=4", 4, 11008, 4096, 4)])):
+#: (kernel, label, M, K, N, stacked copies) of the quantized matmuls: the
+#: salmonn-13b int4 decode products (M = 4: w_gate/w_up, w_down, wq/wk/wv/wo
+#: read as layer 17 of a stacked [40] weight) and an M = 256 prefill; K12 at
+#: the 13B lm_head and the 7B w_down. Copies whose bytes exceed the 50 MB L2,
+#: cycled, so that each timed call streams its weight from device memory.
+WQ_CASES = (
+    ("int4_matmul", "13B w_gate M=4", 4, 5120, 13824, 4),
+    ("int4_matmul", "13B w_down M=4", 4, 13824, 5120, 4),
+    ("int4_matmul", "13B wq stacked [17] M=4", 4, 5120, 5120, 40),
+    ("int4_matmul", "13B w_gate M=256", 256, 5120, 13824, 4),
+    ("int8_matmul", "13B lm_head M=4", 4, 5120, 32000, 1),
+    ("int8_matmul", "7B w_down M=4", 4, 11008, 4096, 4),
+)
+
+
+def _wq_kernel_rows(report, gen):
+    """K10 (int4) and W8A16 (int8, K12) at ``WQ_CASES``. Bound: 1e-2 × max
+    |plain| over the output, the plain version computing in f32 from the
+    same bf16 x. Every int4 M = 4 shape and the lm_head are timed in turns
+    with torch's weight-only matmul (``_wq_library``), which must meet the
+    same bound; each prints its GB/s, column tile, cluster split, the
+    busiest SM's share of the mean (``partition``'s model) and the weight
+    bytes in flight an SM; at the end the int4 wrapper's host µs a call at
+    the three M = 4 shapes, beside the two-launch wrapper's
+    (``WQ_HOST_US_BEFORE``). The
+    row's numbers are its first case's."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels as built
+    from icl_speech_text_llm_tpu_torch.ops import int4_matmul as wq
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = built.lib()
+    kernels = {"int4_matmul": (wq.int4_matmul, wq.int4_matmul_plain,
+                               "icl_speech_text_llm_tpu/ops/int4_matmul.py:199"),
+               "int8_matmul": (wq.int8_matmul, wq.int8_matmul_plain,
+                               "icl_speech_text_llm_tpu/ops/quant.py:141 (XLA convert; "
+                               "no Pallas kernel)")}
+    host_runs = []  # the int4 M = 4 calls, timed on the host at the end
+    for name, (kernel, plain, replaces) in kernels.items():
         errs, timed = [], None
-        for label, M, K, N, copies in cases:
-            x = x_of(M, K)
-            w, s = int4_weights(K, N, copies) if name == "int4_matmul" else \
-                int8_weights(K, N, copies)
+        for _, label, M, K, N, copies in (c for c in WQ_CASES if c[0] == name):
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            w, s = _wq_weights(gen, name, K, N, copies)
             first = 17 if copies == 40 else 0
             y = kernel(x, w[first], s[first])
             ref = plain(x.float(), w[first], s[first])
             torch.cuda.synchronize()
-            errs.append((f"{label} (bound 1e-2 × max |plain|)", *bound(y, ref)))
+            tol = 1e-2 * ref.abs().max().item()
+            errs.append((f"{label} (bound 1e-2 × max |plain|)",
+                         (y.float() - ref).abs().max().item(), tol))
             nbytes = w[0].numel() + 4 * s[0].numel() + 2 * (M * K + M * N)
-            if timed is None:
-                # the timed case: the kernel in turns with the library call,
-                # which must also meet the bound
-                libs = [library(w[c], s[c]) for c in range(copies)]
-                lib_err, lib_tol = bound(libs[first](x), ref)
+            bound = _bound(nbytes, 2.0 * M * K * N)
+
+            def run(i=0, kernel=kernel, x=x, w=w, s=s, copies=copies):
+                return kernel(x, w[i % copies], s[i % copies])
+
+            lib_ms = None
+            if M == 4 and (name == "int4_matmul" or timed is None):
+                libs = [_wq_library(name, w[c], s[c]) for c in range(copies)]
+                lib_err = (libs[first](x).float() - ref).abs().max().item()
                 print(f"  {name} {label}: library call vs plain {lib_err:.3e} (tolerance "
-                      f"{lib_tol:.1e}) {'ok' if lib_err <= lib_tol else 'FAIL'}", flush=True)
-                if lib_err > lib_tol:
-                    raise AssertionError(f"{name} library call error {lib_err} > {lib_tol}")
-                ms, lib_ms = _in_turns(f"{name} {label}",
-                                       lambda i=0: kernel(x, w[i % copies], s[i % copies]),
-                                       lambda i=0: libs[i % copies](x),
-                                       _bound(nbytes, 2.0 * M * K * N),
-                                       lib_name=f"aten._weight_{name[:4]}pack_mm")
+                      f"{tol:.1e}) {'ok' if lib_err <= tol else 'FAIL'}", flush=True)
+                if lib_err > tol:
+                    raise AssertionError(f"{name} library call error {lib_err} > {tol}")
+                ms, lib_ms = _in_turns(f"{name} {label}", run, lambda i=0: libs[i % copies](x),
+                                       bound, lib_name=f"aten._weight_{name[:4]}pack_mm")
                 del libs
+                if name == "int4_matmul":
+                    host_runs.append(run)
             else:
-                ms = _device_ms(lambda i=0: kernel(x, w[i % copies], s[i % copies]))
+                ms = _device_ms(run)
             plain_ms = _device_ms(lambda i=0: plain(x, w[i % copies], s[i % copies]), reps=5)
-            splits = wq.split_k(M, N, w.shape[1] // wq.CHUNK_K, sms)
+            n_steps = w.shape[1] // wq.STEP_ROWS
+            tile_n, splits = wq.partition(M, N, n_steps, sms)
+            work = wq.sm_work(M, N, n_steps, tile_n, splits, sms)
+            # blocks an SM holds at once (the clusters that fit, as many as
+            # the grid has) × the ring's weight boxes
+            mt = 8 if M <= 8 else 16 if M <= 16 else 64
+            blocks = (N // tile_n) * -(-M // (16 if M <= 16 else 64)) * splits
+            fit = lib.iclk_wq_max_clusters(int(name == "int4_matmul"), mt, tile_n, splits)
+            resident = min(blocks, fit * splits) / sms
+            in_flight = resident * wq.STAGES * tile_n * wq.STEP_ROWS
             print(f"  {name} {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of "
-                  f"{nbytes / 1e6:.1f} MB, {splits} K splits), plain {plain_ms:.4f} ms",
-                  flush=True)
+                  f"{nbytes / 1e6:.1f} MB), {tile_n}-column tiles, {splits} K splits a "
+                  f"cluster, {blocks} blocks, busiest SM {max(work) * len(work) / sum(work):.3f}"
+                  f"× the mean, {resident:.2f} blocks an SM at once: up to "
+                  f"{in_flight / 1024:.0f} KB of weight in flight an SM; plain "
+                  f"{plain_ms:.4f} ms", flush=True)
             if timed is None:
-                timed = (ms, plain_ms, _bound(nbytes, 2.0 * M * K * N), lib_ms)
-            del x, w, s, y, ref
-        report(name, "cuda", source, replaces, errs, *timed)
+                timed = (ms, plain_ms, bound, lib_ms)
+            del y, ref
+        report(name, "cuda", "icl_speech_text_llm_tpu_torch/csrc/wq_matmul.cu", replaces,
+               errs, *timed)
+    # the wrapper's host µs a call: the least of three rounds over the shapes
+    hosts = [min(h) for h in zip(*[[_host_us(r) for r in host_runs] for _ in range(3)])]
+    print(f"  int4_matmul host µs a call at w_gate / w_down / wq: "
+          f"{' / '.join(f'{h:.2f}' for h in hosts)} (the two-launch wrapper: "
+          f"{' / '.join(f'{h:.2f}' for h in WQ_HOST_US_BEFORE)})", flush=True)
+    del host_runs
     torch.cuda.empty_cache()
+
+
+def _wq_sweep(baseline=None, reps=20):
+    """Tuning aid, not part of the smoke run: at each int4 M = 4 shape and
+    the K12 lm_head, the kernel's device ms at every (column tile, split)
+    ``partition`` could choose, in one pass with torch's weight-only matmul
+    before and after, and the chosen pair's ms and host µs. With
+    ``baseline`` (the root of another checkout of this repository, e.g. the
+    parent commit unpacked by ``git archive``) its wrapper runs in turns
+    with this one: device ms and host µs, new, old, old, new. Run:
+        python3 -c "import chip_smoke as c; c._device_phase(); c._wq_sweep('<dir>')"
+    """
+    import importlib
+    import importlib.util
+    import sys
+
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.ops import int4_matmul as wq
+
+    old = None
+    if baseline is not None:
+        pkg = os.path.join(os.path.abspath(baseline), "icl_speech_text_llm_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            "baseline_port", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+        sys.modules["baseline_port"] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules["baseline_port"])
+        old = importlib.import_module("baseline_port.ops.int4_matmul")
+    kernels.lib()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chosen = wq.partition
+    for name, label, M, K, N, copies in WQ_CASES:
+        if M != 4 or label.startswith("7B"):
+            continue
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        w, s = _wq_weights(gen, name, K, N, copies)
+        nbytes = w[0].numel() + 4 * s[0].numel() + 2 * (M * K + M * N)
+        libs = [_wq_library(name, w[c], s[c]) for c in range(copies)]
+        lib_ms = [_device_ms(lambda i=0: libs[i % copies](x), reps)]
+        n_steps = w.shape[1] // wq.STEP_ROWS
+        pick = chosen(M, N, n_steps, sms)
+
+        def new(i=0):
+            return getattr(wq, name)(x, w[i % copies], s[i % copies])
+
+        for tile_n in wq.TILES_N:
+            line = []
+            for splits in range(1, min(wq.MAX_SPLITS, n_steps) + 1):
+                wq.partition = lambda *shape, p=(tile_n, splits): p
+                try:
+                    ms = _device_ms(new, reps)
+                finally:
+                    wq.partition = chosen
+                work = wq.sm_work(M, N, n_steps, tile_n, splits, sms)
+                mark = "*" if (tile_n, splits) == pick else ""
+                line.append(f"S{splits}{mark} {ms:.4f} ({max(work) * len(work) / sum(work):.2f})")
+            print(f"  sweep {name} {label} tile {tile_n}: " + ", ".join(line), flush=True)
+        lib_ms.append(_device_ms(lambda i=0: libs[i % copies](x), reps))
+        # the chosen pair on one weight, called again and again: from L2
+        # where the weight fits in its 50 MB
+        hot = _device_ms(lambda i=0: new(0), reps)
+        print(f"  sweep {name} {label}: library {lib_ms[0]:.4f} / {lib_ms[1]:.4f} ms; "
+              f"bound {_bound(nbytes, 2.0 * M * K * N)[0]:.4f} ms; chosen pair on one "
+              f"weight again and again {hot:.4f} ms", flush=True)
+        if old is not None:
+            def before(i=0):
+                return getattr(old, name)(x, w[i % copies], s[i % copies])
+
+            y_new, y_old = new(), before()
+            torch.cuda.synchronize()
+            d = (y_new.float() - y_old.float()).abs().max().item()
+            t = [_device_ms(f, reps) for f in (new, before, before, new)]
+            h = [_host_us(f) for f in (new, before, before, new)]
+            print(f"  sweep {name} {label}: new, old, old, new device ms "
+                  f"{[round(v, 4) for v in t]}, host µs {[round(v, 2) for v in h]}; "
+                  f"max |new − old| {d:.3e}", flush=True)
+        del x, w, s, libs
+        torch.cuda.empty_cache()
 
 
 def _decode_kernel_rows(report, gen):

@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the wgmma/TMA attention kernels
-// (flash_fwd.cu: K1/K2; gated_bias.cu: K3/K8/K9; flash_bwd.cu: K5/K6), for
+// (flash_fwd.cu: K1/K2; gated_bias.cu: K3/K8/K9; flash_bwd.cu: K5/K6) and the
+// TMA weight ring of the quantized matmuls (wq_matmul.cu: K10/K12), for
 // sm_90a.
 //
 // - PTX wrappers: mbarriers (init, expect_tx, arrive, parity wait), TMA tile
-//   loads (cp.async.bulk.tensor, rank 3 and 4, completing on an mbarrier),
+//   loads (cp.async.bulk.tensor, rank 2, 3 and 4, completing on an mbarrier)
+//   and plain bulk copies of contiguous bytes (cp.async.bulk),
 //   named barriers, wgmma (fence, commit, wait, the m64n128k16 and m64n64k16
 //   products with both operands in shared memory and the m64n64k16 /
 //   m64n128k16 products with A from registers), the shared-memory matrix
@@ -13,8 +15,10 @@
 //   in the exp2 domain with the row max in raw-score units, and the
 //   conversion of the probabilities to bf16 A fragments for P·V.
 // - Host: cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint (no
-//   link against libcuda), and the rank-4 tensor map {D, S, H, B} of a bf16
-//   operand with strided batch, head and sequence axes.
+//   link against libcuda), the rank-4 tensor map {D, S, H, B} of a bf16
+//   operand with strided batch, head and sequence axes, and the rank-2 map of
+//   a row-major matrix of any element type (the matmuls' uint8 / int8
+//   weights and bf16 activations).
 #pragma once
 
 #include <cuda.h>
@@ -79,6 +83,25 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from device memory to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -310,6 +333,23 @@ inline bool encode_operand(CUtensorMap* map, const void* ptr, int D, int S, int 
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Rank-2 map of a row-major (rows, cols) matrix of `elem_bytes`-byte
+// elements with `row_bytes` between rows; boxes of box_cols × box_rows,
+// zero fill out of bounds (rows past the last read as zeros).
+inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                      const void* ptr, long long cols, long long rows, long long row_bytes,
+                      int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || cols <= 0 || rows <= 0 || row_bytes < cols * elem_bytes) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

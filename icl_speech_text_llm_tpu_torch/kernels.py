@@ -10,9 +10,10 @@ at import: the CPU paths never touch it.
 
 Every C entry that launches returns the ``cudaGetLastError()`` of its
 launch; ``check`` turns a non-zero code into an exception. The flash forward,
-the flash backward and the gated-bias kernels build TMA tensor maps with
-``cuTensorMapEncodeTiled``, which they reach through the runtime's
-``cudaGetDriverEntryPoint``: the library needs no link against ``libcuda``.
+the flash backward, the gated-bias and the quantized matmul kernels build
+TMA tensor maps with ``cuTensorMapEncodeTiled``, which they reach through the
+runtime's ``cudaGetDriverEntryPoint``: the library needs no link against
+``libcuda``.
 
 The launch-count registry lives here too: each ops module ``register``s its
 kernel wrappers, each wrapper adds one to ``<wrapper>.launches`` where it
@@ -76,10 +77,10 @@ _SIGNATURES = {
     # q, k, v, dout, m, l, delta, dk, dv, lengths, B, H, Hkv, S, S_kv, D,
     # causal, strides, sm_scale, stream
     "iclk_flash_bwd_dkv": [_p] * 10 + [_i] * 7 + [_strides, ctypes.c_float, _p],
-    # x, packed, scales, y, ws, M, N, K, n_groups, splits, stream
-    "iclk_int4_matmul": [_p] * 5 + [_i] * 5 + [_p],
-    # x, q, s, y, ws, M, N, K, n_groups (ignored), splits, stream
-    "iclk_int8_matmul": [_p] * 5 + [_i] * 5 + [_p],
+    # x, packed, scales, y, M, N, K, n_groups, tile_n, splits, stream
+    "iclk_int4_matmul": [_p] * 4 + [_i] * 6 + [_p],
+    # x, q, s, y, M, N, K, n_groups (ignored), tile_n, splits, stream
+    "iclk_int8_matmul": [_p] * 4 + [_i] * 6 + [_p],
     # x, partial, n_vec (16-byte vectors), blocks, stream
     "iclk_stream_read": [_p, _p, ctypes.c_longlong, _i, _p],
     # D → dynamic shared memory of a flash-forward block, in bytes
@@ -88,6 +89,12 @@ _SIGNATURES = {
     "iclk_gated_bias_smem_bytes": [_i],
     # D, dkv (0: K5, 1: K6) → dynamic shared memory of a backward block
     "iclk_flash_bwd_smem_bytes": [_i, _i],
+    # int4 (1) or int8 (0), rows MT, columns TN → dynamic shared memory of a
+    # quantized-matmul block
+    "iclk_wq_smem_bytes": [_i, _i, _i],
+    # int4 (1) or int8 (0), rows MT, columns TN, splits → clusters of that
+    # many blocks the card holds at once
+    "iclk_wq_max_clusters": [_i, _i, _i, _i],
 }
 
 

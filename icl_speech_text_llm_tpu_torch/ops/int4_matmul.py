@@ -7,28 +7,37 @@ int8 weight-only matmul that the JAX package leaves to XLA's fused convert
 
 - ``int4_matmul(x, packed, scales)``: x (M, K) bf16 @ a split-half packed
   int4 weight (K/2, N) uint8 with f32 group scales (K/group, N), the −8 zero
-  point folded out of the element path as the Pallas kernel does;
+  point folded into x's row sums as the Pallas kernel does;
 - ``int8_matmul(x, q, s)``: x (M, K) bf16 @ an int8 weight (K, N), times the
   f32 per-column scale once at the end.
 
 Each wrapper dispatches on the device of x: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel or raises, and each counts its
-launches in ``<wrapper>.launches`` (``kernels.WRAPPERS``). The stacked ``layer=`` form of the
-Pallas kernel has no counterpart: ``packed[l]`` of a stacked (L, K/2, N)
-weight is a contiguous view the same kernel reads in place.
+version, a CUDA tensor launches the kernel (one launch a call: the split-K
+sum happens inside a thread-block cluster) or raises, and each counts its
+launches in ``<wrapper>.launches`` (``kernels.WRAPPERS``). ``partition``
+chooses each call's column tile and split count from the shape alone. The
+stacked ``layer=`` form of the Pallas kernel has no counterpart:
+``packed[l]`` of a stacked (L, K/2, N) weight is a contiguous view the same
+kernel reads in place.
 """
 
 from __future__ import annotations
 
 import functools
+import heapq
 
 import torch
 
 from .. import kernels
 
-MAX_ROWS = 1024  # the gate's M bound, as the JAX package's int4_matmul_usable
-TILE_N = 128     # the kernel's column tile (csrc/wq_matmul.cu kTileN)
-CHUNK_K = 128    # packed weight rows per k step (csrc/wq_matmul.cu kChunk)
+MAX_ROWS = 1024   # the gate's M bound, as the JAX package's int4_matmul_usable
+TILE_N = 128      # the gate's column tile: N in 128-column tiles
+CHUNK_K = 128     # the gate's k unit: int4 groups and int8 K in 128 rows
+TILES_N = (128, 64)  # the kernel's column tiles (csrc/wq_matmul.cu, TN)
+STEP_ROWS = 64    # weight rows per k step of the kernel (csrc/wq_matmul.cu kStepRows)
+MAX_SPLITS = 8    # CTAs of a cluster along K (csrc/wq_matmul.cu kMaxSplits)
+STAGES = 3        # shared-memory stages of a block's ring (csrc/wq_matmul.cu kStages)
+BLOCKS_PER_SM = 4  # the block count partition aims at, per SM
 
 
 def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -87,43 +96,81 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_k(M: int, N: int, n_chunks: int, sms: int) -> int:
-    """Blocks along K: enough (column tile × row tile × split) blocks for two
-    waves of the card's SMs, each split at least 2 k steps long. Decode has
-    few column tiles (13B wq: 40 for 132 SMs), so without the split most of
-    the card would idle while a third of it streams the weights."""
-    tiles = (N // TILE_N) * -(-M // (16 if M <= 16 else 64))
-    want = -(-2 * sms // tiles)
-    splits = max(1, min(want, n_chunks // 2))
-    per = -(-n_chunks // splits)
-    return -(-n_chunks // per)
+def split_bounds(n_steps: int, splits: int) -> list:
+    """The k steps of each rank of a cluster, as the kernel takes them:
+    ``n_steps // splits`` each, the first ``n_steps % splits`` ranks one
+    more → [(first step, end step)] in rank order."""
+    per, extra = divmod(n_steps, splits)
+    bounds, begin = [], 0
+    for r in range(splits):
+        end = begin + per + (r < extra)
+        bounds.append((begin, end))
+        begin = end
+    return bounds
 
 
-_workspaces: dict = {}
+def sm_work(M: int, N: int, n_steps: int, tile_n: int, splits: int, sms: int) -> list:
+    """Model of the card's block scheduler → the k steps each of ``sms`` SMs
+    streams: blocks in launch order (cluster rank fastest, then column tile,
+    then row tile) each to the SM with the least work so far, which is what
+    a card does where every block of the grid streams at the same rate."""
+    tiles = (N // tile_n) * -(-M // (16 if M <= 16 else 64))
+    loads = [(0, i) for i in range(sms)]
+    sizes = [end - begin for begin, end in split_bounds(n_steps, splits)]
+    for _ in range(tiles):
+        for w in sizes:
+            load, i = heapq.heappop(loads)
+            heapq.heappush(loads, (load + w, i))
+    return [load for load, _ in sorted(loads, key=lambda li: li[1])]
 
 
-def _workspace(device_index: int, stream: int, numel: int) -> torch.Tensor:
-    """The f32 split-K scratch of one (device, stream), grown as needed and
-    kept: calls on one stream run in order, so a call's reduce has read it
-    before the next call's partials overwrite it."""
-    ws = _workspaces.get((device_index, stream))
-    if ws is None or ws.numel() < numel:
-        ws = torch.empty(numel, dtype=torch.float32, device=torch.device("cuda", device_index))
-        _workspaces[(device_index, stream)] = ws
-    return ws
+def balanced(work: list) -> bool:
+    """The busiest SM has at most 1.1× the mean work (in integers)."""
+    return 10 * max(work) * len(work) <= 11 * sum(work)
 
 
-def _launch(entry: str, x, w, s, K_chunks: int, N: int):
+@functools.lru_cache(maxsize=None)
+def partition(M: int, N: int, n_steps: int, sms: int) -> tuple:
+    """(column tile, splits) of a call: among the pairs that give every SM
+    the same work within 1.1× the mean (``sm_work``, ``balanced``), the one
+    whose block count is nearest ``BLOCKS_PER_SM`` blocks an SM, the fewer
+    splits on a tie; without a balanced pair (a product of few tiles and
+    steps), the pair whose busiest SM streams the fewest bytes.
+
+    Why: a block's start (barriers, the first loads' latency) and its end
+    (the cluster's split sum) stream nothing, and blocks that share an SM
+    hide them for each other, while every block costs one of each: at about
+    four blocks an SM the 13B decode products ran fastest of the balanced
+    pairs on the H100. Decode has few column tiles (13B wq: 40 of 128 for
+    132 SMs), so without the split most of the card would idle while a
+    third of it streams the weights."""
+    m_tiles = -(-M // (16 if M <= 16 else 64))
+    pairs = []  # (balanced, blocks, busiest SM's weight bytes, splits, tile)
+    for tile_n in TILES_N:
+        if N % tile_n:
+            continue
+        for splits in range(1, min(MAX_SPLITS, n_steps) + 1):
+            work = sm_work(M, N, n_steps, tile_n, splits, sms)
+            pairs.append((balanced(work), (N // tile_n) * m_tiles * splits,
+                          max(work) * tile_n, splits, tile_n))
+    even = [p for p in pairs if p[0]]
+    if even:
+        best = min(even, key=lambda p: (abs(p[1] - BLOCKS_PER_SM * sms), p[3]))
+    else:
+        best = min(pairs, key=lambda p: (p[2], p[1]))
+    return best[4], best[3]
+
+
+def _launch(entry: str, x, w, s, w_rows: int, N: int):
     # the decode step is bound by the host: one raw-stream query and one
     # allocation a call (torch.cuda.current_stream builds a Stream object)
     M, index = x.shape[0], x.device.index
-    splits = split_k(M, N, K_chunks, _sm_count(index))
+    tile_n, splits = partition(M, N, w_rows // STEP_ROWS, _sm_count(index))
     stream = torch._C._cuda_getCurrentRawStream(index)
     y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    ws = _workspace(index, stream, splits * M * N).data_ptr() if splits > 1 else None
     err = getattr(kernels.lib(), entry)(
-        x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), ws, M, N, x.shape[1],
-        s.shape[0] if s.dim() == 2 else 1, splits, stream)
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), M, N, x.shape[1],
+        s.shape[0] if s.dim() == 2 else 1, tile_n, splits, stream)
     kernels.check(err, entry)
     return y
 
@@ -141,8 +188,8 @@ def _check_operands(name, x, w, s, w_dtype):
                         f"got {w.dtype} and {s.dtype}")
     if x.dim() != 2 or not (x.is_contiguous() and w.is_contiguous() and s.is_contiguous()):
         raise ValueError(f"{name}: x (M, K), weight and scales must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"{name}: x and weight must be 16-byte aligned")
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError(f"{name}: x, weight and scales must be 16-byte aligned")
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -154,8 +201,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
     if not int4_matmul_usable(x.shape, packed.shape, scales.shape):
         raise ValueError(f"int4_matmul: shapes x {tuple(x.shape)} packed {tuple(packed.shape)} "
                          f"scales {tuple(scales.shape)} are not ones the kernel takes")
-    y = _launch("iclk_int4_matmul", x, packed, scales, packed.shape[0] // CHUNK_K,
-                packed.shape[1])
+    y = _launch("iclk_int4_matmul", x, packed, scales, packed.shape[0], packed.shape[1])
     int4_matmul.launches += 1
     return y
 
@@ -168,7 +214,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tens
     if not int8_matmul_usable(x.shape, q.shape) or s.shape != (q.shape[1],):
         raise ValueError(f"int8_matmul: shapes x {tuple(x.shape)} q {tuple(q.shape)} "
                          f"s {tuple(s.shape)} are not ones the kernel takes")
-    y = _launch("iclk_int8_matmul", x, q, s, q.shape[0] // CHUNK_K, q.shape[1])
+    y = _launch("iclk_int8_matmul", x, q, s, q.shape[0], q.shape[1])
     int8_matmul.launches += 1
     return y
 

@@ -14,6 +14,8 @@ and int8 cache) and the batched and row schedules of the gated-bias kernel
 (K8, K9) are held to their plain versions within 2e-2, as the other
 attention kernels are. The streaming probe (K11) is held to its plain
 version within 1e-5 × the largest block's Σ|x| (f32 sums in another order).
+K10 also runs at forced partitions (column tile, cluster split) and must
+give the same bits on two calls, in one kernel launch.
 """
 
 import numpy as np
@@ -261,6 +263,66 @@ def test_cuda_int4_kernel_matches_plain(cuda_device, M, K, N, group):
     torch.cuda.synchronize()
     assert tint4.int4_matmul.launches == before + 1 and y.dtype == torch.bfloat16
     assert _wq_err(y, tint4.int4_matmul_plain(x.float(), qt["q4"], qt["s"])) < 1e-2
+
+
+def _int4_case(dev, M, K, N, group=128, seed=48):
+    w, = _arrays([(K, N)], seed, 0.05)
+    qt = {k: v.to(dev) for k, v in tquant.quantize_tensor_int4(
+        torch.from_numpy(w), group=group).items()}
+    x, = _cuda_inputs([(M, K)], dev, seed + 1)
+    return x, qt["q4"], qt["s"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,group", [
+    (1, 5120, 256, 128), (16, 5120, 256, 128), (17, 5120, 256, 128), (64, 5120, 256, 128),
+    (4, 5120, 128, 128), (4, 5120, 384, 256)])
+def test_cuda_int4_kernel_matches_plain_at_decode_k(cuda_device, M, K, N, group):
+    """K10 at the 13B hidden size: the row counts on both sides of the
+    16-row tile, one column tile (N = 128), groups of 256."""
+    x, packed, scales = _int4_case(cuda_device, M, K, N, group)
+    y = tint4.int4_matmul(x, packed, scales)
+    torch.cuda.synchronize()
+    assert _wq_err(y, tint4.int4_matmul_plain(x.float(), packed, scales)) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n,splits", [(128, 1), (128, 8), (64, 1), (64, 8)])
+@pytest.mark.parametrize("M", [4, 40])
+def test_cuda_wq_kernels_match_plain_at_forced_partitions(cuda_device, monkeypatch, tile_n,
+                                                          splits, M):
+    """Both column tiles with no split and with a cluster of 8, forced
+    through ``partition``, for K10 and K12."""
+    monkeypatch.setattr(tint4, "partition", lambda *shape: (tile_n, splits))
+    x, packed, scales = _int4_case(cuda_device, M, 2048, 256)
+    y = tint4.int4_matmul(x, packed, scales)
+    assert _wq_err(y, tint4.int4_matmul_plain(x.float(), packed, scales)) < 1e-2
+    w, = _arrays([(1024, 256)], 50, 0.05)
+    qt = {k: v.to(cuda_device) for k, v in tquant.quantize_tensor(torch.from_numpy(w)).items()}
+    y8 = tint4.int8_matmul(x[:, :1024].contiguous(), qt["q"], qt["s"])
+    torch.cuda.synchronize()
+    assert _wq_err(y8, tint4.int8_matmul_plain(x[:, :1024].float(), qt["q"], qt["s"])) < 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_int4_kernel_is_deterministic_and_one_launch(cuda_device):
+    """The split-K sum runs in rank order inside the cluster: two calls on
+    the same inputs give the same bits, and a call is one kernel on the
+    card (no reduce kernel)."""
+    x, packed, scales = _int4_case(cuda_device, 4, 5120, 5120)
+    assert tint4.partition(4, 5120, 2560 // tint4.STEP_ROWS,
+                           torch.cuda.get_device_properties(0).multi_processor_count)[1] > 1
+    y1 = tint4.int4_matmul(x, packed, scales)
+    y2 = tint4.int4_matmul(x, packed, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tint4.int4_matmul(x, packed, scales)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "wq_matmul_kernel" in names[0], names
 
 
 @pytest.mark.cuda

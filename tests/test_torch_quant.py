@@ -183,14 +183,39 @@ def test_int8_gate(x_shape, q_shape, ok):
     assert tint4.int8_matmul_usable(x_shape, q_shape) is ok
 
 
-@pytest.mark.parametrize("M,N,n_chunks,want", [
-    (4, 5120, 20, 7), (4, 13824, 20, 3), (4, 5120, 54, 7), (4, 32000, 40, 2),
-    (256, 13824, 20, 1), (4, 128, 1, 1)])
-def test_split_k_fills_two_waves_of_132_sms(M, N, n_chunks, want):
-    splits = tint4.split_k(M, N, n_chunks, 132)
-    assert splits == want
-    per = -(-n_chunks // splits)
-    assert -(-n_chunks // per) == splits  # no split is empty
+@pytest.mark.parametrize("M,w_rows,N", [
+    (4, 2560, 13824),    # 13B w_gate / w_up decode (int4: K / 2 packed rows)
+    (4, 6912, 5120),     # 13B w_down
+    (4, 2560, 5120),     # 13B wq / wk / wv / wo
+    (4, 5120, 32000),    # K12 13B lm_head (int8: K rows)
+    (4, 11008, 4096),    # K12 7B w_down
+    (4, 128, 128),       # one 128-column tile, one 128-row k step
+    (1, 2560, 13824), (17, 2560, 13824), (256, 2560, 13824)])
+def test_partition_covers_every_tile_step_once_and_balances_132_sms(M, w_rows, N):
+    """The column tile and cluster split of ``partition``: every (column
+    tile, k step) of the grid is some rank's exactly once, the split divides
+    the grid's x axis and is at most 8, no split is empty, and the busiest
+    of 132 SMs streams at most 1.1× the mean (a product of fewer (tile,
+    step) units than SMs: at most one unit an SM)."""
+    n_steps = w_rows // tint4.STEP_ROWS
+    tile_n, splits = tint4.partition(M, N, n_steps, 132)
+    assert tile_n in tint4.TILES_N and N % tile_n == 0
+    assert 1 <= splits <= min(tint4.MAX_SPLITS, n_steps)
+    bounds = tint4.split_bounds(n_steps, splits)  # the grid's x axis: one cluster
+    assert len(bounds) == splits
+    assert all(end > begin for begin, end in bounds)
+    covered = np.zeros((N // tile_n, n_steps), np.int64)
+    for tile in range(N // tile_n):
+        for begin, end in bounds:
+            covered[tile, begin:end] += 1
+    assert np.all(covered == 1)
+    work = tint4.sm_work(M, N, n_steps, tile_n, splits, 132)
+    units = (N // tile_n) * -(-M // (16 if M <= 16 else 64)) * n_steps
+    assert len(work) == 132 and sum(work) == units
+    if units >= 132:
+        assert tint4.balanced(work), (tile_n, splits, max(work), units / 132)
+    else:
+        assert max(work) == 1
 
 
 def _tiny_decoder(seed=0):
