@@ -11,8 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                cuobjdump exists, whether the SASS of the wgmma/TMA kernels
                (the flash forward K1/K2, the gated bias K3/K8/K9, the flash
                backward K5/K6) holds HGMMA (wgmma) and UTMALDG (TMA loads),
-               and that of each quantized-matmul instance (K10/K12) HMMA
-               (mma.sync) and UTMALDG;
+               that of each quantized-matmul instance (K10/K12) HMMA
+               (mma.sync) and UTMALDG, and that of each int8-cache flash-decode
+               instance (K7 q8) HMMA and no I2F;
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the shapes of the paths below, with the stated tolerances, plus
                CUDA-event times of both, its bound (the least time the H100
@@ -21,7 +22,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                call computes the same function, that call's time (K1-K4,
                K8-K10 and K12 timed in turns with theirs: kernel, library,
                library, kernel; K5 + K6 together in turns with one SDPA
-               backward); the
+               backward); K7 q8 at the 13B 4-row and 16-row shapes, with
+               SDPA over a dequantized bf16 copy printed for reference; the
                streaming probe (K11) on two 75.5 MB buffers, with its GB/s;
   4. check   — one-layer-per-stack models, the bf16 kernel path on the card
                against the f32 plain path on the CPU with the same weights and
@@ -54,7 +56,8 @@ The line before the last is a JSON object of the thirteen kernels (launch
 counts from the run of each kernel's own path: the salmonn-13b int4 run for
 the int4 and int8 matmuls, the flash-decode runs of phase main for the
 flash-decode kernels and the K9 schedule, phase main's BEATs-layer run for
-the K8 schedule, its probe run for K11, the train phase for the others); the
+the K8 schedule, its probe run for K11, the train phase for the others),
+after a line with K7 q8's launches × (ms − bound) at the 16-row shape; the
 last
 line is {"ok": true, "device": {...}} and is printed only when every phase
 passed. Takes ~2 minutes on one H100.
@@ -175,6 +178,9 @@ SASS_INSTANCES = {"flash_fwd_wgmma_kernel": 4, "gated_bias_wgmma_kernel": 3,
 #: the mma.sync/TMA kernels: the quantized matmuls K10/K12 (int4 or int8 ×
 #: 8, 16 or 64 rows × 128 or 64 columns), each with HMMA (mma.sync) and UTMALDG
 SASS_MMA_INSTANCES = {"wq_matmul_kernel": 12}
+#: the int8-cache flash decode (K7 q8, n_rep 1-8): mma.sync products (HMMA)
+#: fed by bulk copies, its int8 converted without I2F
+SASS_Q8_INSTANCES = {"flash_decode_q8_kernel": 8}
 
 
 def _build_report(lib_path, log):
@@ -182,8 +188,10 @@ def _build_report(lib_path, log):
     output (the TMA kernels' dynamic shared memory from their C entries),
     and, where cuobjdump exists, the HGMMA (wgmma), HMMA (mma.sync), UTMALDG
     (TMA tensor load) and WARPGROUP.DEPBAR counts of each instance of
-    ``SASS_INSTANCES`` and ``SASS_MMA_INSTANCES``; fails if an instance is
-    missing or lacks its tensor-core product or its TMA load."""
+    ``SASS_INSTANCES`` and ``SASS_MMA_INSTANCES``, and the HMMA, UBLKCP (bulk
+    copy) and I2F counts of ``SASS_Q8_INSTANCES``; fails if an instance is
+    missing or lacks its tensor-core product or its TMA load, or if a K7 q8
+    instance holds an I2F."""
     import shutil
 
     from icl_speech_text_llm_tpu_torch import kernels
@@ -201,13 +209,16 @@ def _build_report(lib_path, log):
     gsmem = kernels.lib().iclk_gated_bias_smem_bytes
     bsmem = kernels.lib().iclk_flash_bwd_smem_bytes
     wsmem = kernels.lib().iclk_wq_smem_bytes
+    qsmem = kernels.lib().iclk_flash_decode_q8_smem_bytes
     print(f"  dynamic shared memory: flash_fwd_wgmma_kernel D = 64 {smem(64)} bytes, "
           f"D = 128 {smem(128)} bytes; gated_bias_wgmma_kernel K3/K9 {gsmem(0)} bytes, "
           f"K8 {gsmem(1)} bytes; flash_bwd K5 D = 64 {bsmem(64, 0)}, D = 128 "
           f"{bsmem(128, 0)} bytes, K6 D = 64 {bsmem(64, 1)}, D = 128 {bsmem(128, 1)} bytes; "
           "wq_matmul_kernel (int4/int8, rows, columns) " + ", ".join(
               f"({'int4' if b else 'int8'}, {mt}, {tn}) {wsmem(b, mt, tn)}"
-              for b in (1, 0) for mt in (8, 16, 64) for tn in (128, 64)) + " bytes", flush=True)
+              for b in (1, 0) for mt in (8, 16, 64) for tn in (128, 64)) + " bytes; "
+          "flash_decode_q8_kernel n_rep 1-8 " + ", ".join(str(qsmem(n)) for n in range(1, 9))
+          + " bytes", flush=True)
     tool = next((c for c in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "cuobjdump"),
                              shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump")
                  if c and os.path.isfile(c)), None)
@@ -216,7 +227,7 @@ def _build_report(lib_path, log):
         return
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
-    want = {**SASS_INSTANCES, **SASS_MMA_INSTANCES}
+    want = {**SASS_INSTANCES, **SASS_MMA_INSTANCES, **SASS_Q8_INSTANCES}
     found = dict.fromkeys(want, 0)
     for fn in sass.split("Function : ")[1:]:
         fname = fn.split("\n", 1)[0].strip()
@@ -224,6 +235,13 @@ def _build_report(lib_path, log):
         if kind is None:
             continue
         found[kind] += 1
+        if kind in SASS_Q8_INSTANCES:
+            hmma, i2f = fn.count("HMMA"), fn.count("I2F")
+            print(f"  SASS {fname}: {hmma} HMMA, {fn.count('UBLKCP')} UBLKCP, {i2f} I2F",
+                  flush=True)
+            if not hmma or i2f:
+                raise AssertionError(f"{fname}: no HMMA, or an I2F, in the SASS")
+            continue
         hgmma, hmma, utma = fn.count("HGMMA"), fn.count("HMMA"), fn.count("UTMALDG")
         depbar = fn.count("WARPGROUP.DEPBAR")
         print(f"  SASS {fname}: {hgmma} HGMMA, {hmma} HMMA, {utma} UTMALDG, "
@@ -232,7 +250,7 @@ def _build_report(lib_path, log):
         if not (product and utma):
             raise AssertionError(f"{fname}: no tensor-core product or no TMA load in the SASS")
     if found != want:
-        raise AssertionError(f"expected the TMA kernel instances {want} in the SASS, "
+        raise AssertionError(f"expected the kernel instances {want} in the SASS, "
                              f"found {found}")
 
 
@@ -444,6 +462,24 @@ def _wq_kernel_rows(report, gen):
     torch.cuda.empty_cache()
 
 
+def _baseline_module(baseline, module):
+    """``module`` (e.g. "ops.int4_matmul") of the port in another checkout of
+    this repository, rooted at ``baseline``, imported as the package
+    ``baseline_port``; its kernels build from that checkout's sources into
+    its own build directory."""
+    import importlib
+    import importlib.util
+    import sys
+
+    if "baseline_port" not in sys.modules:
+        pkg = os.path.join(os.path.abspath(baseline), "icl_speech_text_llm_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            "baseline_port", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+        sys.modules["baseline_port"] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules["baseline_port"])
+    return importlib.import_module(f"baseline_port.{module}")
+
+
 def _wq_sweep(baseline=None, reps=20):
     """Tuning aid, not part of the smoke run: at each int4 M = 4 shape and
     the K12 lm_head, the kernel's device ms at every (column tile, split)
@@ -454,23 +490,12 @@ def _wq_sweep(baseline=None, reps=20):
     with this one: device ms and host µs, new, old, old, new. Run:
         python3 -c "import chip_smoke as c; c._device_phase(); c._wq_sweep('<dir>')"
     """
-    import importlib
-    import importlib.util
-    import sys
-
     import torch
 
     from icl_speech_text_llm_tpu_torch import kernels
     from icl_speech_text_llm_tpu_torch.ops import int4_matmul as wq
 
-    old = None
-    if baseline is not None:
-        pkg = os.path.join(os.path.abspath(baseline), "icl_speech_text_llm_tpu_torch")
-        spec = importlib.util.spec_from_file_location(
-            "baseline_port", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
-        sys.modules["baseline_port"] = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(sys.modules["baseline_port"])
-        old = importlib.import_module("baseline_port.ops.int4_matmul")
+    old = None if baseline is None else _baseline_module(baseline, "ops.int4_matmul")
     kernels.lib()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -525,6 +550,105 @@ def _wq_sweep(baseline=None, reps=20):
         torch.cuda.empty_cache()
 
 
+#: (label, layers, B, H, Hkv, lengths) of K7 q8 at the salmonn-13b int8
+#: cache: the 4-row decode and 4 beams (the main path's 16 rows)
+DECODE_Q8_CASES = (
+    ("13B int8 (4, 40, 1152), layer 39", 40, 4, 40, 40, [903, 897, 900, 895]),
+    ("13B int8 4 beams (16, 40, 1152)", 40, 16, 40, 40,
+     [903] * 4 + [897] * 4 + [900] * 4 + [895] * 4))
+
+
+def _decode_case(gen, L, B, H, Hkv, S, lens, quant):
+    """K7's inputs on the card: q (B, H, 1, 128), the stacked cache (k, v[,
+    k_s, v_s]) of L layers (int8 by quantize_kv where ``quant``), lengths,
+    the self column (k_new, v_new)."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_kv
+
+    dev, bf, D = torch.device("cuda"), torch.bfloat16, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    q, kn, vn = randn(B, H, 1, D), randn(B, Hkv, 1, D), randn(B, Hkv, 1, D)
+    rows, scales = [], []
+    for _ in range(2):  # k, v; layer by layer, no f32 copy of a whole cache
+        c = torch.empty((L, B, Hkv, S, D), dtype=torch.int8 if quant else bf, device=dev)
+        s = torch.empty((L, B, Hkv, S), dtype=torch.float32, device=dev) if quant else None
+        for l in range(L):
+            x = randn(B, Hkv, S, D)
+            if quant:
+                c[l], s[l] = quantize_kv(x)
+            else:
+                c[l] = x
+        rows.append(c)
+        scales.append(s)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cache = (*rows, *scales) if quant else tuple(rows)
+    return q, cache, lengths, (kn, vn)
+
+
+def _decode_sweep(baseline=None, reps=20):
+    """Tuning aid, not part of the smoke run: K7 q8 at ``DECODE_Q8_CASES``
+    (one layer a call, cycling over the 40), its device ms at every cluster
+    split 1-8 (the one ``decode_splits`` picks marked; each with the busiest
+    SM's share of the mean and the clusters resident at once). With
+    ``baseline`` (the root of another checkout of this repository, e.g. the
+    parent commit unpacked by ``git archive``) that tree's wrapper runs in
+    turns with this one: device ms new, old, old, new, and max |new − old|.
+    Run:
+        python3 -c "import chip_smoke as c; c._device_phase(); c._decode_sweep('<dir>')"
+    """
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
+
+    old = None if baseline is None else _baseline_module(baseline, "ops.flash_attention")
+    lib = kernels.lib()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chosen = fa.decode_splits
+    for label, L, B, H, Hkv, lens in DECODE_Q8_CASES:
+        q, cache, lengths, self_kv = _decode_case(gen, L, B, H, Hkv, 1152, lens, True)
+        nbytes = Hkv * sum(lens) * (2 * 128 + 8) + 2 * 2 * B * H * 128 + 2 * 2 * B * Hkv * 128
+        bound = _bound(nbytes, 4.0 * 128 * H * sum(n + 1 for n in lens))[0]
+        pick = chosen(B, Hkv, sms, fa.decode_resident(0, H // Hkv))
+
+        def new(i=0):
+            return fa.flash_decode_attention_q8(q, *cache, lengths, self_kv=self_kv,
+                                                layer=i % L)
+
+        line = []
+        for splits in range(1, fa.DECODE_MAX_SPLITS + 1):
+            fa.decode_splits = lambda *shape, c=splits: c
+            try:
+                ms = _device_ms(new, reps)
+            finally:
+                fa.decode_splits = chosen
+            work = fa.decode_sm_blocks(B * Hkv * splits, sms)
+            fit = lib.iclk_flash_decode_q8_max_clusters(H // Hkv, splits)
+            line.append(f"c{splits}{'*' if splits == pick else ''} {ms:.4f} "
+                        f"({max(work) * sms / sum(work):.2f}, {fit} resident)")
+        print(f"  sweep flash_decode_attention_q8 {label} (bound {bound:.4f} ms): "
+              + ", ".join(line), flush=True)
+        if old is not None:
+            def before(i=0):
+                return old.flash_decode_attention_q8(q, *cache, lengths, self_kv=self_kv,
+                                                     layer=i % L)
+
+            y_new, y_old = new(L - 1), before(L - 1)
+            torch.cuda.synchronize()
+            d = (y_new.float() - y_old.float()).abs().max().item()
+            t = [_device_ms(f, reps) for f in (new, before, before, new)]
+            print(f"  sweep flash_decode_attention_q8 {label}: new, old, old, new device ms "
+                  f"{[round(v, 4) for v in t]}; max |new − old| {d:.3e}", flush=True)
+        del q, cache, lengths, self_kv
+        torch.cuda.empty_cache()
+
+
 def _decode_kernel_rows(report, gen):
     """K7 at the decode steps' shapes, against its plain version: the 7B
     bf16 stacked cache (32, 4, 32, 1152, 128) with ~900 cached positions a
@@ -537,39 +661,26 @@ def _decode_kernel_rows(report, gen):
     Library: one F.scaled_dot_product_attention over the cache rows with the
     current token's column concatenated (the concatenation, a copy of the
     cache, made outside the timed call) under a boolean length mask; none for
-    the int8 cache, which no PyTorch call takes."""
+    the int8 cache, which no PyTorch call takes. K7 q8 is timed at both
+    shapes (the row's numbers are the 4-row shape's; the 16-row shape's,
+    where the main path's launches are, go under the row's "beam" key), each
+    printed with its cluster split and, for reference only, the time of SDPA
+    over a bf16 dequantized copy of the same rows (made outside the timed
+    call): what reading the int8 cache saves."""
     import torch
     import torch.nn.functional as F
 
+    from icl_speech_text_llm_tpu_torch import kernels as built
     from icl_speech_text_llm_tpu_torch.models.llama import _xla_decode_attn
     from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
-    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_kv
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bf = torch.bfloat16
     D = 128
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf)
-
     def case(L, B, H, Hkv, S, lens, quant):
-        """q, the stacked cache (k, v[, k_s, v_s]), lengths, the self column."""
-        q, kn, vn = randn(B, H, 1, D), randn(B, Hkv, 1, D), randn(B, Hkv, 1, D)
-        rows, scales = [], []
-        for _ in range(2):  # k, v; layer by layer, no f32 copy of a whole cache
-            c = torch.empty((L, B, Hkv, S, D), dtype=torch.int8 if quant else bf, device=dev)
-            s = torch.empty((L, B, Hkv, S), dtype=torch.float32, device=dev) if quant else None
-            for l in range(L):
-                x = randn(B, Hkv, S, D)
-                if quant:
-                    c[l], s[l] = quantize_kv(x)
-                else:
-                    c[l] = x
-            rows.append(c)
-            scales.append(s)
-        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        cache = (*rows, *scales) if quant else tuple(rows)
-        return q, cache, lengths, (kn, vn)
+        return _decode_case(gen, L, B, H, Hkv, S, lens, quant)
 
     def kernel(q, cache, lengths, self_kv, layer):
         fn = fa.flash_decode_attention_q8 if len(cache) == 4 else fa.flash_decode_attention
@@ -587,10 +698,7 @@ def _decode_kernel_rows(report, gen):
                 ("7B bf16 4 beams (16, 32, 1152)", 32, 16, 32, 32, [903] * 4 + [897] * 4
                  + [900] * 4 + [895] * 4),
                 ("GQA n_rep 4 (4, 32 / 8, 1152)", 4, 4, 32, 8, [1151, 640, 1, 0])]),
-            ("flash_decode_attention_q8", True, [
-                ("13B int8 (4, 40, 1152), layer 39", 40, 4, 40, 40, [903, 897, 900, 895]),
-                ("13B int8 4 beams (16, 40, 1152)", 40, 16, 40, 40, [903] * 4 + [897] * 4
-                 + [900] * 4 + [895] * 4)])):
+            ("flash_decode_attention_q8", True, DECODE_Q8_CASES)):
         errs, timed = [], None
         for label, L, B, H, Hkv, lens in cases:
             q, cache, lengths, self_kv = case(L, B, H, Hkv, 1152, lens, quant)
@@ -612,7 +720,7 @@ def _decode_kernel_rows(report, gen):
                 xla_ms = _device_ms(lambda i=0: _xla_decode_attn(
                     None, q, cache[0][i % L], cache[1][i % L], *self_kv, lengths))
                 print(f"  {label}: _xla_decode_attn {xla_ms:.4f} ms a layer", flush=True)
-            if timed is None:
+            if timed is None or quant:
                 ms = _device_ms(lambda i=0: kernel(q, cache, lengths, self_kv, i % L))
                 plain_ms = _device_ms(lambda i=0: plain(q, cache, lengths, self_kv, i % L),
                                       reps=5)
@@ -635,13 +743,38 @@ def _decode_kernel_rows(report, gen):
                     library_ms = _device_ms(lambda i=0: F.scaled_dot_product_attention(
                         q, kc, vc, attn_mask=mask))
                     del kc, vc
-                timed = (ms, plain_ms, _bound(nbytes, flops), library_ms)
+                else:
+                    S = cache[0].shape[3]
+                    kc, vc = (torch.cat([(cache[j][layer].float()
+                                          * cache[j + 2][layer][..., None]).to(bf),
+                                         self_kv[j]], dim=2) for j in (0, 1))
+                    cols = torch.arange(S + 1, device=dev)
+                    mask = ((cols[None, :] < lengths[:, None]) | (cols[None, :] == S))
+                    mask = mask[:, None, None, :]
+                    deq_ms = _device_ms(lambda i=0: F.scaled_dot_product_attention(
+                        q, kc, vc, attn_mask=mask))
+                    splits = fa.decode_splits(B, Hkv, sms, fa.decode_resident(0, H // Hkv))
+                    work = fa.decode_sm_blocks(B * Hkv * splits, sms)
+                    fit = built.lib().iclk_flash_decode_q8_max_clusters(H // Hkv, splits)
+                    print(f"  {name} {label}: clusters of {splits}, {B * Hkv * splits} blocks, "
+                          f"busiest SM {max(work) * sms / sum(work):.3f}× the mean, "
+                          f"{fit} clusters resident at once; for reference, SDPA over a "
+                          f"bf16 dequantized copy {deq_ms:.4f} ms", flush=True)
+                    del kc, vc
+                bound = _bound(nbytes, flops)
+                if timed is None:
+                    timed = (ms, plain_ms, bound, library_ms)
+                else:
+                    beam = (ms, bound[0])
                 print(f"  {name} {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of "
-                      f"{nbytes / 1e6:.2f} MB), plain {plain_ms:.4f} ms", flush=True)
+                      f"{nbytes / 1e6:.2f} MB) = {100 * bound[0] / ms:.1f}% of its bound "
+                      f"{bound[0]:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
             del q, cache, lengths, self_kv, got, ref
             torch.cuda.empty_cache()
-        report(name, "cuda", "icl_speech_text_llm_tpu_torch/csrc/flash_decode.cu",
-               "icl_speech_text_llm_tpu/ops/flash_attention.py:1281", errs, *timed)
+        row = report(name, "cuda", "icl_speech_text_llm_tpu_torch/csrc/flash_decode.cu",
+                     "icl_speech_text_llm_tpu/ops/flash_attention.py:1281", errs, *timed)
+        if quant:
+            row["beam"] = beam
 
 
 def _kernel_phase():
@@ -683,6 +816,7 @@ def _kernel_phase():
                      "replaces": replaces, "max_abs_err": worst,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                      "bound_by": bound[1], "library_ms": library_ms})
+        return rows[-1]
 
     def valid_rows_err(a, b, lengths):
         d = (a.float() - b.float()).abs()
@@ -1609,6 +1743,11 @@ def main():
     print(f"  phase train: {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         row["launches"] = main_counts.get(row["name"], counts[row["name"]])
+        if "beam" in row:
+            ms, bound = row["beam"]
+            print(f"{row['name']} at the 16-row shape of its main-path run: {row['launches']} "
+                  f"launches × (ms − bound) = {row['launches']} × ({ms:.4f} − {bound:.4f}) = "
+                  f"{row['launches'] * (ms - bound):.3f} ms", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces", "launches",

@@ -1,12 +1,13 @@
 // Hopper building blocks shared by the wgmma/TMA attention kernels
-// (flash_fwd.cu: K1/K2; gated_bias.cu: K3/K8/K9; flash_bwd.cu: K5/K6) and the
-// TMA weight ring of the quantized matmuls (wq_matmul.cu: K10/K12), for
-// sm_90a.
+// (flash_fwd.cu: K1/K2; gated_bias.cu: K3/K8/K9; flash_bwd.cu: K5/K6), the
+// TMA weight ring of the quantized matmuls (wq_matmul.cu: K10/K12) and the
+// int8-cache flash decode (flash_decode.cu: K7 q8), for sm_90a.
 //
 // - PTX wrappers: mbarriers (init, expect_tx, arrive, parity wait), TMA tile
 //   loads (cp.async.bulk.tensor, rank 2, 3 and 4, completing on an mbarrier)
 //   and plain bulk copies of contiguous bytes (cp.async.bulk),
-//   named barriers, wgmma (fence, commit, wait, the m64n128k16 and m64n64k16
+//   named barriers, one-LOP3 (a & b) | c, a byte-pair permute, thread-block
+//   cluster barriers, wgmma (fence, commit, wait, the m64n128k16 and m64n64k16
 //   products with both operands in shared memory and the m64n64k16 /
 //   m64n128k16 products with A from registers), the shared-memory matrix
 //   descriptor with the 128-byte swizzle, and exp2 on the special-function
@@ -103,6 +104,31 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// (a & b) | c in one LOP3 (the compiler splits it in two when b and c are
+// both immediates).
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
+// byte i of the first word -> byte 0, byte i of the second -> byte 2
+__device__ __forceinline__ uint32_t pair_bytes(uint32_t a, uint32_t b, int i) {
+  return __byte_perm(a, b, i | (i << 4) | ((4 + i) << 8) | ((4 + i) << 12));
+}
+
+// Thread-block cluster barrier: arrive (relaxed, or releasing this thread's
+// writes), then wait (acquiring the cluster's).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void named_bar_sync(int id, int n) {

@@ -126,14 +126,6 @@ __device__ __forceinline__ float4 ld_shared_f32x4(uint32_t addr) {
   return v;
 }
 
-// (a & b) | c in one LOP3 (the compiler splits it in two when b and c are
-// both immediates).
-__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
-
 // Two nibbles in bits 0-3 and 16-19 -> the bf16 pair (128 + n0, 128 + n1).
 __device__ __forceinline__ uint32_t nibbles_biased(uint32_t v) {
   return and_or(v, 0x000F000Fu, 0x43004300u);
@@ -150,21 +142,6 @@ __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
 // Two int8 in bytes 0 and 2 -> the bf16 pair, exactly.
 __device__ __forceinline__ uint32_t int8_to_bf16x2(uint32_t v) {
   return pack_bf16((float)(int8_t)(v & 0xFFu), (float)(int8_t)((v >> 16) & 0xFFu));
-}
-
-// byte i of the first word -> byte 0, byte i of the second -> byte 2
-__device__ __forceinline__ uint32_t pair_bytes(uint32_t a, uint32_t b, int i) {
-  return __byte_perm(a, b, i | (i << 4) | ((4 + i) << 8) | ((4 + i) << 12));
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // The split sum's receive side. The tile's valid float4s (n4: rows below M

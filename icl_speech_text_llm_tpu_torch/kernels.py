@@ -24,6 +24,7 @@ and clear them all.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -65,9 +66,9 @@ _SIGNATURES = {
     # q, k, v, scale_rows, bias, o, lengths, B, H, S, D, strides (q, k, v, o
     # as (b, h, s), then the bias row stride), sm_scale, stream
     "iclk_gated_bias_rows": [_p] * 7 + [_i] * 4 + [_strides, ctypes.c_float, _p],
-    # q, k, v, k_s, v_s, k_new, v_new, o, lengths, B, H, Hkv, S, D, strides,
-    # sm_scale, stream
-    "iclk_flash_decode": [_p] * 9 + [_i] * 5 + [_strides, ctypes.c_float, _p],
+    # q, k, v, k_s, v_s, k_new, v_new, o, lengths, B, H, Hkv, S, D, splits,
+    # strides, sm_scale, stream
+    "iclk_flash_decode": [_p] * 9 + [_i] * 6 + [_strides, ctypes.c_float, _p],
     # cache_k, cache_v, new_k, new_v, positions, L, B, Hkv, S, D,
     # elem_bytes, stream
     "iclk_append_kv": [_p] * 5 + [_i] * 6 + [_p],
@@ -95,6 +96,10 @@ _SIGNATURES = {
     # int4 (1) or int8 (0), rows MT, columns TN, splits → clusters of that
     # many blocks the card holds at once
     "iclk_wq_max_clusters": [_i, _i, _i, _i],
+    # n_rep → dynamic shared memory of a K7 q8 block
+    "iclk_flash_decode_q8_smem_bytes": [_i],
+    # n_rep, splits → clusters of that many K7 q8 blocks the card holds at once
+    "iclk_flash_decode_q8_max_clusters": [_i, _i],
 }
 
 
@@ -182,6 +187,16 @@ def check(err: int, what: str) -> None:
     if err:
         msg = lib().iclk_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the host functions
+    that size a kernel's grid, ``int4_matmul.partition`` and
+    ``flash_attention.decode_splits``, take it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def strides_arg(values) -> ctypes.Array:

@@ -34,16 +34,19 @@ return an output that autograd cannot trace.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from .. import kernels
 from .attention import repeat_kv
+from .int4_matmul import balanced
 
 _MAX_SCORE_ELEMS = 1 << 28  # plain versions: chunk the batch above 1 GiB of f32 scores
 LOG2E = 1.4426950408889634  # exp → exp2 fold of the gated-bias schedules
 DECODE_MAX_REP = 8  # K7: query heads per kv head (the Pallas kernel's 8 sublanes)
+DECODE_MAX_SPLITS = 8  # K7 q8: blocks of a cluster (the portable limit)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -653,9 +656,70 @@ def flash_decode_usable(q_shape, kv_shape) -> bool:
             and H % Hkv == 0 and H // Hkv <= DECODE_MAX_REP)
 
 
+def decode_sm_blocks(blocks: int, sms: int) -> list:
+    """Model of the card's block scheduler for K7 q8 → the blocks each of
+    ``sms`` SMs streams: every block of a grid carries the same share of
+    rows (samples of about one length), so each goes to the SM with the
+    fewest so far, which deals them out in turn."""
+    return [blocks // sms + (i < blocks % sms) for i in range(sms)]
+
+
+def decode_splits(B: int, Hkv: int, sms: int, resident) -> int:
+    """Cluster size c of K7 q8 (blocks per (sample, kv head)), from the grid
+    and ``resident``, the blocks the card holds at once for each c
+    (``resident[c − 1]``, from the kernel's occupancy): the largest c whose
+    grid the card holds in one wave and whose busiest SM streams at most
+    1.1× the mean (``decode_sm_blocks``); failing that the smallest c that is
+    balanced; failing both, the c whose busiest SM has the least share.
+
+    Why (the sweeps of ``chip_smoke._decode_sweep`` on an H100): a grid
+    larger than one wave runs its blocks in lockstep waves whose loads and
+    math do not overlap (at B = 4, Hkv = 40, c = 4 is 640 blocks for 616
+    slots and runs 1.3× slower than c = 3); within one wave more blocks
+    hide more latency, and an SM with more than 1.1× the mean holds the
+    call back. At the 13B decode (B = 4, Hkv = 40: 160 pairs for 132 SMs)
+    that is c = 3; pairs that fill the card already (B = 16, Hkv = 40) take
+    c = 1 and no merge."""
+    shares, even = {}, []
+    for c in range(1, DECODE_MAX_SPLITS + 1):
+        work = decode_sm_blocks(B * Hkv * c, sms)
+        shares[c] = max(work) * sms / sum(work)
+        if balanced(work):
+            even.append(c)
+    fits = [c for c in even if B * Hkv * c <= resident[c - 1]]
+    if fits:
+        return max(fits)
+    return min(even) if even else min(shares, key=shares.get)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_resident(index: int, n_rep: int) -> tuple:
+    """Blocks of K7 q8 (n_rep query heads a kv head) that device ``index``
+    holds at once, for each cluster size 1 to ``DECODE_MAX_SPLITS``."""
+    with torch.cuda.device(index):
+        lib = kernels.lib()
+        return tuple(c * lib.iclk_flash_decode_q8_max_clusters(n_rep, c)
+                     for c in range(1, DECODE_MAX_SPLITS + 1))
+
+
+def _q8_layout_ok(k, v, k_s, v_s) -> bool:
+    """The int8 cache as K7 q8's copies read it (TMA boxes of rows, bulk
+    copies of scales): each (sample, head)'s rows one contiguous run (row
+    stride D, head_dim contiguous) and its scales too (stride 1), every run
+    16-byte aligned, S a multiple of 4."""
+    S = k.shape[2]
+    return (S % 4 == 0 and all(t.stride(2) == t.shape[3] and t.stride(3) == 1
+                               and t.stride(0) % 16 == 0 and t.stride(1) % 16 == 0
+                               for t in (k, v))
+            and all(t.stride(2) == 1 and t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0
+                    for t in (k_s, v_s))
+            and not any(t.data_ptr() % 16 for t in (k, v, k_s, v_s)))
+
+
 def _decode_launch(name, q, k, v, k_s, v_s, lengths, sm_scale, self_kv):
     """Checks and one launch of ``iclk_flash_decode`` (k_s/v_s None for the
-    bf16 cache) → o (B, H, 1, D)."""
+    bf16 cache; the int8 cache split over ``decode_splits`` blocks a
+    cluster) → o (B, H, 1, D)."""
     B, H, _, D = q.shape
     if not flash_decode_usable(q.shape, k.shape) or v.shape != k.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -675,6 +739,10 @@ def _decode_launch(name, q, k, v, k_s, v_s, lengths, sm_scale, self_kv):
     if quant and (k_s.shape != k.shape[:3] or v_s.shape != k.shape[:3]
                   or k_s.dtype != torch.float32 or v_s.dtype != torch.float32):
         raise ValueError(f"{name}: scales must be f32 {tuple(k.shape[:3])}")
+    if quant and not _q8_layout_ok(k, v, k_s, v_s):
+        raise ValueError(f"{name}: the int8 cache's rows and scales must be contiguous along "
+                         f"S, 16-byte aligned, S a multiple of 4 (strides {k.stride()}, "
+                         f"{k_s.stride()})")
     if lengths is None:
         raise ValueError(f"{name}: lengths (B,) are required")
     qc = q.contiguous()
@@ -684,6 +752,9 @@ def _decode_launch(name, q, k, v, k_s, v_s, lengths, sm_scale, self_kv):
     if self_kv is not None:
         kn, vn = (t.to(q.dtype).reshape(B, Hkv, D).contiguous() for t in self_kv)
     o = torch.empty((B, H, 1, D), dtype=q.dtype, device=q.device)
+    index = q.device.index
+    splits = decode_splits(B, Hkv, kernels.sm_count(index),
+                           decode_resident(index, H // Hkv)) if quant else 1
     strides = kernels.strides_arg(
         [*k.stride()[:3], *v.stride()[:3],
          *(k_s.stride() if quant else (0, 0, 0)), *(v_s.stride() if quant else (0, 0, 0))])
@@ -691,7 +762,7 @@ def _decode_launch(name, q, k, v, k_s, v_s, lengths, sm_scale, self_kv):
         qc.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_s.data_ptr() if quant else None, v_s.data_ptr() if quant else None,
         None if kn is None else kn.data_ptr(), None if vn is None else vn.data_ptr(),
-        o.data_ptr(), lens.data_ptr(), B, H, Hkv, S, D, strides,
+        o.data_ptr(), lens.data_ptr(), B, H, Hkv, S, D, splits, strides,
         D ** -0.5 if sm_scale is None else sm_scale,
         torch._C._cuda_getCurrentRawStream(q.device.index))
     kernels.check(err, name)
@@ -718,8 +789,10 @@ def flash_decode_attention_q8(q, k8, v8, k_s, v_s, lengths, sm_scale=None, self_
                               layer=None):
     """K7 over an int8 cache: k8/v8 (B, Hkv, S, D) int8 with per-position
     f32 scales k_s/v_s (B, Hkv, S), or their stacked (L, ...) forms with
-    ``layer``; the current token's ``self_kv`` stays unquantized. Otherwise
-    as ``flash_decode_attention``."""
+    ``layer``; the current token's ``self_kv`` stays unquantized. On the
+    card each (sample, head)'s rows and scales must be contiguous along S
+    (as ``init_kv_cache`` lays them out), S a multiple of 4. Otherwise as
+    ``flash_decode_attention``."""
     if layer is not None:
         k8, v8, k_s, v_s = k8[layer], v8[layer], k_s[layer], v_s[layer]
     if not _on_cuda(q):

@@ -91,11 +91,6 @@ def int8_matmul_usable(x_shape, q_shape) -> bool:
         and q_shape[1] % TILE_N == 0
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def split_bounds(n_steps: int, splits: int) -> list:
     """The k steps of each rank of a cluster, as the kernel takes them:
     ``n_steps // splits`` each, the first ``n_steps % splits`` ranks one
@@ -165,7 +160,7 @@ def _launch(entry: str, x, w, s, w_rows: int, N: int):
     # the decode step is bound by the host: one raw-stream query and one
     # allocation a call (torch.cuda.current_stream builds a Stream object)
     M, index = x.shape[0], x.device.index
-    tile_n, splits = partition(M, N, w_rows // STEP_ROWS, _sm_count(index))
+    tile_n, splits = partition(M, N, w_rows // STEP_ROWS, kernels.sm_count(index))
     stream = torch._C._cuda_getCurrentRawStream(index)
     y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     err = getattr(kernels.lib(), entry)(

@@ -12,7 +12,8 @@ the int4 (K10) and int8 (W8A16) matmuls within 1e-2 × max |plain| of their
 f32 plain versions on the same bf16 x. The flash-decode kernel (K7, bf16
 and int8 cache) and the batched and row schedules of the gated-bias kernel
 (K8, K9) are held to their plain versions within 2e-2, as the other
-attention kernels are. The streaming probe (K11) is held to its plain
+attention kernels are; the int8-cache instance also at every cluster size it
+takes, and to the same bits on two calls. The streaming probe (K11) is held to its plain
 version within 1e-5 × the largest block's Σ|x| (f32 sums in another order).
 K10 also runs at forced partitions (column tile, cluster split) and must
 give the same bits on two calls, in one kernel launch.
@@ -407,6 +408,70 @@ def test_cuda_flash_decode_kernel_matches_plain(cuda_device, H, Hkv, quant):
             assert (o.float() - ref.float()).abs().max().item() < _attn_bound(ref)
             if self_kv is None:
                 assert torch.all(o[2] == 0)  # no key at all: o = 0
+
+
+#: the 13B cache length's ragged lengths: full, 1, 0, the main path's ~900,
+#: and lengths around the kernel's 64-row tiles and 4-row rank starts
+Q8_LENGTHS = [1152, 1, 0, 901, 3, 7, 64, 65, 127, 128, 129, 500, 1000, 1151, 2, 900]
+
+
+def _q8_case(dev, B, Hkv, n_rep, S=1152, L=2, seed=53):
+    D = 128
+    q, = _cuda_inputs([(B, Hkv * n_rep, 1, D)], dev, seed)
+    ck, cv = _cuda_inputs([(L, B, Hkv, S, D)] * 2, dev, seed + 1)
+    kn, vn = _cuda_inputs([(B, Hkv, 1, D)] * 2, dev, seed + 2)
+    (ck, ks), (cv, vs) = tquant.quantize_kv(ck), tquant.quantize_kv(cv)
+    lens = torch.tensor(Q8_LENGTHS[:B], dtype=torch.int32, device=dev)
+    return q, (ck, cv, ks, vs), lens, (kn, vn)
+
+
+def _q8_check(q, cache, lens, self_kv, layer):
+    """K7 q8 twice (the same bits: the merge runs in a fixed order) against
+    its plain version; a sample with no row and no self column gives 0."""
+    before = tfa.flash_decode_attention_q8.launches
+    o1 = tfa.flash_decode_attention_q8(q, *cache, lens, self_kv=self_kv, layer=layer)
+    o2 = tfa.flash_decode_attention_q8(q, *cache, lens, self_kv=self_kv, layer=layer)
+    torch.cuda.synchronize()
+    assert tfa.flash_decode_attention_q8.launches == before + 2
+    assert torch.equal(o1, o2)
+    c = [t[layer] for t in cache]
+    ref = tfa.flash_decode_attention_plain(q, c[0], c[1], lens, self_kv=self_kv,
+                                           k_s=c[2], v_s=c[3])
+    assert (o1.float() - ref.float()).abs().max().item() < _attn_bound(ref)
+    if self_kv is None:
+        assert torch.all(o1[lens.cpu() == 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rep", [1, 4, 7, 8])
+@pytest.mark.parametrize("B", [4, 16])
+def test_cuda_flash_decode_q8_kernel_at_the_13b_cache_length(cuda_device, n_rep, B):
+    """K7 q8 at S = 1152 with the lengths ``Q8_LENGTHS``, n_rep 1, 4, 7 and 8,
+    B = 4 and 16 (at Hkv = 8 on an H100 clusters of 8 and of 4 blocks), with
+    and without the self column."""
+    q, cache, lens, self_kv = _q8_case(cuda_device, B, 8, n_rep)
+    for sk in (None, self_kv):
+        _q8_check(q, cache, lens, sk, layer=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_cuda_flash_decode_q8_kernel_at_forced_splits(cuda_device, monkeypatch, splits):
+    """Every cluster size the kernel takes gives the plain version's output,
+    c = 1 (no merge across blocks) included."""
+    monkeypatch.setattr(tfa, "decode_splits", lambda *shape: splits)
+    q, cache, lens, self_kv = _q8_case(cuda_device, 16, 4, 2, S=1152, seed=57)
+    for sk in (None, self_kv):
+        _q8_check(q, cache, lens, sk, layer=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_q8_refuses_a_cache_strided_along_s(cuda_device):
+    q, (ck, cv, ks, vs), lens, _ = _q8_case(cuda_device, 4, 4, 1, S=256)
+    with pytest.raises(ValueError, match="contiguous along"):
+        tfa.flash_decode_attention_q8(q, ck[0, :, :, ::2], cv[0, :, :, ::2],
+                                      ks[0, :, :, ::2].contiguous(),
+                                      vs[0, :, :, ::2].contiguous(), torch.clamp(lens, max=128))
 
 
 @pytest.mark.cuda

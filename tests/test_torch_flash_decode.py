@@ -256,3 +256,144 @@ def test_decode_step_flash_outside_the_gate_takes_the_xla_math(monkeypatch, quan
                                         attention=tllama.DecodeAttention.FLASH)
         np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-4, atol=1e-4)
         cur = cur + 1
+
+
+# K7 q8's split and merge (csrc/flash_decode.cu:flash_decode_q8_kernel): a
+# cluster of `splits` blocks per (sample, kv head), 64-row tiles dealt to 4
+# consumer warps in turn, each warp rescaling its state once a tile; the warps
+# merge in order, then the ranks in rank order, then the self column.
+Q8_TILE, Q8_WARPS = 64, 4
+
+
+def _rank_rows(length, splits):
+    """The rows rank r takes, as the kernel computes them from the sample's
+    length: [len·r/splits, len·(r+1)/splits), each start rounded down to a
+    multiple of 4, the last rank ending at the length."""
+    starts = [(length * r // splits) & ~3 for r in range(splits)] + [length]
+    return list(zip(starts[:-1], starts[1:]))
+
+
+def _merge_states(states):
+    """(m, l, acc) states of the same heads, merged in order (e-domain)."""
+    m = torch.stack([s[0] for s in states]).amax(0)
+    l, acc = torch.zeros_like(states[0][1]), torch.zeros_like(states[0][2])
+    for mi, li, ai in states:
+        c = torch.where(mi == -np.inf, torch.zeros_like(mi), torch.exp(mi - m))
+        l = l + li * c
+        acc = acc + ai * c[:, None]
+    return m, l, acc
+
+
+def _q8_split_merge_model(q, k8, v8, ks, vs, lengths, splits, self_kv=None):
+    """f32 model of the kernel's algorithm → o (B, H, 1, D)."""
+    B, H, _, D = q.shape
+    Hkv, S = k8.shape[1], k8.shape[2]
+    rep, scale = H // Hkv, D ** -0.5
+    o = torch.zeros((B, H, 1, D))
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), S)
+        bounds = _rank_rows(n, splits)
+        assert bounds[0][0] == 0 and bounds[-1][1] == n
+        assert all(r0 % 4 == 0 and r0 <= r1 for r0, r1 in bounds)
+        for hk in range(Hkv):
+            qg = q[b, hk * rep:(hk + 1) * rep, 0].float()
+            empty = (torch.full((rep,), -np.inf), torch.zeros(rep), torch.zeros((rep, D)))
+            ranks = []
+            for r0, r1 in bounds:
+                warps = [empty] * Q8_WARPS
+                for j, t0 in enumerate(range(r0, r1, Q8_TILE)):
+                    rows = slice(t0, min(t0 + Q8_TILE, r1))
+                    s = qg @ k8[b, hk, rows].float().T * scale * ks[b, hk, rows]
+                    m, l, acc = warps[j % Q8_WARPS]
+                    mn = torch.maximum(m, s.amax(1))
+                    alpha = torch.where(m == -np.inf, torch.zeros_like(m), torch.exp(m - mn))
+                    p = torch.exp(s - mn[:, None])
+                    l = l * alpha + p.sum(1)
+                    acc = acc * alpha[:, None] + (p * vs[b, hk, rows]) @ v8[b, hk, rows].float()
+                    warps[j % Q8_WARPS] = (mn, l, acc)
+                ranks.append(_merge_states(warps))
+            m, l, acc = _merge_states(ranks)
+            if self_kv is not None:
+                kn, vn = (t[b, hk, 0].float() for t in self_kv)
+                s_self = (qg * kn).sum(-1) * scale
+                mt = torch.maximum(m, s_self)
+                c = torch.where(m == -np.inf, torch.zeros_like(m), torch.exp(m - mt))
+                p_self = torch.exp(s_self - mt)
+                l = l * c + p_self
+                acc = acc * c[:, None] + p_self[:, None] * vn
+            out = torch.where(l[:, None] == 0, torch.zeros_like(acc),
+                              acc / torch.where(l == 0, torch.ones_like(l), l)[:, None])
+            o[b, hk * rep:(hk + 1) * rep, 0] = out
+    return o
+
+
+@pytest.mark.parametrize("H,Hkv", [(2, 2), (4, 2), (8, 2), (7, 1), (8, 1)])
+@pytest.mark.parametrize("self_col", [False, True])
+def test_q8_split_merge_model_matches_plain_and_pallas_kernel(H, Hkv, self_col):
+    """The kernel's split over a cluster, its tiles and its merges, modelled
+    in f32, against the plain version and the JAX Pallas q8 kernel in
+    interpret mode at 1e-5: n_rep 1, 2, 4, 7 and 8; lengths 0, 1, fewer
+    rows than the split (5 < 8), ragged and S; cluster sizes 1, 3 and 8."""
+    Bq = 5
+    rng = np.random.RandomState(100 + H + Hkv)
+    q = rng.randn(Bq, H, 1, D).astype(np.float32)
+    k, v = (rng.randn(Bq, Hkv, S, D).astype(np.float32) * 2 for _ in range(2))
+    kn, vn = (rng.randn(Bq, Hkv, 1, D).astype(np.float32) for _ in range(2))
+    k8, v8, ks, vs = _quantized_cache(k, v)
+    lens = np.array([0, 1, 5, 200, S], np.int32)
+    want = jfa.flash_decode_attention_q8(
+        jnp.asarray(q), *map(jnp.asarray, (k8, v8, ks, vs, lens)), block_k=128,
+        self_kv=(jnp.asarray(kn), jnp.asarray(vn)) if self_col else None)
+    t = [torch.from_numpy(a) for a in (q, k8, v8, ks, vs, lens, kn, vn)]
+    self_kv = (t[6], t[7]) if self_col else None
+    plain = tfa.flash_decode_attention_plain(t[0], t[1], t[2], t[5], self_kv=self_kv,
+                                             k_s=t[3], v_s=t[4])
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    for splits in (1, 3, 8):
+        got = _q8_split_merge_model(*t[:6], splits, self_kv)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+        if not self_col:
+            assert torch.all(got[0] == 0)  # no key at all: o = 0
+
+
+#: blocks of K7 q8 (n_rep 1) an NVIDIA H100 80GB HBM3 holds at once for
+#: cluster sizes 1-8 (c × cudaOccupancyMaxActiveClusters, as
+#: ``decode_resident`` reads them; printed by ``chip_smoke._decode_sweep``)
+H100_RESIDENT = (660, 660, 609, 616, 620, 606, 588, 616)
+
+
+@pytest.mark.parametrize("B,Hkv,want", [(4, 40, 3), (16, 40, 1), (4, 32, 4), (16, 32, 1),
+                                        (1, 8, 8), (64, 40, 1)])
+def test_decode_splits_balances_132_sms_in_one_wave(B, Hkv, want):
+    """The cluster size of K7 q8 at the 13B decode (4 rows; 4 beams: 16),
+    the 7B one, a grid too small to balance and one of several waves: the
+    busiest SM at most 1.1× the mean, the grid in one wave where it can be;
+    c = 1 where the (sample, head) pairs fill the card already; the split
+    whose busiest SM has the least share where no split balances."""
+    c = tfa.decode_splits(B, Hkv, 132, H100_RESIDENT)
+    assert c == want
+    work = tfa.decode_sm_blocks(B * Hkv * c, 132)
+    assert sum(work) == B * Hkv * c and max(work) - min(work) <= 1
+    if B * Hkv * tfa.DECODE_MAX_SPLITS >= 2 * 132:
+        assert 10 * max(work) * 132 <= 11 * sum(work)
+    if B * Hkv * c <= H100_RESIDENT[0]:
+        assert B * Hkv * c <= H100_RESIDENT[c - 1]
+
+
+def test_q8_layout_check_states_what_the_bulk_copies_read():
+    """K7 q8 reads each (sample, head)'s rows and scales as one contiguous
+    run: the stacked cache's layer view passes; a cache strided along S, a
+    transposed one, S not a multiple of 4, or scales strided along S do not."""
+    L, Bq, Hkv, Sq = 2, 2, 3, 16
+    k8 = torch.zeros((L, Bq, Hkv, Sq, D), dtype=torch.int8)
+    ks = torch.zeros((L, Bq, Hkv, Sq))
+    assert tfa._q8_layout_ok(k8[1], k8[0], ks[1], ks[0])
+    assert not tfa._q8_layout_ok(k8[1, :, :, ::2], k8[0, :, :, ::2], ks[1, :, :, ::2],
+                                 ks[0, :, :, ::2])
+    kt = k8[1].transpose(1, 2).contiguous().transpose(1, 2)
+    assert not tfa._q8_layout_ok(kt, kt, ks[1], ks[0])
+    k6, s6 = torch.zeros((Bq, Hkv, 6, D), dtype=torch.int8), torch.zeros((Bq, Hkv, 6))
+    assert not tfa._q8_layout_ok(k6, k6, s6, s6)
+    s2 = torch.zeros((Bq, Hkv, Sq, 2))[..., 0]
+    assert not tfa._q8_layout_ok(k8[1], k8[0], s2, s2)
