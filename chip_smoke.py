@@ -12,8 +12,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                (the flash forward K1/K2, the gated bias K3/K8/K9, the flash
                backward K5/K6) holds HGMMA (wgmma) and UTMALDG (TMA loads),
                that of each quantized-matmul instance (K10/K12) HMMA
-               (mma.sync) and UTMALDG, and that of each int8-cache flash-decode
-               instance (K7 q8) HMMA and no I2F;
+               (mma.sync) and UTMALDG, that of each int8-cache flash-decode
+               instance (K7 q8) HMMA and no I2F, and that of each append
+               instance (K4, K4 q8) its loads and stores;
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the shapes of the paths below, with the stated tolerances, plus
                CUDA-event times of both, its bound (the least time the H100
@@ -22,7 +23,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                call computes the same function, that call's time (K1-K4,
                K8-K10 and K12 timed in turns with theirs: kernel, library,
                library, kernel; K5 + K6 together in turns with one SDPA
-               backward); K7 q8 at the 13B 4-row and 16-row shapes, with
+               backward); K4 q8 at the 13B int8 cache in turns with the
+               route it replaced (~900 small kernels), which has no library
+               call, and held against both at the 16-row shape of the
+               main path's sampled beams; K7 q8 at the 13B 4-row and 16-row shapes, with
                SDPA over a dequantized bf16 copy printed for reference; the
                streaming probe (K11) on two 75.5 MB buffers, with its GB/s;
   4. check   — one-layer-per-stack models, the bf16 kernel path on the card
@@ -32,7 +36,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                training loss and the LoRA / Q-Former gradients; at salmonn-13b
                widths with int4 weights and an int8 KV cache the first-token
                logits and 3 decode steps' logits, with the default decode
-               attention and with the flash-decode kernel;
+               attention and with the flash-decode kernel, each step's one
+               append through K4 q8; then the kernels one full-depth decode
+               step launches (13B int4 + int8 KV, 7B bf16) and its time
+               (``_append_sweep`` counts and times another tree's beside);
   5. main    — the port's inference entry points at full width (random
                weights from a seed), voxceleb requests of 6 clips each, each
                run's kernel launch counts read from that run alone: the CLI on
@@ -52,9 +59,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                steps (batch 4, seq 1024), validation by generation and a
                checkpoint, with each step's kernel launches read; then 2 steps
                with full activation checkpointing.
-The line before the last is a JSON object of the thirteen kernels (launch
+The line before the last is a JSON object of the fourteen kernels (launch
 counts from the run of each kernel's own path: the salmonn-13b int4 run for
-the int4 and int8 matmuls, the flash-decode runs of phase main for the
+the int4 and int8 matmuls and K4 q8, the flash-decode runs of phase main for the
 flash-decode kernels and the K9 schedule, phase main's BEATs-layer run for
 the K8 schedule, its probe run for K11, the train phase for the others),
 after a line with K7 q8's launches × (ms − bound) at the 16-row shape; the
@@ -120,7 +127,9 @@ def _device_phase():
     return smi
 
 
-def _time_ms(fn, reps=10):
+def _time_ms(fn, reps=10, stat=statistics.median):
+    """``stat`` (the median, or the least) of ``reps`` CUDA-event times of
+    one synchronised call, after a warm-up call."""
     import torch
 
     fn()
@@ -134,7 +143,7 @@ def _time_ms(fn, reps=10):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return stat(times)
 
 
 def _device_ms(fn, reps=20):
@@ -181,6 +190,8 @@ SASS_MMA_INSTANCES = {"wq_matmul_kernel": 12}
 #: the int8-cache flash decode (K7 q8, n_rep 1-8): mma.sync products (HMMA)
 #: fed by bulk copies, its int8 converted without I2F
 SASS_Q8_INSTANCES = {"flash_decode_q8_kernel": 8}
+#: the decode-step appends: K4 (16-byte vectors) and K4 q8 (bf16 and f32 rows)
+SASS_APPEND_INSTANCES = {"append_kv_kernel": 1, "append_kv_q8_kernel": 2}
 
 
 def _build_report(lib_path, log):
@@ -188,10 +199,12 @@ def _build_report(lib_path, log):
     output (the TMA kernels' dynamic shared memory from their C entries),
     and, where cuobjdump exists, the HGMMA (wgmma), HMMA (mma.sync), UTMALDG
     (TMA tensor load) and WARPGROUP.DEPBAR counts of each instance of
-    ``SASS_INSTANCES`` and ``SASS_MMA_INSTANCES``, and the HMMA, UBLKCP (bulk
-    copy) and I2F counts of ``SASS_Q8_INSTANCES``; fails if an instance is
-    missing or lacks its tensor-core product or its TMA load, or if a K7 q8
-    instance holds an I2F."""
+    ``SASS_INSTANCES`` and ``SASS_MMA_INSTANCES``, the HMMA, UBLKCP (bulk
+    copy) and I2F counts of ``SASS_Q8_INSTANCES``, and the LDG, STG and SHFL
+    counts of ``SASS_APPEND_INSTANCES``; fails if an instance is missing or
+    lacks its tensor-core product or its TMA load, if a K7 q8 instance holds
+    an I2F, or if an append instance lacks its loads, stores or (K4 q8) the
+    row-maximum shuffles."""
     import shutil
 
     from icl_speech_text_llm_tpu_torch import kernels
@@ -227,7 +240,8 @@ def _build_report(lib_path, log):
         return
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
-    want = {**SASS_INSTANCES, **SASS_MMA_INSTANCES, **SASS_Q8_INSTANCES}
+    want = {**SASS_INSTANCES, **SASS_MMA_INSTANCES, **SASS_Q8_INSTANCES,
+            **SASS_APPEND_INSTANCES}
     found = dict.fromkeys(want, 0)
     for fn in sass.split("Function : ")[1:]:
         fname = fn.split("\n", 1)[0].strip()
@@ -235,6 +249,12 @@ def _build_report(lib_path, log):
         if kind is None:
             continue
         found[kind] += 1
+        if kind in SASS_APPEND_INSTANCES:
+            ldg, stg, shfl = fn.count("LDG"), fn.count("STG"), fn.count("SHFL")
+            print(f"  SASS {fname}: {ldg} LDG, {stg} STG, {shfl} SHFL", flush=True)
+            if not (ldg and stg) or (kind == "append_kv_q8_kernel" and not shfl):
+                raise AssertionError(f"{fname}: no load, store or shuffle in the SASS")
+            continue
         if kind in SASS_Q8_INSTANCES:
             hmma, i2f = fn.count("HMMA"), fn.count("I2F")
             print(f"  SASS {fname}: {hmma} HMMA, {fn.count('UBLKCP')} UBLKCP, {i2f} I2F",
@@ -550,6 +570,182 @@ def _wq_sweep(baseline=None, reps=20):
         torch.cuda.empty_cache()
 
 
+def _old_append_q8(quantize_kv, fa, cache, nk, nv, pos, staging):
+    """The int8-cache append as the decode step made it before K4 q8: each
+    layer's k and v rows quantized by ``quantize_kv`` into int8 staging rows
+    and scales, one ``append_kv`` of the int8 rows, each scale plane written
+    by ``index_put_``."""
+    import torch
+
+    ck, cv, ks, vs = cache
+    k8, v8, k_s, v_s = staging
+    for l in range(nk.shape[0]):
+        k8[l], k_s[l] = quantize_kv(nk[l])
+        v8[l], v_s[l] = quantize_kv(nv[l])
+    fa.append_kv(ck, cv, k8, v8, pos)
+    b_idx = torch.arange(pos.shape[0], device=pos.device)
+    for plane, new in ((ks, k_s), (vs, v_s)):
+        plane.permute(1, 3, 0, 2).index_put_((b_idx, pos.long()), new[..., 0].permute(1, 0, 2))
+
+
+def _kernel_launches(fn):
+    """(kernels launched, their summed device µs) in one call of ``fn``, from
+    torch.profiler (after a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events if "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels)
+
+
+def _append_kernel_rows(report, gen):
+    """K4 and K4 q8, bit-exact against their plain versions. K4 into the
+    Vicuna-7B bf16 cache (32, 4, 32, 1152, 128), timed in turns with two
+    ``index_put_`` (no single PyTorch call writes both caches), which must
+    write the same bytes, and into the salmonn-13b int8 cache with rows the
+    caller quantized; B = 16 (4 beams) too. K4 q8 at the salmonn-13b
+    ``--kv_int8`` shape (40, 4, 40, 1152, 128), bf16 rows, timed in turns
+    with the route it replaced (``_old_append_q8``: ~900 small kernels,
+    whose count and summed device time the profiler gives), which must write
+    the same bytes; it has no library call. K4 q8 at 16 rows (4 beams, the
+    main path's sampled-beam run: more rows than one wave of the grid
+    holds, so its loop takes a second pass) against both too. Positions
+    [1033, 700, 1151, 0]: the main path's lengths and both ends, each
+    repeated 4 times at 16 rows. Bound: the new rows read once and the cache
+    rows (and scales) written once. Host µs a call of both wrappers."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
+    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_kv
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    pos = torch.tensor([1033, 700, 1151, 0], dtype=torch.int32, device=dev)
+    pos16 = pos.repeat_interleave(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def rand_i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def same(a, b):
+        return 0.0 if all(torch.equal(x, y) for x, y in zip(a, b)) else max(
+            (x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+    def append_err(cache, new, p):
+        plain = [t.clone() for t in cache]
+        fa.append_kv(*cache, *new, p)
+        fa.append_kv_plain(*plain, *new, p)
+        return same(cache, plain)
+
+    S, D = 1152, 128
+    L, B, Hkv = 40, 4, 40
+    errs = [("13B int8 cache, rows the caller quantized (bit-exact)",
+             append_err([rand_i8(L, B, Hkv, S, D) for _ in range(2)],
+                        [rand_i8(L, B, Hkv, 1, D) for _ in range(2)], pos), 0.0)]
+    L, B, Hkv = 32, 16, 32
+    errs.append(("7B bf16 cache, 4 beams (16 rows) (bit-exact)",
+                 append_err([randn(L, B, Hkv, S, D) for _ in range(2)],
+                            [randn(L, B, Hkv, 1, D) for _ in range(2)], pos16), 0.0))
+    torch.cuda.empty_cache()
+    L, B, Hkv = 32, 4, 32
+    ck, cv = randn(L, B, Hkv, S, D), randn(L, B, Hkv, S, D)
+    nk, nv = randn(L, B, Hkv, 1, D), randn(L, B, Hkv, 1, D)
+    b_idx, pos_l = torch.arange(B, device=dev), pos.long()
+    rows_k, rows_v = (t[:, :, :, 0].permute(1, 0, 2, 3).contiguous() for t in (nk, nv))
+
+    def index_put(i=0, ck=ck, cv=cv):
+        ck.permute(1, 3, 0, 2, 4).index_put_((b_idx, pos_l), rows_k)
+        cv.permute(1, 3, 0, 2, 4).index_put_((b_idx, pos_l), rows_v)
+
+    lib_copy = [ck.clone(), cv.clone()]
+    errs.insert(0, ("7B bf16 cache (bit-exact)", append_err([ck, cv], [nk, nv], pos), 0.0))
+    index_put(0, *lib_copy)
+    errs.append(("index_put_ (library) vs kernel (bit-exact)", same([ck, cv], lib_copy), 0.0))
+    del lib_copy
+    bound = _bound(4 * L * B * Hkv * D * 2, 0.0)
+
+    def new(i=0):
+        return fa.append_kv(ck, cv, nk, nv, pos)
+
+    ms, lib_ms = _in_turns("append_kv 7B bf16 (32, 4, 32, 1152, 128)", new, index_put, bound,
+                           lib_name="index_put_ ×2", reps=50)
+    report("append_kv", "cuda", "icl_speech_text_llm_tpu_torch/csrc/append_kv.cu",
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:1438", errs, ms,
+           _device_ms(lambda i=0: fa.append_kv_plain(ck, cv, nk, nv, pos), reps=50),
+           bound, lib_ms)
+    print(f"  append_kv host µs a call {_host_us(new):.2f}", flush=True)
+    del ck, cv, nk, nv, rows_k, rows_v
+    torch.cuda.empty_cache()
+
+    # K4 q8 at the 13B --kv_int8 cache
+    L, Hkv = 40, 40
+
+    def q8_case(B, p):
+        """A fresh 13B int8 cache of B rows and its new bf16 rows (one all
+        zero: scale 0, bytes 0), K4 q8 run once → (cache, (nk, nv), the
+        replaced route's staging rows, the two bit-exact cases)."""
+        cache = [rand_i8(L, B, Hkv, S, D), rand_i8(L, B, Hkv, S, D),
+                 torch.rand((L, B, Hkv, S), generator=gen, device=dev),
+                 torch.rand((L, B, Hkv, S), generator=gen, device=dev)]
+        nk, nv = randn(L, B, Hkv, 1, D), randn(L, B, Hkv, 1, D)
+        nk[0, 0, 0] = 0
+        staging = [torch.empty((L, B, Hkv, 1, D), dtype=torch.int8, device=dev)
+                   for _ in range(2)] + [torch.empty((L, B, Hkv, 1), device=dev)
+                                         for _ in range(2)]
+        plain, route = [t.clone() for t in cache], [t.clone() for t in cache]
+        fa.append_kv_q8(*cache, nk, nv, p)
+        fa.append_kv_q8_plain(*plain, nk, nv, p)
+        _old_append_q8(quantize_kv, fa, route, nk, nv, p, staging)
+        shape = f"({L}, {B}, {Hkv}, {S}, {D})"
+        return cache, (nk, nv), staging, [
+            (f"13B int8 cache {shape}, bf16 rows, rows and scales (bit-exact)",
+             same(cache, plain), 0.0),
+            (f"{shape}: the replaced route (quantize_kv, append_kv, index_put_) vs kernel "
+             "(bit-exact)", same(cache, route), 0.0)]
+
+    beams = q8_case(16, pos16)[3]
+    torch.cuda.empty_cache()
+    B = 4
+    cache, (nk, nv), staging, errs = q8_case(B, pos)
+    errs += beams
+    nbytes = 2 * L * B * Hkv * D * 2 + 2 * L * B * Hkv * D + 2 * L * B * Hkv * 4 + 4 * B
+    bound = _bound(nbytes, 0.0)
+
+    def q8(i=0):
+        return fa.append_kv_q8(*cache, nk, nv, pos)
+
+    def replaced(i=0):
+        _old_append_q8(quantize_kv, fa, cache, nk, nv, pos, staging)
+
+    # the replaced route is ~900 launches a call: one call a timing, queued
+    # behind the spin
+    t = [_device_ms(q8, reps=50), _device_ms(replaced, reps=1), _device_ms(replaced, reps=1),
+         _device_ms(q8, reps=50)]
+    ms, old_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    n_old, us_old = _kernel_launches(replaced)
+    print(f"  append_kv_q8 13B (40, 4, 40, 1152, 128): kernel, replaced route, replaced route, "
+          f"kernel {[round(x, 4) for x in t]} ms; kernel {ms:.4f} ms = "
+          f"{100 * bound[0] / ms:.1f}% of its bound {bound[0]:.4f} ms ({bound[1]}); the "
+          f"replaced route {old_ms:.4f} ms ({old_ms / ms:.1f}x): {n_old} kernels summing "
+          f"{us_old / 1e3:.4f} ms on the device; host µs a call {_host_us(q8):.2f}, the "
+          f"replaced route's {_host_us(replaced, calls=3, trials=3):.2f}", flush=True)
+    report("append_kv_q8", "cuda", "icl_speech_text_llm_tpu_torch/csrc/append_kv.cu",
+           "icl_speech_text_llm_tpu/ops/flash_attention.py:1438 (+ ops/quant.py:36)",
+           errs, ms, _device_ms(lambda i=0: fa.append_kv_q8_plain(*cache, nk, nv, pos), reps=5),
+           bound, None)
+    del cache, staging, nk, nv
+    torch.cuda.empty_cache()
+
+
 #: (label, layers, B, H, Hkv, lengths) of K7 q8 at the salmonn-13b int8
 #: cache: the 4-row decode and 4 beams (the main path's 16 rows)
 DECODE_Q8_CASES = (
@@ -780,8 +976,8 @@ def _decode_kernel_rows(report, gen):
 def _kernel_phase():
     """Kernel vs plain version on the card at the shapes the main paths give
     it: the 7B and 13B prefills (K1), Whisper (K2), BEATs (K3), the 7B bf16
-    and 13B int8 caches (K4), the 7B training backward (K5, K6), the 13B
-    int4 and 7B / 13B int8 products (K10, W8A16)."""
+    and 13B int8 caches (K4, K4 q8), the 7B training backward (K5, K6), the
+    13B int4 and 7B / 13B int8 products (K10, W8A16)."""
     import torch
     import torch.nn.functional as F
 
@@ -963,57 +1159,7 @@ def _kernel_phase():
     del args, rargs, sub22, q, k, v, xh, bias, gate, ker, ref
     torch.cuda.empty_cache()
 
-    # K4: decode-step append, bit-exact: into the Vicuna-7B bf16 cache (timed)
-    # and into the salmonn-13b --kv_int8 cache, int8 (40, 4, 40, 1152, 128)
-    def append_err(ck, cv, nk, nv, pos):
-        ck2, cv2 = ck.clone(), cv.clone()
-        fa.append_kv(ck, cv, nk, nv, pos)
-        fa.append_kv_plain(ck2, cv2, nk, nv, pos)
-        if torch.equal(ck, ck2) and torch.equal(cv, cv2):
-            return 0.0
-        return max((ck.float() - ck2.float()).abs().max().item(),
-                   (cv.float() - cv2.float()).abs().max().item(), 1e-30)
-
-    pos = torch.tensor([1033, 700, 1151, 0], dtype=torch.int32, device=dev)
-    L, B, Hkv, S, D = 40, 4, 40, 1152, 128
-
-    def rand_i8(*shape):
-        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
-
-    err_i8 = append_err(rand_i8(L, B, Hkv, S, D), rand_i8(L, B, Hkv, S, D),
-                        rand_i8(L, B, Hkv, 1, D), rand_i8(L, B, Hkv, 1, D), pos)
-    L, B, Hkv, S, D = 32, 4, 32, 1152, 128
-    ck, cv = randn(L, B, Hkv, S, D), randn(L, B, Hkv, S, D)
-    nk, nv = randn(L, B, Hkv, 1, D), randn(L, B, Hkv, 1, D)
-    # library: index_put_ of each cache's new rows, one call a cache (no
-    # single PyTorch call writes both), the index and value tensors made
-    # outside the timed calls; on a copy of the cache it must write what the
-    # kernel writes
-    b_idx, pos_l = torch.arange(B, device=dev), pos.long()
-    rows_k, rows_v = (t[:, :, :, 0].permute(1, 0, 2, 3).contiguous() for t in (nk, nv))
-
-    def index_put(i=0, ck=ck, cv=cv):
-        ck.permute(1, 3, 0, 2, 4).index_put_((b_idx, pos_l), rows_k)
-        cv.permute(1, 3, 0, 2, 4).index_put_((b_idx, pos_l), rows_v)
-
-    ck2, cv2 = ck.clone(), cv.clone()
-    errs = [("7B bf16 cache (bit-exact)", append_err(ck, cv, nk, nv, pos), 0.0),
-            ("13B int8 cache (40, 4, 40, 1152, 128) (bit-exact)", err_i8, 0.0)]
-    index_put(0, ck2, cv2)
-    errs.append(("index_put_ (library) vs kernel (bit-exact)",
-                 0.0 if torch.equal(ck, ck2) and torch.equal(cv, cv2) else 1.0, 0.0))
-    del ck2, cv2
-    # bytes: the new rows read once and written once, k and v
-    bound = _bound(4 * L * B * Hkv * D * 2, 0.0)
-    ms, lib_ms = _in_turns("append_kv 7B bf16 (32, 4, 32, 1152, 128)",
-                           lambda i=0: fa.append_kv(ck, cv, nk, nv, pos), index_put, bound,
-                           lib_name="index_put_ ×2", reps=50)
-    report("append_kv", "cuda", "icl_speech_text_llm_tpu_torch/csrc/append_kv.cu",
-           "icl_speech_text_llm_tpu/ops/flash_attention.py:1438", errs, ms,
-           _device_ms(lambda i=0: fa.append_kv_plain(ck, cv, nk, nv, pos), reps=50),
-           bound, lib_ms)
-    del ck, cv
-    torch.cuda.empty_cache()
+    _append_kernel_rows(report, gen)
     _decode_kernel_rows(report, gen)
 
     # K5/K6: the LLM training backward, (4, 32, 1024, 128) causal with ragged
@@ -1191,8 +1337,9 @@ def _compare_logits(label, got, ref):
             raise AssertionError(f"{label}: reference check failed at {what}: {err} > {tol}")
 
 
-def _checked_launches(label, fn, need):
-    """Run ``fn`` and require at least ``need[name]`` launches of each kernel."""
+def _checked_launches(label, fn, need, none=()):
+    """Run ``fn`` and require at least ``need[name]`` launches of each kernel
+    and no launch of the kernels ``none``."""
     import torch
 
     from icl_speech_text_llm_tpu_torch import kernels
@@ -1201,10 +1348,10 @@ def _checked_launches(label, fn, need):
     out = fn()
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    launched = {k: after[k] - before[k] for k in need}
-    print(f"  {label}: launches {launched} (need {need})", flush=True)
-    if any(launched[k] < n for k, n in need.items()):
-        raise AssertionError(f"{label} did not run its kernels: {launched}")
+    launched = {k: after[k] - before[k] for k in (*need, *none)}
+    print(f"  {label}: launches {launched} (need {need}, none of {list(none)})", flush=True)
+    if any(launched[k] < n for k, n in need.items()) or any(launched[k] for k in none):
+        raise AssertionError(f"{label} did not run its kernels, or ran others: {launched}")
     return out
 
 
@@ -1262,10 +1409,102 @@ def _quant_reference_phase():
         got = _checked_launches(
             label + " one-layer check",
             lambda: _logits_run(cfg, params, batch, lengths, dev, toks, True, attention),
-            {"int4_matmul": 7 * 4, "int8_matmul": 4, "append_kv": 3, **need})
+            {"int4_matmul": 7 * 4, "int8_matmul": 4, "append_kv_q8": 3, **need}, {"append_kv"})
         _compare_logits(label, got, ref)
     del params
     torch.cuda.empty_cache()
+
+
+def _step_launches(old=None):
+    """Kernels launched by one decode step (torch.profiler, after a warm-up
+    step) at the main path's widths, random weights, batch 4 at ~900 cached
+    positions, the default decode attention: salmonn-13b's decoder with int4
+    weights over an int8 cache of 1152 positions, and salmonn-7b's bf16
+    decoder over a bf16 cache. Also each step's time (CUDA events around a
+    synchronised step, which the host paces: the least of 10). ``old``:
+    another tree's ``models.llama`` (``_append_sweep``), whose
+    ``decode_step`` on the same weights and cache is counted too and timed
+    in turns with this one's. Prints one line."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models import llama
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, S = 4, 1152
+    cur = torch.tensor([903, 897, 900, 895], dtype=torch.int32, device=dev)
+    parts = []
+    for label, name, quant in (("13B int4 + int8 KV", "vicuna-13b", True),
+                               ("7B bf16", "vicuna-7b", False)):
+        cfg = llama.DECODER_CONFIGS[name]
+        params = (llama.init_decoder_quantized(cfg, gen, dev, bits=4) if quant
+                  else llama.init_decoder(cfg, gen, dev, torch.bfloat16))
+        cache = llama.init_kv_cache(cfg, B, S, device=dev, quant=quant)
+        x = torch.randn((B, 1, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+
+        def step():
+            return llama.decode_step(cfg, params, x, cache, cur)
+
+        with torch.inference_mode():
+            part = f"{label} {_kernel_launches(step)[0]}"
+            if old is None:
+                part += f", step ms (CUDA events, least of 10) {_time_ms(step, stat=min):.3f}"
+            else:
+                def old_step():
+                    return old.decode_step(cfg, params, x, cache, cur)
+
+                times = [_time_ms(f, stat=min) for f in (step, old_step, old_step, step)]
+                part += (f" (the baseline's decode_step: {_kernel_launches(old_step)[0]}), step "
+                         f"ms (CUDA events, least of 10; new, baseline, baseline, new) "
+                         f"{[round(t, 3) for t in times]}")
+        parts.append(part)
+        del params, cache
+        torch.cuda.empty_cache()
+    print(f"  kernels launched by one decode step (torch.profiler): {'; '.join(parts)}",
+          flush=True)
+
+
+def _append_sweep(baseline, reps=50):
+    """Measuring aid, not part of the smoke run: K4 and the decode step
+    against ``baseline`` (the root of another checkout of this repository,
+    e.g. the tree before K4's redesign unpacked by ``git archive``). K4 at
+    the Vicuna-7B bf16 cache (32, 4, 32, 1152, 128) in turns with that
+    tree's ``append_kv``: device ms and host µs, new, old, old, new (the two
+    must write the same bytes); then ``_step_launches`` with that tree's
+    ``decode_step``. Run:
+        python3 -c "import chip_smoke as c; c._device_phase(); c._append_sweep('<dir>')"
+    """
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
+
+    old = _baseline_module(baseline, "ops.flash_attention")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    L, B, Hkv, S, D = 32, 4, 32, 1152, 128
+    ck, cv, nk, nv = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                      for shape in [(L, B, Hkv, S, D)] * 2 + [(L, B, Hkv, 1, D)] * 2)
+    pos = torch.tensor([1033, 700, 1151, 0], dtype=torch.int32, device=dev)
+    ck2, cv2 = ck.clone(), cv.clone()
+
+    def new(i=0):
+        return fa.append_kv(ck, cv, nk, nv, pos)
+
+    def before(i=0):
+        return old.append_kv(ck, cv, nk, nv, pos)
+
+    new()
+    old.append_kv(ck2, cv2, nk, nv, pos)
+    if not (torch.equal(ck, ck2) and torch.equal(cv, cv2)):
+        raise AssertionError("append_kv: this tree's and the baseline's caches differ")
+    _in_turns("append_kv 7B bf16 (32, 4, 32, 1152, 128), the baseline's kernel", new, before,
+              _bound(4 * L * B * Hkv * D * 2, 0.0), lib_name="baseline append_kv", reps=reps)
+    h = [_host_us(f) for f in (new, before, before, new)]
+    print(f"  append_kv host µs a call: new, baseline, baseline, new "
+          f"{[round(v, 2) for v in h]}", flush=True)
+    del ck, cv, nk, nv, ck2, cv2
+    torch.cuda.empty_cache()
+    _step_launches(_baseline_module(baseline, "models.llama"))
 
 
 def _paths(tree, prefix=""):
@@ -1582,7 +1821,7 @@ def _main_phase(out_dir):
     quant = _main_run(os.path.join(out_dir, "13b_int4"), "salmonn-13b",
                       ["--quantize_int4", "--kv_int8"], 8, {
                           "int4_matmul": 7 * 40 * 9 * 2, "int8_matmul": 10 * 2,
-                          "append_kv": 9 * 2, "flash_attention_causal": 40 * 2,
+                          "append_kv_q8": 9 * 2, "flash_attention_causal": 40 * 2,
                           "flash_attention_noncausal": 32 * 2,
                           "gated_bias_attention": 12 * 2})
     _main_run(os.path.join(out_dir, "7b_int8"), "salmonn-7b", ["--quantize_int8"], 4, {
@@ -1606,12 +1845,16 @@ def _main_phase(out_dir):
                         {"use_flash_decode": True, "kv_int8": True, "num_beams": 4,
                          "do_sample": True}, {}, 4, 4, {
                             "flash_decode_attention_q8": 40 * 9,
-                            "int4_matmul": 7 * 40 * 9, "append_kv": 9})
+                            "int4_matmul": 7 * 40 * 9, "append_kv_q8": 9})
+    if quant["append_kv"] or flash_q8["append_kv"]:
+        raise AssertionError("an int8-cache run launched the bf16 append (K4): "
+                             f"{quant['append_kv']}, {flash_q8['append_kv']}")
     # (d) BEATs' batched schedule (K8 ×12, one a layer)
     batched = _beats_batched_run()
     # (e) the streaming probe (K11)
     probe = _probe_run()
     return {"int4_matmul": quant["int4_matmul"], "int8_matmul": quant["int8_matmul"],
+            "append_kv_q8": quant["append_kv_q8"],
             "flash_decode_attention": flash["flash_decode_attention"],
             "gated_bias_attention_rows": flash["gated_bias_attention_rows"],
             "flash_decode_attention_q8": flash_q8["flash_decode_attention_q8"],
@@ -1729,6 +1972,7 @@ def main():
     _reference_phase()
     _train_check_phase()
     _quant_reference_phase()
+    _step_launches()
     print(f"  phase check: {time.perf_counter() - t0:.1f} s", flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
     print("phase main:", flush=True)

@@ -70,8 +70,11 @@ _SIGNATURES = {
     # strides, sm_scale, stream
     "iclk_flash_decode": [_p] * 9 + [_i] * 6 + [_strides, ctypes.c_float, _p],
     # cache_k, cache_v, new_k, new_v, positions, L, B, Hkv, S, D,
-    # elem_bytes, stream
-    "iclk_append_kv": [_p] * 5 + [_i] * 6 + [_p],
+    # elem_bytes, sms, stream
+    "iclk_append_kv": [_p] * 5 + [_i] * 7 + [_p],
+    # cache_k, cache_v, scale_k, scale_v, new_k, new_v, positions, L, B,
+    # Hkv, S, D, rows_f32, sms, stream
+    "iclk_append_kv_q8": [_p] * 7 + [_i] * 7 + [_p],
     # q, k, v, o, dout, m, l, delta, dq, lengths, B, H, Hkv, S, S_kv, D,
     # causal, strides, sm_scale, stream
     "iclk_flash_bwd_dq": [_p] * 10 + [_i] * 7 + [_strides, ctypes.c_float, _p],
@@ -193,7 +196,7 @@ def check(err: int, what: str) -> None:
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (the host functions
     that size a kernel's grid, ``int4_matmul.partition`` and
-    ``flash_attention.decode_splits``, take it)."""
+    ``flash_attention.decode_splits``, and the append kernels take it)."""
     import torch
 
     return torch.cuda.get_device_properties(index).multi_processor_count

@@ -15,15 +15,18 @@ LoRA added inside the q/v projections, and a KV cache updated in place.
 - ``decode_step`` is the single-token cached step of the JAX package's
   ``_decode_step_zero_copy``: each layer attends its cache slice
   ``cache_k[l]`` read-only with the current token folded in as one extra
-  column, and ONE ``append_kv`` writes every layer's new k/v after the
-  loop. The attention is ``DecodeAttention.XLA`` (``_xla_decode_attn``,
-  JAX's default ``"xla"`` math) or ``DecodeAttention.FLASH`` (the K7
-  flash-decode kernel, JAX's ``use_flash_decode=True``; its plain version
-  on the CPU) where ``flash_decode_usable`` admits the shapes, else the
-  same math as ``XLA``, as JAX's generic path. With an int8 cache
-  (``init_kv_cache(quant=True)``) the new rows are quantized per (position,
-  head) and their scales written beside them; the current token is
-  attended unquantized, the cache through its scales.
+  column, and ONE append writes every layer's new k/v after the loop
+  (``append_kv``, K4). The attention is ``DecodeAttention.XLA``
+  (``_xla_decode_attn``, JAX's default ``"xla"`` math) or
+  ``DecodeAttention.FLASH`` (the K7 flash-decode kernel, JAX's
+  ``use_flash_decode=True``; its plain version on the CPU) where
+  ``flash_decode_usable`` admits the shapes, else the same math as
+  ``XLA``, as JAX's generic path. With an int8 cache
+  (``init_kv_cache(quant=True)``) the append is ``append_kv_q8`` (K4 q8),
+  which quantizes the new rows per (position, head) and writes their
+  scales beside them in the same launch; K7 q8 attends the cache where
+  ``q8_cache_layout_ok`` admits its layout, else the ``XLA`` math does. The
+  current token is attended unquantized, the cache through its scales.
 
 Matmul weights may be plain tensors or the JAX package's quantized dicts
 (int8 ``{"q", "s"}``, int4 ``{"q4", "s"}``): every product goes through
@@ -48,10 +51,12 @@ from torch.utils.checkpoint import (
 
 from ..ops.flash_attention import (
     append_kv,
+    append_kv_q8,
     flash_attention,
     flash_decode_attention,
     flash_decode_attention_q8,
     flash_decode_usable,
+    q8_cache_layout_ok,
 )
 from ..ops.quant import dequant_matmul, quantize_kv
 from .common import (
@@ -445,61 +450,55 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
                 attention: DecodeAttention = DecodeAttention.XLA,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One cached decode step: x (B, 1, dim) at positions cache_positions (B,)
-    (each sample's count of cached tokens). Every layer attends its cache
-    slice read-only plus the current token (``attention``: the plain
+    int32 (each sample's count of cached tokens). Every layer attends its
+    cache slice read-only plus the current token (``attention``: the plain
     ``_xla_decode_attn``, or the K7 kernel over the stacked cache where
-    ``flash_decode_usable`` admits the shapes, as JAX routes); after the
-    loop ONE append_kv writes all layers' new k/v at cache_positions, in
-    place. With an int8 cache the new rows are quantized first and their
-    scales written with a per-sample index write, as the JAX package's DUS
-    does."""
+    ``flash_decode_usable`` admits the shapes, as JAX routes, and for the
+    int8 cache where K7 q8 can read its layout, ``q8_cache_layout_ok``);
+    after the loop ONE append writes all layers' new k/v at cache_positions,
+    in place: ``append_kv`` for a bf16 cache, ``append_kv_q8`` for an int8
+    one, which quantizes the rows and writes their scales in the same launch
+    (the JAX package quantizes in its scan and writes the scales with a
+    per-sample DUS)."""
     if attention is DecodeAttention.GENERIC:
         raise NotImplementedError(
             "use_flash_decode=False (the GSPMD scanned-cache decode) is not ported")
     B = x.shape[0]
     L, hd = cfg.n_layers, cfg.hd
-    flash = attention is DecodeAttention.FLASH and flash_decode_usable(
-        (B, cfg.n_heads, 1, hd), (B, cfg.n_kv_heads) + tuple(cache["k"].shape[-2:]))
     quant = "k_s" in cache
+    flash = attention is DecodeAttention.FLASH and flash_decode_usable(
+        (B, cfg.n_heads, 1, hd), (B, cfg.n_kv_heads) + tuple(cache["k"].shape[-2:])) and (
+        not quant or q8_cache_layout_ok(cache["k"], cache["v"], cache["k_s"], cache["v_s"]))
     inv_freq = _inv_freq(cfg, x.device)
     positions = cache_positions[:, None]
-    new_k = torch.empty((L, B, cfg.n_kv_heads, 1, hd), dtype=cache["k"].dtype, device=x.device)
+    # the new rows: the cache's dtype, or the activations' (k's) for the int8
+    # cache, which the append quantizes
+    new_k = torch.empty((L, B, cfg.n_kv_heads, 1, hd),
+                        dtype=x.dtype if quant else cache["k"].dtype, device=x.device)
     new_v = torch.empty_like(new_k)
-    if quant:
-        new_ks = torch.empty((L, B, cfg.n_kv_heads, 1), dtype=torch.float32, device=x.device)
-        new_vs = torch.empty_like(new_ks)
+    scales = (cache["k_s"], cache["v_s"]) if quant else ()
     for l in range(L):
         layer = layer_at(params["layers"], l)
         lo = layer_at(lora, l) if lora is not None else None
         q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq)
-        if quant:
-            if flash:
-                out = flash_decode_attention_q8(q, cache["k"], cache["v"], cache["k_s"],
-                                                cache["v_s"], cache_positions,
-                                                self_kv=(k, v), layer=l)
-            else:
-                out = _xla_decode_attn(cfg, q, cache["k"][l], cache["v"][l], k, v,
-                                       cache_positions, cache["k_s"][l], cache["v_s"][l])
-            new_k[l], new_ks[l] = quantize_kv(k)
-            new_v[l], new_vs[l] = quantize_kv(v)
+        if flash and quant:
+            out = flash_decode_attention_q8(q, cache["k"], cache["v"], *scales, cache_positions,
+                                            self_kv=(k, v), layer=l)
+        elif flash:
+            out = flash_decode_attention(q, cache["k"], cache["v"], cache_positions,
+                                         self_kv=(k, v), layer=l)
         else:
-            if flash:
-                out = flash_decode_attention(q, cache["k"], cache["v"], cache_positions,
-                                             self_kv=(k, v), layer=l)
-            else:
-                out = _xla_decode_attn(cfg, q, cache["k"][l], cache["v"][l], k, v,
-                                       cache_positions)
-            new_k[l] = k
-            new_v[l] = v
+            out = _xla_decode_attn(cfg, q, cache["k"][l], cache["v"][l], k, v, cache_positions,
+                                   *(s[l] for s in scales))
+        new_k[l] = k
+        new_v[l] = v
         x = _attn_out_mlp(cfg, layer, lo, lora_scaling, x,
                           out.transpose(1, 2).reshape(B, 1, cfg.n_heads * hd))
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    append_kv(cache["k"], cache["v"], new_k, new_v, cache_positions)
     if quant:
-        b_idx = torch.arange(B, device=x.device)
-        pos = cache_positions.long()
-        for plane, new in ((cache["k_s"], new_ks), (cache["v_s"], new_vs)):
-            plane.permute(1, 3, 0, 2).index_put_((b_idx, pos), new[..., 0].permute(1, 0, 2))
+        append_kv_q8(cache["k"], cache["v"], *scales, new_k, new_v, cache_positions)
+    else:
+        append_kv(cache["k"], cache["v"], new_k, new_v, cache_positions)
     return x, cache
 
 

@@ -1,6 +1,6 @@
 """Attention kernels of the main path, each beside its plain PyTorch version.
 
-Counterpart of ``icl_speech_text_llm_tpu/ops/flash_attention.py``. Ten
+Counterpart of ``icl_speech_text_llm_tpu/ops/flash_attention.py``. Eleven
 Hopper kernels (``csrc/``) replace the Pallas kernels of the JAX package:
 
 - ``flash_attention_causal``    — causal flash forward (LLM prefill, training);
@@ -11,7 +11,9 @@ Hopper kernels (``csrc/``) replace the Pallas kernels of the JAX package:
   ``gated_bias_attention(batch_block=True)``);
 - ``gated_bias_attention_rows`` — gated bias with the gate rows precomputed
   (K9; ``BeatsConfig.lean_bias_flash``);
-- ``append_kv``                 — in-place decode-step KV-cache append;
+- ``append_kv``                 — in-place decode-step KV-cache append (K4);
+- ``append_kv_q8``              — the same into the int8 cache, the new rows
+  quantized and their scales written in the same launch (K4 q8);
 - ``flash_decode_attention``    — single-token decode attention over the
   bf16 cache with the current token folded in (K7);
 - ``flash_decode_attention_q8`` — the same over the int8 cache, its scales
@@ -42,6 +44,7 @@ import torch
 from .. import kernels
 from .attention import repeat_kv
 from .int4_matmul import balanced
+from .quant import quantize_kv
 
 _MAX_SCORE_ELEMS = 1 << 28  # plain versions: chunk the batch above 1 GiB of f32 scores
 LOG2E = 1.4426950408889634  # exp → exp2 fold of the gated-bias schedules
@@ -286,16 +289,40 @@ def flash_decode_attention_plain(q, k, v, lengths, sm_scale=None, self_kv=None,
     return o.reshape(B, H, 1, D).to(q.dtype)
 
 
+def _put_rows(cache, rows, positions):
+    """cache (L, B, Hkv, S, …) gets rows (L, B, Hkv, …) at position
+    positions[b] of sample b, in place (``index_put_``). A position outside
+    [0, S) leaves its sample's rows as they are, as the kernels do: they are
+    written back with their own values, so no host sync is needed."""
+    S = cache.shape[3]
+    view = cache.permute(1, 3, 0, 2, *range(4, cache.dim()))
+    pos = positions.to(device=cache.device, dtype=torch.long)
+    keep = ((pos >= 0) & (pos < S)).view(-1, *[1] * (rows.dim() - 1))
+    idx = (torch.arange(cache.shape[1], device=cache.device), pos.clamp(0, S - 1))
+    view.index_put_(idx, torch.where(keep, rows.transpose(0, 1).to(cache.dtype), view[idx]))
+
+
 def append_kv_plain(cache_k, cache_v, new_k, new_v, positions):
     """Plain version of the append: cache (L, B, Hkv, S, D) gets new
-    (L, B, Hkv, 1, D) at row positions[b], in place (``index_put_``)."""
-    B = cache_k.shape[1]
-    b_idx = torch.arange(B, device=cache_k.device)
-    pos = positions.to(device=cache_k.device, dtype=torch.long)
-    for cache, new in ((cache_k, new_k), (cache_v, new_v)):
-        cache.permute(1, 3, 0, 2, 4).index_put_(
-            (b_idx, pos), new[:, :, :, 0].permute(1, 0, 2, 3).to(cache.dtype))
+    (L, B, Hkv, 1, D) at row positions[b], in place; positions outside
+    [0, S) are not written."""
+    _put_rows(cache_k, new_k[:, :, :, 0], positions)
+    _put_rows(cache_v, new_v[:, :, :, 0], positions)
     return cache_k, cache_v
+
+
+def append_kv_q8_plain(cache_k, cache_v, scale_k, scale_v, new_k, new_v, positions):
+    """Plain version of the quantizing append: the new rows (L, B, Hkv, 1, D)
+    quantized by ``quantize_kv``, then the int8 rows into the (L, B, Hkv, S,
+    D) cache and their scales into the f32 (L, B, Hkv, S) planes at
+    positions[b], in place, as the JAX package's decode step quantizes
+    in its scan and writes rows and scales by a per-sample
+    dynamic_update_slice."""
+    for cache, plane, new in ((cache_k, scale_k, new_k), (cache_v, scale_v, new_v)):
+        q, s = quantize_kv(new[:, :, :, 0])
+        _put_rows(cache, q, positions)
+        _put_rows(plane, s, positions)
+    return cache_k, cache_v, scale_k, scale_v
 
 
 # ---------------------------------------------------------------------------
@@ -614,34 +641,90 @@ def gated_bias_attention_rows(q, k, v, scale_rows, bias, lengths=None):
     return o
 
 
+def _append_check(name, caches, news, positions, cache_dtype):
+    """The append wrappers' checks → (L, B, Hkv, S, D). They refuse, and
+    never copy, what the kernel does not take as it comes: each cache (L,
+    B, Hkv, S, D) of ``cache_dtype`` and each new row set (L, B, Hkv, 1, D)
+    of one dtype, contiguous, on the cache's device; positions (B,) int32
+    there."""
+    L, B, Hkv, S, D = caches[0].shape
+    dev = caches[0].device
+    for t in caches:
+        if t.shape != (L, B, Hkv, S, D) or t.dtype != cache_dtype:
+            raise ValueError(f"{name}: caches must be {cache_dtype} (L, B, Hkv, S, D), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for t in news:
+        if t.shape != (L, B, Hkv, 1, D) or t.dtype != news[0].dtype:
+            raise ValueError(f"{name}: new rows must be (L, B, Hkv, 1, D) = "
+                             f"{(L, B, Hkv, 1, D)} of one dtype, got {t.dtype} {tuple(t.shape)}")
+    if positions.shape != (B,) or positions.dtype != torch.int32:
+        raise ValueError(f"{name}: positions must be int32 ({B},), got {positions.dtype} "
+                         f"{tuple(positions.shape)}")
+    for t in (*caches, *news, positions):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous on {dev}")
+    return L, B, Hkv, S, D
+
+
 def append_kv(cache_k, cache_v, new_k, new_v, positions) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write one decode step's k/v for every layer into the stacked cache, in
-    place: cache (L, B, Hkv, S, D), new (L, B, Hkv, 1, D), positions (B,).
-    Returns the same cache tensors. The new rows are cast to the cache dtype
-    (an int8 cache takes rows the caller has already quantized)."""
+    """K4: write one decode step's k/v for every layer into the stacked cache,
+    in place: cache (L, B, Hkv, S, D), new (L, B, Hkv, 1, D) of the cache's
+    dtype (an int8 cache takes rows the caller quantized; ``append_kv_q8``
+    quantizes them itself), positions (B,) int32; positions outside [0, S)
+    are not written. On the card a row is a multiple of 16 bytes (bf16 at
+    D % 8 == 0, int8 at D % 16 == 0). Returns the same cache tensors."""
     if not _on_cuda(cache_k):
         return append_kv_plain(cache_k, cache_v, new_k, new_v, positions)
-    L, B, Hkv, S, D = cache_k.shape
-    if cache_v.shape != cache_k.shape or new_k.shape != (L, B, Hkv, 1, D) \
-            or new_v.shape != new_k.shape:
-        raise ValueError("append_kv: cache (L,B,Hkv,S,D) and new (L,B,Hkv,1,D) expected")
-    if not (cache_k.is_contiguous() and cache_v.is_contiguous()):
-        raise ValueError("append_kv: the cache must be contiguous")
-    if cache_v.dtype != cache_k.dtype:
-        raise TypeError("append_kv: k and v caches differ in dtype")
-    for t in (cache_v, new_k, new_v):
-        if t.device != cache_k.device:
-            raise ValueError(f"append_kv: tensor on {t.device}, cache on {cache_k.device}")
-    nk = new_k.to(cache_k.dtype).contiguous()
-    nv = new_v.to(cache_k.dtype).contiguous()
-    pos = positions.to(device=cache_k.device, dtype=torch.int32).contiguous()
+    L, B, Hkv, S, D = _append_check("append_kv", (cache_k, cache_v), (new_k, new_v),
+                                    positions, cache_k.dtype)
+    if new_k.dtype != cache_k.dtype:
+        raise TypeError(f"append_kv: new rows {new_k.dtype} into a {cache_k.dtype} cache")
+    if D * cache_k.element_size() % 16 or any(
+            t.data_ptr() % 16 for t in (cache_k, cache_v, new_k, new_v)):
+        raise ValueError(f"append_kv: rows of {D * cache_k.element_size()} bytes, or their "
+                         "tensors, are not 16-byte aligned")
+    index = cache_k.device.index
     err = kernels.lib().iclk_append_kv(
-        cache_k.data_ptr(), cache_v.data_ptr(), nk.data_ptr(), nv.data_ptr(),
-        pos.data_ptr(), L, B, Hkv, S, D, cache_k.element_size(),
-        torch.cuda.current_stream(cache_k.device).cuda_stream)
+        cache_k.data_ptr(), cache_v.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+        positions.data_ptr(), L, B, Hkv, S, D, cache_k.element_size(), kernels.sm_count(index),
+        torch._C._cuda_getCurrentRawStream(index))
     kernels.check(err, "append_kv")
     append_kv.launches += 1
     return cache_k, cache_v
+
+
+def append_kv_q8(cache_k, cache_v, scale_k, scale_v, new_k, new_v, positions):
+    """K4 q8: quantize one decode step's k/v rows of every layer and write
+    them into the stacked int8 cache with their scales, in one launch, in
+    place: cache (L, B, Hkv, S, D) int8, scales (L, B, Hkv, S) f32, new
+    (L, B, Hkv, 1, D) bf16 or f32 (the activations as they come), positions
+    (B,) int32; positions outside [0, S) are not written. On the card D is
+    a multiple of 8, at most 256. Math: ``append_kv_q8_plain``, bit for bit.
+    Returns the four cache tensors."""
+    if not _on_cuda(cache_k):
+        return append_kv_q8_plain(cache_k, cache_v, scale_k, scale_v, new_k, new_v, positions)
+    L, B, Hkv, S, D = _append_check("append_kv_q8", (cache_k, cache_v), (new_k, new_v),
+                                    positions, torch.int8)
+    for t in (scale_k, scale_v):
+        if t.shape != (L, B, Hkv, S) or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != cache_k.device:
+            raise ValueError(f"append_kv_q8: scales must be contiguous f32 {(L, B, Hkv, S)} "
+                             f"on {cache_k.device}")
+    if new_k.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"append_kv_q8: new rows must be bfloat16 or float32, got {new_k.dtype}")
+    if D % 8 or D > 256:
+        raise ValueError(f"append_kv_q8: head_dim {D} must be a multiple of 8, at most 256")
+    if new_k.data_ptr() % 16 or new_v.data_ptr() % 16:
+        raise ValueError("append_kv_q8: new rows must be 16-byte aligned")
+    index = cache_k.device.index
+    err = kernels.lib().iclk_append_kv_q8(
+        cache_k.data_ptr(), cache_v.data_ptr(), scale_k.data_ptr(), scale_v.data_ptr(),
+        new_k.data_ptr(), new_v.data_ptr(), positions.data_ptr(), L, B, Hkv, S, D,
+        int(new_k.dtype == torch.float32), kernels.sm_count(index),
+        torch._C._cuda_getCurrentRawStream(index))
+    kernels.check(err, "append_kv_q8")
+    append_kv_q8.launches += 1
+    return cache_k, cache_v, scale_k, scale_v
 
 
 def flash_decode_usable(q_shape, kv_shape) -> bool:
@@ -714,6 +797,14 @@ def _q8_layout_ok(k, v, k_s, v_s) -> bool:
             and all(t.stride(2) == 1 and t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0
                     for t in (k_s, v_s))
             and not any(t.data_ptr() % 16 for t in (k, v, k_s, v_s)))
+
+
+def q8_cache_layout_ok(k, v, k_s, v_s) -> bool:
+    """``_q8_layout_ok`` for every layer of the stacked int8 cache (L, B,
+    Hkv, S, D) and its scales (L, B, Hkv, S): layer 0's views pass it, and
+    each layer starts a 16-byte multiple after the one before."""
+    return (_q8_layout_ok(k[0], v[0], k_s[0], v_s[0])
+            and all(t.stride(0) * t.element_size() % 16 == 0 for t in (k, v, k_s, v_s)))
 
 
 def _decode_launch(name, q, k, v, k_s, v_s, lengths, sm_scale, self_kv):
@@ -805,5 +896,5 @@ def flash_decode_attention_q8(q, k8, v8, k_s, v_s, lengths, sm_scale=None, self_
 
 kernels.register(flash_attention_causal, flash_attention_noncausal, gated_bias_attention,
                  gated_bias_attention_batched, gated_bias_attention_rows, append_kv,
-                 flash_decode_attention, flash_decode_attention_q8,
+                 append_kv_q8, flash_decode_attention, flash_decode_attention_q8,
                  flash_attention_bwd_dq, flash_attention_bwd_dkv)

@@ -28,10 +28,18 @@ import torch
 from .int4_matmul import int4_matmul, int4_matmul_usable, int8_matmul, int8_matmul_usable
 
 
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded as one IEEE division, on either device: the divisor is a
+    tensor on x's device, because on the card torch divides by a Python
+    number as a multiply by its reciprocal, which can differ by one ulp (the
+    JAX package and the quantizing append K4 q8 divide)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def quantize_tensor(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """(…, in, out) → {"q": int8, "s": f32 (…, out)}, per output column."""
     w = w.float()
-    s = w.abs().amax(dim=-2) / 127.0
+    s = _div(w.abs().amax(dim=-2), 127.0)
     s = torch.where(s == 0.0, torch.ones_like(s), s)
     q = torch.clamp(torch.round(w / s[..., None, :]), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
@@ -41,7 +49,7 @@ def quantize_kv(kv: torch.Tensor):
     """int8 KV rows: (…, D) → (int8 (…, D), f32 scale (…)); an all-zero row
     gets scale 0 and dequantizes to 0."""
     kv = kv.float()
-    scale = kv.abs().amax(dim=-1) / 127.0
+    scale = _div(kv.abs().amax(dim=-1), 127.0)
     safe = torch.where(scale == 0.0, torch.ones_like(scale), scale)
     return torch.round(kv / safe[..., None]).to(torch.int8), scale
 
@@ -56,7 +64,7 @@ def quantize_tensor_int4(w: torch.Tensor, group: int = 128) -> Dict[str, torch.T
         raise ValueError(f"d_in {d_in}: need d_in even and group {group} | d_in/2")
     lead = w.shape[:-2]
     wg = w.reshape(*lead, d_in // group, group, d_out)
-    s = wg.abs().amax(dim=-2) / 7.0
+    s = _div(wg.abs().amax(dim=-2), 7.0)
     s = torch.where(s == 0.0, torch.ones_like(s), s)
     q = torch.clamp(torch.round(wg / s[..., None, :]), -7, 7).to(torch.int8)
     n = (q.reshape(*lead, d_in, d_out) + 8).to(torch.uint8)

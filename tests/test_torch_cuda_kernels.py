@@ -6,7 +6,10 @@ This file imports no jax, so it also runs on the machine with the card:
 (``--noconftest`` because ``tests/conftest.py`` sets up jax). Bounds: bf16
 outputs within 2e-2 of the f32-softmax plain version on valid rows, row
 max m within 1e-3 and row sum l within 1e-3 relative (the flash forward),
-the KV append bit-exact, the backward kernels' bf16
+the KV append (K4) bit-exact, and the quantizing append (K4 q8) bit for
+bit to its plain version at the 13B int8 cache and small shapes, one
+launch each; the decode step over an int8 cache K7 q8 cannot read (S =
+1001) takes the plain attention math and does not raise; the backward kernels' bf16
 gradients within 2e-2 × max |plain gradient| per tensor over valid rows, and
 the int4 (K10) and int8 (W8A16) matmuls within 1e-2 × max |plain| of their
 f32 plain versions on the same bf16 x. The flash-decode kernel (K7, bf16
@@ -125,17 +128,195 @@ def test_cuda_gated_bias_kernel_matches_plain(cuda_device):
     assert _valid_rows_max(o.float().cpu(), o_p.float().cpu(), [300, 111]) < 2e-2
 
 
+#: append positions: the first row, the last, inside, and −1 and S (outside
+#: the cache: nothing is written)
+def _append_positions(B, S):
+    return torch.tensor([[0, S - 1, -1, S, 17, S // 2][i % 6] for i in range(B)],
+                        dtype=torch.int32)
+
+
+def _past_one_wave(threads, dev):
+    """True when an append kernel's grid-stride loop takes a second pass:
+    its ``threads`` (one a 16-byte vector for K4, D / 8 lanes, rounded up to
+    a power of two, a row for K4 q8) outnumber the most one wave of the
+    card holds (2048 resident threads an SM)."""
+    return threads > kernels.sm_count(dev.index or 0) * 2048
+
+
+#: an append case with more rows than one wave holds: 36,864 rows
+WAVE_CASE = (48, 16, 48, 24, 128)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
-def test_cuda_append_kv_kernel_is_exact(cuda_device, dtype):
-    """bf16 cache, and an int8 cache with rows the caller quantized."""
-    ck, cv = (t.mul(50).to(dtype) for t in _cuda_inputs([(3, 2, 4, 256, 128)] * 2, cuda_device, 24))
-    nk, nv = (t.mul(50).to(dtype) for t in _cuda_inputs([(3, 2, 4, 1, 128)] * 2, cuda_device, 25))
-    pos = torch.tensor([255, 17], device=cuda_device)
+@pytest.mark.parametrize("L,B,Hkv,S,D", [(3, 2, 4, 256, 128), (2, 16, 4, 64, 128),
+                                         (3, 4, 2, 96, 64), WAVE_CASE])
+def test_cuda_append_kv_kernel_is_exact(cuda_device, dtype, L, B, Hkv, S, D):
+    """bf16 cache, and an int8 cache with rows the caller quantized; B = 16,
+    D = 64, more rows than one wave of the grid holds (its loop takes a
+    second pass), positions −1 and S (not written)."""
+    if (L, B, Hkv, S, D) == WAVE_CASE:
+        assert _past_one_wave(L * B * Hkv * D * dtype.itemsize // 16, cuda_device)
+    ck, cv = (t.mul(50).to(dtype) for t in _cuda_inputs([(L, B, Hkv, S, D)] * 2, cuda_device, 24))
+    nk, nv = (t.mul(50).to(dtype) for t in _cuda_inputs([(L, B, Hkv, 1, D)] * 2, cuda_device, 25))
+    pos = (torch.tensor([255, 17], dtype=torch.int32) if B == 2 else
+           _append_positions(B, S)).to(cuda_device)
     ck2, cv2 = ck.clone(), cv.clone()
+    before = tfa.append_kv.launches
     tfa.append_kv(ck, cv, nk, nv, pos)
     tfa.append_kv_plain(ck2, cv2, nk, nv, pos)
+    torch.cuda.synchronize()
+    assert tfa.append_kv.launches == before + 1
     assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
+
+
+def _q8_rows(L, B, Hkv, D, dev, dtype, seed):
+    """New rows (L, B, Hkv, 1, D) for K4 q8: random, one all-zero row, and
+    rows of exact .5 ties at scale 1 (amax 127: ±0.5, ±1.5, ±2.5) and at
+    scale 2 (amax 254: ±1, ±3, ±5)."""
+    x, = _arrays([(L, B, Hkv, 1, D)], seed, 2.0)
+    ties = np.array([0.5, -0.5, 1.5, -1.5, 2.5, -2.5], np.float32)
+    x[0, 0, 0, 0] = 0.0
+    if L * B * Hkv > 1:
+        x[-1, -1, -1, 0] = 0.0
+        x[-1, -1, -1, 0, :6], x[-1, -1, -1, 0, 6] = ties, 127.0
+    if B > 1:
+        x[0, -1, 0, 0] = 0.0
+        x[0, -1, 0, 0, :6], x[0, -1, 0, 0, 6] = 2 * ties, -254.0
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("L,B,Hkv,S,D", [(40, 4, 40, 1152, 128), (1, 1, 1, 16, 128),
+                                         (3, 8, 2, 64, 64), (2, 16, 5, 40, 128),
+                                         (32, 4, 1, 24, 64), (1, 5, 40, 8, 128),
+                                         (40, 16, 40, 24, 128), (48, 16, 48, 24, 64)])
+def test_cuda_append_kv_q8_kernel_is_bit_identical_to_plain(cuda_device, dtype, L, B, Hkv, S, D):
+    """K4 q8 against ``append_kv_q8_plain`` on the card, bit for bit (int8
+    rows and f32 scales): bf16 and f32 rows; the 13B int8 shape and L, B,
+    Hkv of 1-40; D = 64 and 128; an all-zero row (scale 0, bytes 0) and .5
+    ties; positions 0, S − 1 and inside, and −1 and S, which leave the cache
+    and scales as they were; at 16 rows of the 13B shape and at D = 64,
+    more rows than one wave of the grid holds (its loop takes a second
+    pass). The plain version on the card gives the CPU's bytes too
+    (``quantize_kv`` divides on both)."""
+    if B == 16 and L >= 40:
+        assert _past_one_wave(L * B * Hkv * D // 8, cuda_device)
+    ck, cv = (torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device=cuda_device)
+              for _ in range(2))
+    ks, vs = (torch.rand((L, B, Hkv, S), device=cuda_device) for _ in range(2))
+    nk, nv = (_q8_rows(L, B, Hkv, D, cuda_device, dtype, seed) for seed in (60, 61))
+    pos = (_append_positions(B, S) if B > 1 else torch.tensor([S - 1], dtype=torch.int32)).to(
+        cuda_device)
+    cache, plain = [ck, cv, ks, vs], [t.clone() for t in (ck, cv, ks, vs)]
+    init, cpu = [t.clone() for t in cache], [t.cpu() for t in cache]
+    before = tfa.append_kv_q8.launches
+    tfa.append_kv_q8(*cache, nk, nv, pos)
+    tfa.append_kv_q8_plain(*plain, nk, nv, pos)
+    tfa.append_kv_q8_plain(*cpu, nk.cpu(), nv.cpu(), pos.cpu())
+    torch.cuda.synchronize()
+    assert tfa.append_kv_q8.launches == before + 1
+    for got, want, host in zip(cache, plain, cpu):
+        assert torch.equal(got, want) and torch.equal(want.cpu(), host)
+    for b in range(B):
+        p = int(pos[b])
+        for got, old in zip(cache, init):
+            if 0 <= p < S:  # only row p of sample b moved
+                assert torch.equal(got[:, b, :, :p], old[:, b, :, :p])
+                assert torch.equal(got[:, b, :, p + 1:], old[:, b, :, p + 1:])
+            else:
+                assert torch.equal(got[:, b], old[:, b])
+    assert torch.all(ks[0, 0, 0, int(pos[0])] == 0)  # the all-zero row
+    assert torch.all(ck[0, 0, 0, int(pos[0])] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_append_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """No copy on the way in: new rows of another dtype than the cache or
+    rows not a multiple of 16 bytes (K4), int8 rows or a head_dim not a
+    multiple of 8 (K4 q8), rows not contiguous, int64 positions — each
+    raises."""
+    ck, cv = _cuda_inputs([(2, 2, 2, 16, 128)] * 2, cuda_device, 62)
+    nk, nv = _cuda_inputs([(2, 2, 2, 1, 128)] * 2, cuda_device, 63)
+    pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        tfa.append_kv(ck, cv, nk.float(), nv.float(), pos)
+    with pytest.raises(ValueError):
+        tfa.append_kv(ck, cv, nk, nv, pos.long())
+    wide = _cuda_inputs([(2, 2, 2, 1, 256)], cuda_device, 64)[0][..., ::2]
+    with pytest.raises(ValueError):
+        tfa.append_kv(ck, cv, wide, wide, pos)
+    c8 = torch.zeros((2, 2, 2, 16, 8), dtype=torch.int8, device=cuda_device)
+    n8 = torch.zeros((2, 2, 2, 1, 8), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        tfa.append_kv(c8, c8.clone(), n8, n8.clone(), pos)
+    q8 = [torch.zeros((2, 2, 2, 16, 128), dtype=torch.int8, device=cuda_device) for _ in range(2)]
+    sc = [torch.zeros((2, 2, 2, 16), device=cuda_device) for _ in range(2)]
+    with pytest.raises(TypeError):
+        tfa.append_kv_q8(*q8, *sc, nk.to(torch.int8), nv.to(torch.int8), pos)
+    q12 = [torch.zeros((2, 2, 2, 16, 12), dtype=torch.int8, device=cuda_device) for _ in range(2)]
+    n12 = torch.zeros((2, 2, 2, 1, 12), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):
+        tfa.append_kv_q8(*q12, *sc, n12, n12, pos)
+    assert tfa.append_kv_q8(*q8, *sc, nk, nv, pos)[0] is q8[0]
+
+
+@pytest.mark.cuda
+def test_cuda_append_kernels_are_one_launch(cuda_device):
+    """Each append wrapper is one kernel on the card, nothing else (no cast,
+    copy or scale write beside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ck, cv = _cuda_inputs([(4, 4, 8, 64, 128)] * 2, cuda_device, 65)
+    nk, nv = _cuda_inputs([(4, 4, 8, 1, 128)] * 2, cuda_device, 66)
+    q8 = [torch.zeros((4, 4, 8, 64, 128), dtype=torch.int8, device=cuda_device) for _ in range(2)]
+    sc = [torch.zeros((4, 4, 8, 64), device=cuda_device) for _ in range(2)]
+    pos = torch.tensor([0, 63, 9, 30], dtype=torch.int32, device=cuda_device)
+    runs = (lambda: tfa.append_kv(ck, cv, nk, nv, pos),
+            lambda: tfa.append_kv_q8(*q8, *sc, nk, nv, pos))
+    for run in runs:
+        run()
+    torch.cuda.synchronize()
+    # one profiling session for both: the device events in launch order
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for run in runs:
+            run()
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert "append_kv_kernel" in names[0] and "append_kv_q8_kernel" in names[1], names
+
+
+@pytest.mark.cuda
+def test_cuda_decode_step_over_an_int8_cache_k7_q8_cannot_read(cuda_device):
+    """``decode_step`` with ``attention=FLASH`` over ``init_kv_cache(quant=True)``
+    of S = 1001 on the card: K7 q8's wrapper refuses that layout, so the step
+    decodes with the plain math (no K7 q8 launch) and does not raise; its one
+    append is K4 q8. At S = 1152 the same step runs K7 q8 a layer. Both give
+    finite hidden states."""
+    from icl_speech_text_llm_tpu_torch.models import llama as tllama
+
+    cfg = tllama.DecoderConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                               hidden_dim=1024, max_seq_len=2048)
+    assert cfg.hd == 128
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = tllama.init_decoder(cfg, gen, cuda_device, torch.bfloat16)
+    x, = _cuda_inputs([(3, 1, cfg.dim)], cuda_device, 67)
+    cur = torch.tensor([700, 0, 998], dtype=torch.int32, device=cuda_device)
+    for S, q8_launches in ((1001, 0), (1152, cfg.n_layers)):
+        cache = tllama.init_kv_cache(cfg, 3, S, device=cuda_device, quant=True)
+        kernels.reset_launch_counts()
+        h, cache = tllama.decode_step(cfg, params, x, cache, cur,
+                                      attention=tllama.DecodeAttention.FLASH)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["flash_decode_attention_q8"] == q8_launches, counts
+        assert counts["append_kv_q8"] == 1 and counts["append_kv"] == 0, counts
+        assert torch.isfinite(h).all() and h.shape == (3, 1, cfg.dim)
+        k_s = cache["k_s"][:, 2]
+        assert torch.all(k_s[:, :, 998] > 0) and torch.all(k_s[:, :, 999] == 0)
 
 
 def _grad_err(got, want, rows):

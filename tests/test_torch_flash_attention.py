@@ -138,6 +138,10 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     ck = torch.zeros(1, 1, 2, 8, 4)
     tfa.append_kv(ck, ck.clone(), torch.ones(1, 1, 2, 1, 4), torch.ones(1, 1, 2, 1, 4),
                   torch.tensor([3]))
+    q8, sc = torch.zeros(1, 1, 2, 8, 4, dtype=torch.int8), torch.zeros(1, 1, 2, 8)
+    tfa.append_kv_q8(q8, q8.clone(), sc, sc.clone(), torch.ones(1, 1, 2, 1, 4),
+                     torch.ones(1, 1, 2, 1, 4), torch.tensor([3], dtype=torch.int32))
+    assert torch.all(q8[:, :, :, 3] == 127) and torch.all(sc[:, :, :, 3] == 1 / 127)
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
 

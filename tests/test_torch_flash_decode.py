@@ -258,6 +258,51 @@ def test_decode_step_flash_outside_the_gate_takes_the_xla_math(monkeypatch, quan
         cur = cur + 1
 
 
+def test_decode_step_flash_over_an_int8_cache_k7_q8_cannot_read_takes_the_xla_math(
+        monkeypatch):
+    """An int8 cache of S = 1001 at head_dim 128: ``flash_decode_usable``
+    admits the shapes, but K7 q8 reads rows in runs of 4 and its wrapper
+    refuses S % 4 ≠ 0, so ``decode_step`` with ``attention=FLASH`` decodes
+    with ``_xla_decode_attn`` and never calls K7 q8 (JAX's gate, S % 128 ==
+    0, sends such a cache to its other paths). Two chained f32 steps match
+    JAX's ``"xla"`` path to 1e-4, and the caches after each step match:
+    int8 bytes within ±1 on rounding ties, scales within 1e-5 relative."""
+    cfg, tcfg, params = _tiny_decoder(4, 2)
+    Sc = 1001
+    assert tfa.flash_decode_usable((B, 4, 1, 128), (B, 2, Sc, 128))
+
+    def refuse(*a, **kw):
+        raise AssertionError("K7 q8 called on a cache its wrapper refuses")
+
+    monkeypatch.setattr(tllama, "flash_decode_attention_q8", refuse)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    tp = params_from_numpy(params, device="cpu", dtype=torch.float32)
+    cur = np.array([998, 640], np.int32)  # the last step writes row S − 2
+    k0, v0 = _arrays([(cfg.n_layers, B, 2, Sc, 128)] * 2, 82, 0.5)
+    cache = dict(zip(("k", "v", "k_s", "v_s"), _quantized_cache(k0, v0)))
+    jcache = {n: jnp.asarray(a) for n, a in cache.items()}
+    tcache = params_from_numpy(cache, device="cpu", dtype=torch.float32)
+    assert not tfa.q8_cache_layout_ok(tcache["k"], tcache["v"], tcache["k_s"], tcache["v_s"])
+    for step in range(2):
+        x, = _arrays([(B, 1, cfg.dim)], 97 + step, 0.5)
+        jx, jcache = jllama.decoder_forward(
+            cfg, jp, jnp.asarray(x), make_decode_mask(jnp.asarray(cur) + 1, Sc),
+            jnp.asarray(cur)[:, None], cache=jcache, cache_positions=jnp.asarray(cur),
+            use_flash_decode="xla")
+        tx, tcache = tllama.decode_step(tcfg, tp, torch.from_numpy(x), tcache,
+                                        torch.from_numpy(cur),
+                                        attention=tllama.DecodeAttention.FLASH)
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-4, atol=1e-4)
+        for name in ("k", "v"):
+            d = np.abs(tcache[name].numpy().astype(np.int32)
+                       - np.asarray(jcache[name]).astype(np.int32))
+            assert d.max() <= 1 and (d > 0).mean() < 1e-3
+        for name in ("k_s", "v_s"):
+            np.testing.assert_allclose(tcache[name].numpy(), np.asarray(jcache[name]),
+                                       rtol=1e-5, atol=1e-6)
+        cur = cur + 1
+
+
 # K7 q8's split and merge (csrc/flash_decode.cu:flash_decode_q8_kernel): a
 # cluster of `splits` blocks per (sample, kv head), 64-row tiles dealt to 4
 # consumer warps in turn, each warp rescaling its state once a tile; the warps
@@ -397,3 +442,17 @@ def test_q8_layout_check_states_what_the_bulk_copies_read():
     assert not tfa._q8_layout_ok(k6, k6, s6, s6)
     s2 = torch.zeros((Bq, Hkv, Sq, 2))[..., 0]
     assert not tfa._q8_layout_ok(k8[1], k8[0], s2, s2)
+
+
+def test_q8_cache_layout_check_reads_every_layer_of_the_stacked_cache():
+    """``q8_cache_layout_ok`` on the stacked (L, B, Hkv, S, D) cache, as
+    ``decode_step`` routes by it: ``init_kv_cache``'s layout passes at S =
+    1152 and 1000; S = 1001 (rows in runs of 4 no more, and layers no more
+    16 bytes apart) and scale planes strided along S do not."""
+    cfg = tllama.DECODER_CONFIGS["tiny"]
+    for Sq, ok in ((1152, True), (1000, True), (1001, False)):
+        c = tllama.init_kv_cache(cfg, 2, Sq, quant=True, device="cpu")
+        assert tfa.q8_cache_layout_ok(c["k"], c["v"], c["k_s"], c["v_s"]) is ok
+    c = tllama.init_kv_cache(cfg, 2, 64, quant=True, device="cpu")
+    s2 = torch.zeros(c["k_s"].shape + (2,))[..., 0]
+    assert not tfa.q8_cache_layout_ok(c["k"], c["v"], s2, s2)
