@@ -55,7 +55,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                a main-path batch of 24 clips; then the streaming probe (K11)
                through its entry point, ops.probes.stream_rate, on the two
                buffers of the JAX probes;
-  6. train   — the port's training CLI on salmonn-7b at full width: 4 optimizer
+  6. load    — converted weights: (a) HF shards at vicuna-13b's widths cut to
+               2 layers (models/synth_ckpt.py) through cli/convert.py
+               --quantize_int4 on the host, every leaf byte-identical to
+               quantize_decoder(bits=4) on the card over the same weights, and
+               a 13B-width salmonn_v1.pth through --component salmonn; (b) the
+               salmonn-13b model of phase main's int4 + int8 KV run, its int4
+               decoder written to a dir (~7.5 GB), then that CLI run with
+               --llm_params_dir: the same launches and predictions, the model
+               build's peak memory under 16 GiB; (c) --quantize_int8 over the
+               int4 dir exits, and cli/reprocess.py of (b)'s results gives
+               (b)'s metrics; (d) salmonn-7b's encoders over 24 clips with
+               encode_chunk=6 and without, the outputs within 5% of the
+               largest and each one's peak memory;
+  7. train   — the port's training CLI on salmonn-7b at full width: 4 optimizer
                steps (batch 4, seq 1024), validation by generation and a
                checkpoint, with each step's kernel launches read; then 2 steps
                with full activation checkpointing.
@@ -67,7 +80,7 @@ the K8 schedule, its probe run for K11, the train phase for the others),
 after a line with K7 q8's launches × (ms − bound) at the 16-row shape; the
 last
 line is {"ok": true, "device": {...}} and is printed only when every phase
-passed. Takes ~2 minutes on one H100.
+passed. Takes ~5 minutes on one H100.
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -1609,7 +1623,7 @@ def _tree_to(tree, device, dtype):
 def _checked_run(label, run, n_requests, need, max_new=10):
     """One inference run at full width on the card: ``run()`` → the paths of
     its results and metrics JSON. Launch counts are set to 0 just before the
-    run and read just after; returns them."""
+    run and read just after; returns (counts, paths)."""
     import torch
 
     from icl_speech_text_llm_tpu_torch import kernels
@@ -1651,19 +1665,20 @@ def _checked_run(label, run, n_requests, need, max_new=10):
           f"generation peak memory {perf['peak_memory_bytes'] / 2**30:.3f} GiB", flush=True)
     print(f"    predictions: {[r['predicted_label'] for r in results]}", flush=True)
     torch.cuda.empty_cache()
-    return counts
+    return counts, paths
 
 
-def _main_run(out_dir, model_type, extra, n_requests, need, max_new=10):
+def _main_run(out_dir, model_type, extra, n_requests, need, max_new=10,
+              run_name="chip_smoke"):
     """cli/inference.py at full width on the card; returns the run's kernel
-    launch counts."""
+    launch counts and the paths of its results and metrics JSON."""
     from icl_speech_text_llm_tpu_torch.cli import inference
 
     argv = ["--model_type", model_type, "--dataset_type", "voxceleb", "--synthetic",
             "--input_mode", "speech_only", "--fewshot_mode", "speech",
             "--num_examples", "5", "--batch_size", "4", "--max_samples", str(n_requests),
             "--seq_len", "1024", "--text_len", "448", "--max_new_tokens", str(max_new),
-            "--device", "cuda", "--results_dir", out_dir, "--run_name", "chip_smoke", *extra]
+            "--device", "cuda", "--results_dir", out_dir, "--run_name", run_name, *extra]
     return _checked_run(f"{model_type} {' '.join(extra) or 'bf16'}",
                         lambda: inference.main(argv), n_requests, need, max_new)
 
@@ -1673,7 +1688,8 @@ def _api_run(out_dir, model_type, gen_kw, beats_kw, bits, n_requests, need, max_
     for: ``create_model(generation=GenerationConfig(**gen_kw))``, the BEATs
     options ``beats_kw`` set on the model's config, ``quantize_decoder`` when
     ``bits``, then ``run_inference`` + ``save_final_results`` on voxceleb
-    requests as the CLI builds them; returns the run's launch counts."""
+    requests as the CLI builds them; returns the run's launch counts and
+    paths."""
     from icl_speech_text_llm_tpu_torch.data.factory import create_dataset
     from icl_speech_text_llm_tpu_torch.data.packing import PackConfig
     from icl_speech_text_llm_tpu_torch.inference.engine import GenerationConfig
@@ -1808,22 +1824,27 @@ def _probe_run():
     return counts
 
 
+#: the reference's serving layout through the CLI, and the least launches
+#: of its 8-request run (2 batches of 9 decode steps)
+QUANT_13B_FLAGS = ["--quantize_int4", "--kv_int8"]
+QUANT_13B_NEED = {"int4_matmul": 7 * 40 * 9 * 2, "int8_matmul": 10 * 2, "append_kv_q8": 9 * 2,
+                  "flash_attention_causal": 40 * 2, "flash_attention_noncausal": 32 * 2,
+                  "gated_bias_attention": 12 * 2}
+
+
 def _main_phase(out_dir):
-    """The inference main paths → {kernel: launches of the run of its path}:
-    7B bf16, 13B int4 weights + int8 KV cache, 7B int8 weights, 7B beams
-    through the CLI; 7B with the flash-decode kernel and BEATs' row
-    schedule, 13B int4 + int8 KV with the flash-decode kernel and sampled
-    beams through the library; BEATs' batched schedule through its op; the
-    streaming probe through its entry point."""
+    """The inference main paths → ({kernel: launches of the run of its path},
+    (launch counts, paths) of the 13B int4 + int8 KV CLI run): 7B bf16, 13B
+    int4 weights + int8 KV cache, 7B int8 weights, 7B beams through the CLI;
+    7B with the flash-decode kernel and BEATs' row schedule, 13B int4 + int8
+    KV with the flash-decode kernel and sampled beams through the library;
+    BEATs' batched schedule through its op; the streaming probe through its
+    entry point."""
     _main_run(os.path.join(out_dir, "7b"), "salmonn-7b", [], 8, {
         "flash_attention_noncausal": 32 * 2, "gated_bias_attention": 12 * 2,
         "flash_attention_causal": 32 * 2, "append_kv": 9 * 2})
-    quant = _main_run(os.path.join(out_dir, "13b_int4"), "salmonn-13b",
-                      ["--quantize_int4", "--kv_int8"], 8, {
-                          "int4_matmul": 7 * 40 * 9 * 2, "int8_matmul": 10 * 2,
-                          "append_kv_q8": 9 * 2, "flash_attention_causal": 40 * 2,
-                          "flash_attention_noncausal": 32 * 2,
-                          "gated_bias_attention": 12 * 2})
+    quant, quant_paths = _main_run(os.path.join(out_dir, "13b_int4"), "salmonn-13b",
+                                   QUANT_13B_FLAGS, 8, QUANT_13B_NEED)
     _main_run(os.path.join(out_dir, "7b_int8"), "salmonn-7b", ["--quantize_int8"], 4, {
         "int8_matmul": 7 * 32 * 9, "append_kv": 9, "flash_attention_causal": 32})
     # (a) beam search, the repetition penalty and min_new_tokens through the
@@ -1834,18 +1855,18 @@ def _main_phase(out_dir):
                   "gated_bias_attention": 12, "append_kv": 9})
     # (b) the flash-decode kernel (K7 ×32 a step) and BEATs' row schedule (K9
     # ×12 a batch)
-    flash = _api_run(os.path.join(out_dir, "7b_flash"), "salmonn-7b",
-                     {"use_flash_decode": True}, {"lean_bias_flash": True}, None, 4, {
-                         "flash_decode_attention": 32 * 9, "gated_bias_attention_rows": 12,
-                         "flash_attention_causal": 32, "append_kv": 9})
+    flash, _ = _api_run(os.path.join(out_dir, "7b_flash"), "salmonn-7b",
+                        {"use_flash_decode": True}, {"lean_bias_flash": True}, None, 4, {
+                            "flash_decode_attention": 32 * 9, "gated_bias_attention_rows": 12,
+                            "flash_attention_causal": 32, "append_kv": 9})
     if flash["gated_bias_attention"] or flash["flash_decode_attention_q8"]:
         raise AssertionError(f"the 7B flash run took another route: {flash}")
     # (c) K7 on the int8 cache over 16 rows (4 sampled beams)
-    flash_q8 = _api_run(os.path.join(out_dir, "13b_flash_q8"), "salmonn-13b",
-                        {"use_flash_decode": True, "kv_int8": True, "num_beams": 4,
-                         "do_sample": True}, {}, 4, 4, {
-                            "flash_decode_attention_q8": 40 * 9,
-                            "int4_matmul": 7 * 40 * 9, "append_kv_q8": 9})
+    flash_q8, _ = _api_run(os.path.join(out_dir, "13b_flash_q8"), "salmonn-13b",
+                           {"use_flash_decode": True, "kv_int8": True, "num_beams": 4,
+                            "do_sample": True}, {}, 4, 4, {
+                               "flash_decode_attention_q8": 40 * 9,
+                               "int4_matmul": 7 * 40 * 9, "append_kv_q8": 9})
     if quant["append_kv"] or flash_q8["append_kv"]:
         raise AssertionError("an int8-cache run launched the bf16 append (K4): "
                              f"{quant['append_kv']}, {flash_q8['append_kv']}")
@@ -1859,7 +1880,278 @@ def _main_phase(out_dir):
             "gated_bias_attention_rows": flash["gated_bias_attention_rows"],
             "flash_decode_attention_q8": flash_q8["flash_decode_attention_q8"],
             "gated_bias_attention_batched": batched["gated_bias_attention_batched"],
-            "stream_read": probe["stream_read"]}
+            "stream_read": probe["stream_read"]}, (quant, quant_paths)
+
+
+#: free disk the load phase needs under the repository: ~1.9 GB of fp16 HF
+#: shards and a ~1.1 GB dir (13B widths, 2 layers), the ~7.5 GB int4 dir of
+#: the full 13B decoder, with room to spare
+LOAD_DISK_BYTES = 16 << 30
+#: the least bound of the converted-dir CLI run's model build (the in-memory
+#: build passes through 26 GB of bf16 decoder weights)
+LOAD_PEAK_BYTES = 16 << 30
+
+
+def _leaves_identical(label, got, want):
+    """Two {tree path: array or tensor} maps: the same paths, and every leaf
+    of the same dtype, shape and bits (compared on the card)."""
+    import numpy as np
+    import torch
+
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: paths differ: {sorted(set(got) ^ set(want))}")
+    for k in want:
+        g, w = (torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray) else x
+                for x in (got[k], want[k]))
+        if g.dtype != w.dtype or not torch.equal(g.cuda(), w.cuda()):
+            raise AssertionError(f"{label}: leaf {k} differs ({g.dtype} vs {w.dtype})")
+
+
+def _convert_check(out_dir):
+    """(a) The converters at full 13B width: HF shards of vicuna-13b's widths
+    cut to 2 layers, written by ``write_hf_decoder_shards`` and converted by
+    ``cli.convert --quantize_int4`` on the host, hold the bytes that
+    ``quantize_decoder(bits=4)`` gives on the card over the same weights read
+    back by ``TensorSource``; then a full-width ``salmonn_v1.pth`` (40 LoRA
+    layers, the 13B Q-Former) through ``cli.convert --component salmonn``."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
+    from icl_speech_text_llm_tpu_torch.cli import convert
+    from icl_speech_text_llm_tpu_torch.models import llama
+    from icl_speech_text_llm_tpu_torch.models.convert import (
+        convert_hf_decoder,
+        convert_salmonn_checkpoint,
+        load_torch_state_dict,
+    )
+    from icl_speech_text_llm_tpu_torch.models.factory import _check_tree_shapes
+    from icl_speech_text_llm_tpu_torch.models.qformer import init_qformer
+    from icl_speech_text_llm_tpu_torch.models.salmonn import salmonn_13b
+    from icl_speech_text_llm_tpu_torch.models.stream_convert import (
+        TensorSource,
+        flatten_tree,
+        load_params_dir,
+    )
+    from icl_speech_text_llm_tpu_torch.models.synth_ckpt import (
+        write_hf_decoder_shards,
+        write_salmonn_v1,
+    )
+    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_decoder
+
+    cut = dataclasses.replace(llama.DECODER_CONFIGS["vicuna-13b"], n_layers=2)
+    hf, dst = os.path.join(out_dir, "hf_13b_2_layers"), os.path.join(out_dir, "int4_13b_2_layers")
+    t0 = time.perf_counter()
+    nbytes = write_hf_decoder_shards(hf, cut, seed=42)
+    t_write = time.perf_counter() - t0
+    llama.DECODER_CONFIGS["vicuna-13b-2-layers"] = cut
+    t0 = time.perf_counter()
+    convert.main(["--src", hf, "--dst", dst, "--model_type", "vicuna-13b-2-layers",
+                  "--quantize_int4"])
+    t_convert = time.perf_counter() - t0
+    del llama.DECODER_CONFIGS["vicuna-13b-2-layers"]
+    src = TensorSource(hf)
+    ref = params_from_numpy(convert_hf_decoder({k: src.get(k) for k in src.keys()}, cut),
+                            "cuda", torch.float32)
+    quantize_decoder(ref, bits=4)
+    got = flatten_tree(load_params_dir(dst))
+    _leaves_identical("2-layer int4 dir vs quantize_decoder on the card", got, flatten_tree(ref))
+    for k in ("layers/attn/wq/q4", "layers/mlp/w_down/q4", "lm_head/q"):
+        if k not in got:
+            raise AssertionError(f"the int4 dir has no {k}")
+    print(f"  (a) vicuna-13b widths (dim 5120, hidden 13824, 40 heads, vocab 32000) cut to "
+          f"2 layers: write_hf_decoder_shards {nbytes / 1e9:.3f} GB fp16 in {t_write:.2f} s, "
+          f"cli.convert --quantize_int4 in {t_convert:.2f} s (host); {len(got)} leaves "
+          f"byte-identical to quantize_decoder(bits=4) on the card over TensorSource's "
+          f"weights", flush=True)
+    del ref, src
+    shutil.rmtree(hf)
+    shutil.rmtree(dst)
+    torch.cuda.empty_cache()
+
+    cfg = salmonn_13b()
+    pth, adapter = os.path.join(out_dir, "salmonn_v1.pth"), os.path.join(out_dir, "adapter_13b")
+    n = write_salmonn_v1(pth, cfg.qformer, cfg.llm, whisper_dim=cfg.whisper.dim,
+                         beats_dim=cfg.beats.dim, rank=cfg.lora.rank)
+    t0 = time.perf_counter()
+    convert.main(["--src", pth, "--dst", adapter, "--component", "salmonn",
+                  "--model_type", "vicuna-13b"])
+    t_adapter = time.perf_counter() - t0
+    tree = load_params_dir(adapter)
+    want = convert_salmonn_checkpoint(load_torch_state_dict(pth), cfg.qformer, cfg.llm)
+    _leaves_identical("13B adapter dir vs convert_salmonn_checkpoint", flatten_tree(tree),
+                      {k: np.asarray(v) for k, v in flatten_tree(want).items()})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for sub, init in (("qformer", init_qformer(cfg.qformer, gen, "cuda", torch.bfloat16)),
+                      ("lora", llama.init_lora(cfg.llm, cfg.lora, gen, "cuda", torch.bfloat16))):
+        if set(flatten_tree(init)) != set(flatten_tree(tree[sub])):
+            raise AssertionError(f"the 13B adapter's {sub} paths differ from the preset's")
+        _check_tree_shapes(sub, init, tree[sub])
+    print(f"  (a) salmonn_v1.pth at 13B widths ({n} tensors, {cfg.llm.n_layers} LoRA layers) "
+          f"through "
+          f"cli.convert --component salmonn in {t_adapter:.2f} s: "
+          f"{len(flatten_tree(tree))} leaves, equal to convert_salmonn_checkpoint, the "
+          f"salmonn-13b preset's paths and shapes (LoRA wq a "
+          f"{tuple(tree['lora']['wq']['a'].shape)})", flush=True)
+
+
+def _load_run(out_dir, quant_run):
+    """(b) The 13B int4 + int8 KV CLI run of phase main, with the decoder read
+    from a converted dir: the in-memory model's int4 decoder written by
+    ``_DirWriter``, then ``cli/inference.py --llm_params_dir`` with every
+    other argument as phase main's. The same launches and predictions are
+    required, and a model build under ``LOAD_PEAK_BYTES``. (c) The same CLI
+    asking for int8 over the int4 dir exits; ``cli.reprocess`` of (b)'s
+    results gives (b)'s metrics."""
+    import gc
+
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.cli import inference, reprocess
+    from icl_speech_text_llm_tpu_torch.evaluation import to_json_compatible
+    from icl_speech_text_llm_tpu_torch.models.factory import create_model
+    from icl_speech_text_llm_tpu_torch.models.stream_convert import _DirWriter, flatten_tree
+    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_decoder
+
+    counts13, paths13 = quant_run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = create_model("salmonn-13b", seed=42, device="cuda")
+    quantize_decoder(model.params["llm"], bits=4)
+    torch.cuda.synchronize()
+    mem_build_s, mem_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    dst = os.path.join(out_dir, "int4_13b")
+    t0 = time.perf_counter()
+    writer = _DirWriter(dst)
+    for path, leaf in flatten_tree(model.params["llm"]).items():
+        leaf = leaf.float() if leaf.dtype == torch.bfloat16 else leaf
+        writer.put(path, leaf.cpu().numpy())
+    writer.close()
+    t_dir = time.perf_counter() - t0
+    dir_bytes = sum(os.path.getsize(os.path.join(dst, f)) for f in os.listdir(dst))
+    print(f"  (b) in-memory salmonn-13b build + quantize_decoder(bits=4): {mem_build_s:.2f} s, "
+          f"peak {mem_peak / 2**30:.3f} GiB; its decoder written by _DirWriter: "
+          f"{dir_bytes / 1e9:.3f} GB in {t_dir:.2f} s", flush=True)
+    del model, leaf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    build = {}
+    create = inference.create_model
+
+    def measured_create_model(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = create(*args, **kwargs)
+        torch.cuda.synchronize()
+        build.update(seconds=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated())
+        return out
+
+    inference.create_model = measured_create_model
+    counts, paths = _main_run(os.path.join(out_dir, "13b_int4_dir"), "salmonn-13b",
+                              [*QUANT_13B_FLAGS, "--llm_params_dir", dst], 8, QUANT_13B_NEED,
+                              run_name="chip_smoke_load")
+    inference.create_model = create
+    print(f"  (b) converted-dir model build (create_model(llm_params_dir=)): "
+          f"{build['seconds']:.2f} s host, peak {build['peak'] / 2**30:.3f} GiB "
+          f"(in-memory build {mem_peak / 2**30:.3f} GiB)", flush=True)
+    if build["peak"] >= LOAD_PEAK_BYTES:
+        raise AssertionError(f"converted-dir build peak {build['peak']} >= {LOAD_PEAK_BYTES}")
+    if counts != counts13:
+        raise AssertionError(f"launches differ from phase main's 13B int4 run: "
+                             f"{ {k: (counts[k], counts13[k]) for k in counts if counts[k] != counts13[k]} }")
+
+    def results(p):
+        with open(p["results"]) as f:
+            return [(r["predicted_label"], r["tokens"]) for r in json.load(f)["results"]]
+
+    if results(paths) != results(paths13):
+        raise AssertionError("predictions differ from phase main's 13B int4 run")
+    print(f"  (b) launches and the 8 predictions and tokens identical to phase main's 13B "
+          f"int4 + int8 KV run", flush=True)
+
+    argv = ["--model_type", "salmonn-13b", "--dataset_type", "voxceleb", "--synthetic",
+            "--device", "cuda", "--results_dir", os.path.join(out_dir, "13b_int8_ask"),
+            "--kv_int8", "--quantize_int8", "--llm_params_dir", dst]
+    try:
+        inference.main(argv)
+    except SystemExit as e:
+        if "already int4-quantized" not in str(e):
+            raise
+        print(f"  (c) --quantize_int8 over the int4 dir exits: {e}", flush=True)
+    else:
+        raise AssertionError("--quantize_int8 over an int4 dir did not exit")
+    torch.cuda.empty_cache()
+    rescored = reprocess.main(["--results", paths["results"], "--dataset_type", "voxceleb"])
+    with open(paths["metrics"]) as f:
+        written = json.load(f)["voxceleb"]
+    if json.loads(json.dumps(to_json_compatible(rescored))) != written:
+        raise AssertionError("cli.reprocess's metrics differ from the run's metrics file")
+    print("  (c) cli.reprocess of (b)'s results: the metrics dict of (b)'s metrics file",
+          flush=True)
+    shutil.rmtree(dst)
+
+
+def _encode_chunk_run():
+    """(d) salmonn-7b's encoders over the main path's 24 clips (4 requests of
+    6) with ``encode_chunk=6`` and without chunks: the outputs within the
+    phase check's bound (5% of the largest |output|), and each one's peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.salmonn import (
+        encode_speech,
+        init_salmonn,
+        salmonn_7b,
+    )
+    from icl_speech_text_llm_tpu_torch.ops.mel import log_mel_spectrogram, pad_or_trim
+
+    cfg = salmonn_7b()
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    params = init_salmonn(cfg, gen, "cuda", torch.bfloat16, skip_llm=True)
+    wavs = np.random.RandomState(42).randn(24, 5 * 16000).astype(np.float32) * 0.1
+    flat = pad_or_trim(torch.from_numpy(wavs).cuda())
+    mels = log_mel_spectrogram(flat)
+    out = {}
+    for c in (6, 0):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            y = encode_speech(dataclasses.replace(cfg, encode_chunk=c), params, mels, flat)
+        torch.cuda.synchronize()
+        out[c] = (y, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base)
+    (y6, s6, p6), (y0, s0, p0) = out[6], out[0]
+    err = (y6.float() - y0.float()).abs().max().item()
+    tol = 5e-2 * y0.float().abs().max().item()
+    if y6.shape != y0.shape or not torch.isfinite(y6.float()).all() or err > tol:
+        raise AssertionError(f"encode_chunk=6 vs none: {tuple(y6.shape)}, max_abs_err {err} "
+                             f"> {tol}")
+    print(f"  (d) salmonn-7b encoders, 24 clips -> {tuple(y6.shape)}: encode_chunk=6 vs none "
+          f"max_abs_err {err:.4e} (tolerance {tol:.4e} = 5% of max |output|); peak memory "
+          f"above the weights {p6 / 2**30:.3f} GiB chunked, {p0 / 2**30:.3f} GiB unchunked; "
+          f"{s6:.3f} s and {s0:.3f} s", flush=True)
+    del params, out, y6, y0
+    torch.cuda.empty_cache()
+
+
+def _load_phase(out_dir, quant_run):
+    """Converted weights on the card: (a) the converters at full 13B width,
+    (b) phase main's 13B int4 + int8 KV CLI run from a converted dir, (c) the
+    width check and the reprocess CLI, (d) ``encode_chunk``."""
+    free = shutil.disk_usage(out_dir).free
+    print(f"  free disk under the repository: {free / 2**30:.1f} GiB (need "
+          f"{LOAD_DISK_BYTES / 2**30:.0f})", flush=True)
+    if free < LOAD_DISK_BYTES:
+        raise AssertionError(f"{free} bytes free < {LOAD_DISK_BYTES}")
+    _convert_check(out_dir)
+    _load_run(out_dir, quant_run)
+    _encode_chunk_run()
 
 
 def _train_run(out_dir, n_steps, extra, k1_per_step):
@@ -1978,8 +2270,12 @@ def main():
     print("phase main:", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=here) as d:
-        main_counts = _main_phase(d)
-    print(f"  phase main: {time.perf_counter() - t0:.1f} s", flush=True)
+        main_counts, quant_run = _main_phase(d)
+        print(f"  phase main: {time.perf_counter() - t0:.1f} s", flush=True)
+        print("phase load:", flush=True)
+        t0 = time.perf_counter()
+        _load_phase(d, quant_run)
+        print(f"  phase load: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase train:", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=here) as d:

@@ -12,10 +12,13 @@ Hermetic example (no SLUE data needed):
 int8. The generation flags are the JAX CLI's: ``--do_sample`` with
 ``--temperature`` / ``--top_p``, ``--num_beams`` (beam search, stochastic
 with ``--do_sample``), ``--repetition_penalty``, ``--length_penalty`` and
-``--min_new_tokens``. Flags for what is not ported yet (checkpoint and
-converted weight loading, automatic batch size) are accepted and raise
-``NotImplementedError`` when set. ``--compile_cache`` (the XLA compilation
-cache) has no counterpart and is gone.
+``--min_new_tokens``. ``--llm_params_dir`` / ``--adapter_params_dir`` load
+``cli/convert.py``'s converted dirs in place of the random LLM / adapter (a
+dir quantized at another width than ``--quantize_int*`` asks is an error; one
+at that width is used as it is), and ``--peft_model_path`` a trainable-only
+checkpoint (``state.npy``) over them. ``--auto_batch`` is not ported yet: it
+is accepted and raises ``NotImplementedError`` when set. ``--compile_cache``
+(the XLA compilation cache) has no counterpart and is gone.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from ..data.factory import create_dataset
 from ..data.packing import PackConfig
 from ..inference.engine import GenerationConfig
 from ..inference.runner import InferenceSettings, run_inference, save_final_results
-from ..models.factory import create_model
+from ..models.factory import create_model, get_model_from_checkpoint
 from ..ops.quant import quantize_decoder
 from ..registry import DatasetSplit, parse_dataset_types
 from ..utils.tokenization import get_tokenizer
@@ -83,13 +86,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    unported = {
-        "--peft_model_path": args.peft_model_path, "--llm_params_dir": args.llm_params_dir,
-        "--adapter_params_dir": args.adapter_params_dir, "--auto_batch": args.auto_batch,
-    }
-    asked = [flag for flag, val in unported.items() if val]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+    if args.auto_batch:
+        raise NotImplementedError("not ported yet: --auto_batch")
+
+
+def _quantize(model, bits: int) -> None:
+    """Quantize the model's LLM to ``bits`` in place (the engine holds the
+    same tree), unless it arrived pre-quantized from ``--llm_params_dir``:
+    then it must be at that width already."""
+    llm = model.params["llm"]
+    wq = llm["layers"]["attn"]["wq"]
+    if isinstance(wq, dict):
+        # int4 stores packed nibbles under "q4", int8 bytes under "q"
+        # (ops/quant.py): a width mismatch silently running the other layout
+        # (int8 13B needs twice the weight memory) is a hard error
+        have = 4 if "q4" in wq else 8
+        if have != bits:
+            raise SystemExit(
+                f"--quantize_int{bits} requested but llm_params_dir is already "
+                f"int{have}-quantized; re-convert the checkpoint (cli/convert.py) "
+                f"or drop the flag")
+        logging.info("LLM weights arrived pre-quantized at the requested int%d width; "
+                     "skipping runtime quantization", bits)
+    else:
+        quantize_decoder(llm, bits=bits)
 
 
 def main(argv=None):
@@ -113,10 +133,15 @@ def main(argv=None):
     if any(dt.value == "sqa" for dt in dataset_types):
         n_slots = 2 * (args.num_examples if args.fewshot_mode == "speech" else 0) + 2
 
-    model = create_model(args.model_type, tokenizer=args.tokenizer, seed=args.seed,
-                         generation=gen, device=args.device)
-    if args.quantize_int8 or args.quantize_int4:  # in place: the engine holds the same tree
-        quantize_decoder(model.params["llm"], bits=4 if args.quantize_int4 else 8)
+    model_kw = dict(tokenizer=args.tokenizer, seed=args.seed, generation=gen,
+                    device=args.device, llm_params_dir=args.llm_params_dir,
+                    adapter_params_dir=args.adapter_params_dir)
+    if args.peft_model_path:
+        model = get_model_from_checkpoint(args.peft_model_path, args.model_type, **model_kw)
+    else:
+        model = create_model(args.model_type, **model_kw)
+    if args.quantize_int8 or args.quantize_int4:
+        _quantize(model, 4 if args.quantize_int4 else 8)
     pack_cfg = PackConfig(
         seq_len=args.seq_len, text_len=args.text_len, max_slots=n_slots,
         audio_tokens_per_slot=model.cfg.audio_tokens_per_slot,

@@ -512,17 +512,3 @@ def evaluate_sqa(true_labels: Sequence, pred_labels: Sequence,
         },
     }
 
-
-def to_json_compatible(obj):
-    """Recursively convert numpy scalars/arrays to plain Python types."""
-    if isinstance(obj, np.integer):
-        return int(obj)
-    if isinstance(obj, np.floating):
-        return float(obj)
-    if isinstance(obj, np.ndarray):
-        return obj.tolist()
-    if isinstance(obj, dict):
-        return {k: to_json_compatible(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return [to_json_compatible(i) for i in obj]
-    return obj

@@ -2,8 +2,9 @@
 
 Counterpart of ``icl_speech_text_llm_tpu/models/salmonn.py``: the configs,
 ``init_salmonn``, ``encode_speech`` (every clip of the batch — query and
-exemplars — through the encoders in one call), ``assemble_sequence`` (one
-gather over [pad | text | speech] embeddings) and ``salmonn_train_loss``.
+exemplars — through the encoders in one call, or in sequential chunks of
+``encode_chunk`` clips), ``assemble_sequence`` (one gather over [pad | text |
+speech] embeddings) and ``salmonn_train_loss``.
 Generation is in ``inference/engine.py``.
 """
 
@@ -40,6 +41,10 @@ class SalmonnConfig:
     beats: Optional[BeatsConfig] = None  # None → whisper-only encoder stack
     lora: Optional[LoraConfig] = LoraConfig()
     compute_dtype: Any = torch.float32
+    # >0: run the encoders and the Q-Former over the clips in sequential
+    # chunks of this size (when it divides their number), bounding their peak
+    # activation memory
+    encode_chunk: int = 0
 
     @property
     def audio_tokens_per_slot(self) -> int:
@@ -92,49 +97,83 @@ TRAINABLE_KEYS = ("lora", "qformer")
 
 
 def init_salmonn(cfg: SalmonnConfig, gen: torch.Generator, device,
-                 dtype=torch.float32, trainable_dtype=None) -> Dict[str, Any]:
+                 dtype=torch.float32, trainable_dtype=None,
+                 skip_llm: bool = False) -> Dict[str, Any]:
     """Random-init parameter tree with the JAX package's layout, drawn from
     ``gen`` on ``device`` and stored in ``dtype``. ``trainable_dtype`` stores
     the trainable subtrees (``TRAINABLE_KEYS``) in another dtype: training
     keeps f32 master weights there (cast to the compute dtype at use, as the
     JAX package's f32 init is), since AdamW steps of lr ≈ 1e-5 vanish on bf16
-    weights. The draws are the same either way."""
+    weights. The draws are the same either way.
+
+    ``skip_llm`` leaves the decoder out, for callers that load converted
+    weights in its place: at 13B its throwaway bf16 init is 26 GB of device
+    memory. The decoder is drawn last, so every other subtree's draws are the
+    same with it or without."""
     tdt = dtype if trainable_dtype is None else trainable_dtype
     params = {
         "whisper": init_whisper_encoder(cfg.whisper, gen, device, dtype),
         "qformer": init_qformer(cfg.qformer, gen, device, tdt),
-        "llm": init_decoder(cfg.llm, gen, device, dtype),
     }
     if cfg.beats is not None:
         params["beats"] = init_beats(cfg.beats, gen, device, dtype)
     if cfg.lora is not None:
         params["lora"] = init_lora(cfg.llm, cfg.lora, gen, device, tdt)
+    if not skip_llm:
+        params["llm"] = init_decoder(cfg.llm, gen, device, dtype)
     return params
 
 
-def encoder_features(cfg: SalmonnConfig, params: Dict[str, Any], mels: torch.Tensor,
-                     wavs: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The frozen encoders, all clips at once: mels (N, 80, 3000) [+ wavs
-    (N, n) for BEATs] → (N, 1500, Whisper width [+ BEATs width])."""
+def _beats_bias(cfg: SalmonnConfig, params: Dict[str, Any],
+                wavs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """BEATs' relative-position bias table for clips of ``wavs``' length, or
+    None: built once a batch, outside any chunk loop."""
+    if cfg.beats is None or wavs is None or not cfg.beats.gated_rel_pos:
+        return None
+    return beats_bias_table(cfg.beats, params["beats"], beats_num_tokens(cfg.beats, wavs.shape[-1]))
+
+
+def _features(cfg: SalmonnConfig, params: Dict[str, Any], mels: torch.Tensor,
+              wavs: Optional[torch.Tensor], bias: Optional[torch.Tensor]) -> torch.Tensor:
     dt = cfg.compute_dtype
     feats = whisper_encode(cfg.whisper, params["whisper"], mels, dtype=dt)
     if cfg.beats is not None and wavs is not None:
-        bias = None
-        if cfg.beats.gated_rel_pos:
-            nt = beats_num_tokens(cfg.beats, wavs.shape[-1])
-            bias = beats_bias_table(cfg.beats, params["beats"], nt)
         audio = beats_encode(cfg.beats, params["beats"], wavs, dtype=dt, bias_table=bias)
         audio = F.pad(audio, (0, 0, 0, feats.shape[1] - audio.shape[1]))
         feats = torch.cat([feats, audio], dim=-1)
     return feats
 
 
+def _chunked(cfg: SalmonnConfig, fn, mels: torch.Tensor,
+             wavs: Optional[torch.Tensor]) -> torch.Tensor:
+    """``fn(mels, wavs)`` over sequential chunks of ``cfg.encode_chunk`` = c
+    clips when N > c is a multiple of c (the peak activation memory is then
+    one chunk's), concatenated; else over all N clips at once."""
+    n, c = mels.shape[0], cfg.encode_chunk
+    if c and n > c and n % c == 0:
+        return torch.cat([fn(mels[i:i + c], None if wavs is None else wavs[i:i + c])
+                          for i in range(0, n, c)])
+    return fn(mels, wavs)
+
+
+def encoder_features(cfg: SalmonnConfig, params: Dict[str, Any], mels: torch.Tensor,
+                     wavs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The frozen encoders: mels (N, 80, 3000) [+ wavs (N, n) for BEATs] →
+    (N, 1500, Whisper width [+ BEATs width]), chunked by
+    ``cfg.encode_chunk``."""
+    bias = _beats_bias(cfg, params, wavs)
+    return _chunked(cfg, lambda m, w: _features(cfg, params, m, w, bias), mels, wavs)
+
+
 def encode_speech(cfg: SalmonnConfig, params: Dict[str, Any], mels: torch.Tensor,
                   wavs: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """All clips at once: mels (N, 80, 3000) [+ wavs (N, n) for BEATs] →
-    (N, T_a, llm_dim)."""
-    return qformer_windows(cfg.qformer, params["qformer"],
-                           encoder_features(cfg, params, mels, wavs))
+    """mels (N, 80, 3000) [+ wavs (N, n) for BEATs] → (N, T_a, llm_dim): the
+    encoders and the Q-Former, chunked by ``cfg.encode_chunk`` (each chunk
+    through both, as the JAX package's ``lax.map`` runs them)."""
+    bias = _beats_bias(cfg, params, wavs)
+    return _chunked(cfg, lambda m, w: qformer_windows(cfg.qformer, params["qformer"],
+                                                      _features(cfg, params, m, w, bias)),
+                    mels, wavs)
 
 
 def assemble_sequence(cfg: SalmonnConfig, params: Dict[str, Any], text_tokens: torch.Tensor,

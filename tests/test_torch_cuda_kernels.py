@@ -765,3 +765,47 @@ def test_cuda_stream_probe_matches_plain(cuda_device, shape, blocks):
     assert probes.stream_rate(x, reps=3) > 0
     with pytest.raises(ValueError):
         probes.stream_read(x.reshape(-1)[:-1])  # not a multiple of 8 elements
+
+
+@pytest.mark.cuda
+def test_cuda_converted_int4_dir_matches_quantize_decoder_and_decodes_through_k10(
+        cuda_device, tmp_path):
+    """HF shards streamed to an int4 dir on the host (numpy) hold the bytes
+    ``quantize_decoder(bits=4)`` gives on the card over the same weights;
+    loaded onto the card, one decode step over the dir's tree launches K10 for
+    each of the 7 matmuls of each layer."""
+    from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
+    from icl_speech_text_llm_tpu_torch.models import llama as tllama
+    from icl_speech_text_llm_tpu_torch.models.convert import convert_hf_decoder
+    from icl_speech_text_llm_tpu_torch.models.stream_convert import (
+        TensorSource,
+        flatten_tree,
+        load_params_dir,
+        stream_decoder_to_dir,
+    )
+    from icl_speech_text_llm_tpu_torch.models.synth_ckpt import write_hf_decoder_shards
+
+    cfg = tllama.DecoderConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2, n_kv_heads=2,
+                               hidden_dim=512)
+    hf, dst = str(tmp_path / "hf"), str(tmp_path / "int4")
+    write_hf_decoder_shards(hf, cfg, seed=1)
+    stream_decoder_to_dir(TensorSource(hf), cfg, dst, quantize="int4")
+    src = TensorSource(hf)
+    ref = params_from_numpy(convert_hf_decoder({k: src.get(k) for k in src.keys()}, cfg),
+                            device=cuda_device)
+    tquant.quantize_decoder(ref, bits=4)
+    want = {k: v.cpu().numpy() for k, v in flatten_tree(ref).items()}
+    got = flatten_tree(load_params_dir(dst))
+    assert set(got) == set(want) and "layers/mlp/w_down/q4" in got
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+
+    params = params_from_numpy(load_params_dir(dst), device=cuda_device, dtype=torch.bfloat16)
+    cache = tllama.init_kv_cache(cfg, 2, 128, device=cuda_device)
+    x = torch.randn(2, 1, cfg.dim, device=cuda_device, dtype=torch.bfloat16)
+    before = kernels.launch_counts()["int4_matmul"]
+    h, _ = tllama.decode_step(cfg, params, x, cache,
+                              torch.tensor([5, 9], dtype=torch.int32, device=cuda_device))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["int4_matmul"] - before == 7 * cfg.n_layers
+    assert h.shape == (2, 1, cfg.dim) and torch.isfinite(h.float()).all()

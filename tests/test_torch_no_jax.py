@@ -1,7 +1,8 @@
 """The port must import on a machine that has torch but no jax, optax,
-orbax, pandas, sklearn or nltk (the machine with the GPU has none of them),
-and it imports nothing of the JAX package ``icl_speech_text_llm_tpu``, not
-even its modules that need no jax."""
+orbax, pandas, sklearn or nltk (the machine with the GPU has none of them)
+and no safetensors (the port reads and writes that format itself), and it
+imports nothing of the JAX package ``icl_speech_text_llm_tpu``, not even
+its modules that need no jax."""
 
 import os
 import re
@@ -10,13 +11,15 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "icl_speech_text_llm_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "optax", "orbax", "pandas", "sklearn", "nltk",
+BLOCKED = ("jax", "jaxlib", "optax", "orbax", "pandas", "sklearn", "nltk", "safetensors",
            "icl_speech_text_llm_tpu")
 #: modules the walk must reach (the training and quantized slices' among them)
 REQUIRED = ("training.step", "training.loop", "training.schedulers", "training.checkpoint",
             "cli.train", "data.pipeline", "ops.flash_attention", "models.salmonn",
             "ops.quant", "ops.int4_matmul", "inference.beam", "registry",
-            "utils.tokenization")
+            "utils.tokenization", "evaluation.reporting", "cli.reprocess", "cli.convert",
+            "utils.safetensors_np", "models.stream_convert", "models.convert",
+            "models.synth_ckpt", "models.base", "models.factory", "cli.inference")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys

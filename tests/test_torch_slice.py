@@ -138,6 +138,10 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
     assert all(len(r["tokens"]) == 4 for r in results["results"])
     assert results["perf"]["batches"] == 2 and "voxceleb" in metrics
     with pytest.raises(NotImplementedError):
+        inference.main(["--auto_batch", "--device", "cpu", "--results_dir", str(tmp_path)])
+    # --peft_model_path is ported (tests/test_torch_load.py): a dir without a
+    # checkpoint is an error of the load, not of the flag
+    with pytest.raises(FileNotFoundError):
         inference.main(["--peft_model_path", str(tmp_path), "--device", "cpu",
                         "--results_dir", str(tmp_path)])
 
