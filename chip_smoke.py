@@ -68,7 +68,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                (b)'s metrics; (d) salmonn-7b's encoders over 24 clips with
                encode_chunk=6 and without, the outputs within 5% of the
                largest and each one's peak memory;
-  7. train   — the port's training CLI on salmonn-7b at full width: 4 optimizer
+  7. serve   — the port's serving CLI (inference/serving.py, the slot pool) at
+               full width on phase main's voxceleb requests, each run's launch
+               counts read from that run alone: (1) salmonn-7b bf16, 8
+               requests, 4 slots, waves of 4, blocks of 4 steps, bucket 1024:
+               K2, K3, K1 in admission and K4 each step (no K4 q8), every
+               first token equal to phase main's 7B bf16 run's (the same
+               encoder batches and K1 shapes), the full sequences that agree
+               and where the others first diverge (5 pool rows decode against
+               4), and the synchronizing CUDA calls of each decode block
+               (torch.cuda.set_sync_debug_mode, information only);
+               (2) salmonn-13b --quantize_int4 --kv_int8 --shared_prefix
+               (prefix bucket 1024, K1 × 40 once) with suffixes in bucket 256
+               admitted in chunks of 128, 8 slots: K10, K12 and K4 q8 every
+               decode step, no K4; the prefix length, waves, pool bytes and
+               peak memory; (3) salmonn-7b --lora_bank of two checkpoints
+               written by save_checkpoint (the seed's LoRA and a second draw):
+               K1 and K4 with per-request adapters, the requests of adapter 0
+               served run 1's tokens; (4) salmonn-7b --num_beams 4, 4 requests
+               (the beam lane);
+  8. train   — the port's training CLI on salmonn-7b at full width: 4 optimizer
                steps (batch 4, seq 1024), validation by generation and a
                checkpoint, with each step's kernel launches read; then 2 steps
                with full activation checkpointing.
@@ -1834,13 +1853,14 @@ QUANT_13B_NEED = {"int4_matmul": 7 * 40 * 9 * 2, "int8_matmul": 10 * 2, "append_
 
 def _main_phase(out_dir):
     """The inference main paths → ({kernel: launches of the run of its path},
-    (launch counts, paths) of the 13B int4 + int8 KV CLI run): 7B bf16, 13B
+    (launch counts, paths) of the 13B int4 + int8 KV CLI run, the paths of
+    the 7B bf16 CLI run): 7B bf16, 13B
     int4 weights + int8 KV cache, 7B int8 weights, 7B beams through the CLI;
     7B with the flash-decode kernel and BEATs' row schedule, 13B int4 + int8
     KV with the flash-decode kernel and sampled beams through the library;
     BEATs' batched schedule through its op; the streaming probe through its
     entry point."""
-    _main_run(os.path.join(out_dir, "7b"), "salmonn-7b", [], 8, {
+    _, bf16_paths = _main_run(os.path.join(out_dir, "7b"), "salmonn-7b", [], 8, {
         "flash_attention_noncausal": 32 * 2, "gated_bias_attention": 12 * 2,
         "flash_attention_causal": 32 * 2, "append_kv": 9 * 2})
     quant, quant_paths = _main_run(os.path.join(out_dir, "13b_int4"), "salmonn-13b",
@@ -1880,7 +1900,7 @@ def _main_phase(out_dir):
             "gated_bias_attention_rows": flash["gated_bias_attention_rows"],
             "flash_decode_attention_q8": flash_q8["flash_decode_attention_q8"],
             "gated_bias_attention_batched": batched["gated_bias_attention_batched"],
-            "stream_read": probe["stream_read"]}, (quant, quant_paths)
+            "stream_read": probe["stream_read"]}, (quant, quant_paths), bf16_paths
 
 
 #: free disk the load phase needs under the repository: ~1.9 GB of fp16 HF
@@ -2239,6 +2259,197 @@ def _train_phase(out_dir):
     return counts
 
 
+#: the serving CLI's requests: phase main's voxceleb requests (6 clips, k =
+#: 5 speech exemplars, packed to 1024 positions), 10 new tokens
+SERVE_ARGS = ["--dataset_type", "voxceleb", "--synthetic", "--input_mode", "speech_only",
+              "--fewshot_mode", "speech", "--num_examples", "5", "--seq_len", "1024",
+              "--text_len", "448", "--max_new_tokens", "10", "--device", "cuda"]
+#: run 1's pool: phase main's batch of 4 as one admission wave at K1's
+#: (4, 32, 1024, 128)
+SERVE_7B_POOL = ["--num_slots", "4", "--admit_batch", "4", "--sync_every", "4",
+                 "--prompt_buckets", "1024"]
+
+
+def _serve_run(label, model_type, extra, n_requests, need, none=(), max_new=10):
+    """cli/serve.py at full width on the card, its output captured: launch
+    counts set to 0 just before the run and read just after, the peak memory
+    reset before. Every request answered with 1..max_new tokens of the
+    vocabulary (none ends on EOS's id), each ``need`` floor met (a callable
+    floor reads the run's summary), no launch of a kernel in ``none``. →
+    (results, counts, summary line, wall seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.cli import serve
+
+    argv = ["--model_type", model_type, "--max_samples", str(n_requests), *SERVE_ARGS, *extra]
+    print(f"  {label}: cli.serve {' '.join(extra)}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    lines = out.getvalue().strip().splitlines()
+    summary = json.loads(lines[-1])
+    if sorted(results) != list(range(n_requests)):
+        raise AssertionError(f"expected requests 0..{n_requests - 1}, got {sorted(results)}")
+    for toks in results.values():
+        if not (1 <= len(toks) <= max_new and all(0 <= t < 32000 for t in toks)):
+            raise AssertionError(f"bad served tokens {toks}")
+    for name, floor in need.items():
+        n = floor(summary) if callable(floor) else floor
+        print(f"    launches {name}: {counts[name]} (need >= {n})", flush=True)
+        if counts[name] < n:
+            raise AssertionError(f"{name} launched {counts[name]} < {n} times")
+    for name in none:
+        if counts[name]:
+            raise AssertionError(f"{label} launched {name} {counts[name]} times (needs none)")
+    print(f"    {n_requests} requests in {wall:.3f} s wall (model build included); serving "
+          f"{summary['throughput_req_s']} req/s over {summary['elapsed_s']} s; decode blocks "
+          f"{summary['decode_blocks']}, admission waves {summary['prefill_waves']}, beam waves "
+          f"{summary['beam_waves']}, flushes {summary['flushes']}, chunk prefills "
+          f"{summary['chunk_dispatches']}; pool {summary['pool_bytes'] / 2**30:.3f} GiB; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    print(f"    {lines[0]}", flush=True)
+    torch.cuda.empty_cache()
+    return results, counts, summary, wall
+
+
+def _serve_syncs():
+    """Wraps the engine's decode block so that each one's synchronizing CUDA
+    calls are counted (``torch.cuda.set_sync_debug_mode("warn")`` inside the
+    block only) → (the list the counts go to, a function that unwraps)."""
+    import warnings
+
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    counts, plain = [], ContinuousBatchingEngine._decode_once
+
+    def counted(self):
+        before = self.stats["decode_blocks"]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            plain(self)
+            torch.cuda.set_sync_debug_mode(0)
+        if self.stats["decode_blocks"] > before:
+            counts.append(sum("synchroniz" in str(w.message) for w in caught))
+
+    ContinuousBatchingEngine._decode_once = counted
+
+    def unwrap():
+        ContinuousBatchingEngine._decode_once = plain
+
+    return counts, unwrap
+
+
+def _serve_lora_dirs(out_dir):
+    """Two trainable checkpoints written by the port's save_checkpoint: d0
+    the LoRA of salmonn-7b drawn from seed 42 (the one phase main's and run
+    1's model carry), d1 a second draw (seed 43) with its B drawn too (a
+    drawn adapter starts with B = 0, which would serve d0's tokens)."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.factory import create_model
+    from icl_speech_text_llm_tpu_torch.models.llama import init_lora
+    from icl_speech_text_llm_tpu_torch.training.checkpoint import save_checkpoint
+
+    model = create_model("salmonn-7b", seed=42, device="cuda")
+    cfg, lora = model.cfg, model.params["lora"]
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    second = init_lora(cfg.llm, cfg.lora, gen, "cuda", lora["wq"]["a"].dtype)
+    for leaf in second.values():
+        leaf["b"] = torch.randn(leaf["b"].shape, generator=gen, device="cuda").to(
+            leaf["b"].dtype) * 0.02
+    dirs = [os.path.join(out_dir, "lora_d0"), os.path.join(out_dir, "lora_d1")]
+    # f32 on disk (numpy has no bf16), as the train CLI's f32 LoRA is saved
+    save_checkpoint(dirs[0], {"lora": _tree_to(lora, "cuda", torch.float32)})
+    save_checkpoint(dirs[1], {"lora": _tree_to(second, "cuda", torch.float32)})
+    del model, lora, second
+    torch.cuda.empty_cache()
+    return dirs
+
+
+def _serve_phase(out_dir, bf16_paths):
+    """The serving CLI (inference/serving.py's slot pool) at full width, on
+    phase main's voxceleb requests:
+    1. salmonn-7b bf16, 8 requests, 4 slots, waves of 4, blocks of 4 steps,
+       bucket 1024: K2/K3 in the encoders, K1 in admission, K4 a step; every
+       first token equal to phase main's 7B bf16 CLI run (the same encoder
+       batches and K1 at (4, 32, 1024, 128)), how many full sequences agree
+       (the decode batch is 5 pool rows against 4), the synchronizing CUDA
+       calls of each decode block;
+    2. salmonn-13b int4 + int8 KV pool, the exemplar header registered once
+       (prefix bucket 1024, K1 × 40), suffixes in bucket 256 admitted in
+       chunks of 128, 8 slots: K10, K12 and K4 q8 every decode step, no K4;
+    3. salmonn-7b with a bank of two LoRA checkpoints (requests alternate):
+       K1 and K4 with per-request adapters; the adapter-0 requests (the
+       model's own LoRA) give run 1's tokens;
+    4. salmonn-7b with 4 beams (the beam lane), 4 requests."""
+    with open(bf16_paths["results"]) as f:
+        static = json.load(f)["results"]
+    syncs, unwrap = _serve_syncs()
+    served, _, summary, wall = _serve_run("salmonn-7b bf16", "salmonn-7b", SERVE_7B_POOL, 8, {
+        "flash_attention_noncausal": 32 * 2, "gated_bias_attention": 12 * 2,
+        "flash_attention_causal": 32 * 2, "append_kv": 9 * 2}, none=("append_kv_q8",))
+    unwrap()
+    print(f"    wall {wall:.3f} s, {8 / wall:.4f} req/s with the model build; synchronizing "
+          f"CUDA calls per decode block {syncs} (information, no gate)", flush=True)
+    eos = 2
+    firsts = [r["tokens"][0] for r in static]
+    got = [served[i][0] if served[i] else eos for i in range(8)]
+    print(f"    first tokens: served {got}, phase main's 7B run {firsts}", flush=True)
+    if got != firsts:
+        raise AssertionError("run 1's first tokens differ from phase main's 7B bf16 run")
+    agree, diverge = 0, {}
+    for i, r in enumerate(static):
+        want = r["tokens"][:r["tokens"].index(eos)] if eos in r["tokens"] else r["tokens"]
+        if served[i] == want:
+            agree += 1
+        else:
+            diverge[i] = next(t for t in range(len(want) + 1)
+                              if t >= len(served[i]) or t >= len(want) or served[i][t] != want[t])
+    print(f"    full sequences equal to phase main's: {agree} of 8; first divergent step "
+          f"{diverge}", flush=True)
+
+    _, _, summary, _ = _serve_run(
+        "salmonn-13b int4 + int8 KV, shared prefix, chunked", "salmonn-13b",
+        ["--quantize_int4", "--kv_int8", "--shared_prefix", "--prefix_buckets", "1024",
+         "--prompt_buckets", "256", "--chunk_len", "128", "--num_slots", "8",
+         "--admit_batch", "4"], 8,
+        {"int4_matmul": lambda s: 7 * 40 * 4 * s["decode_blocks"],
+         "int8_matmul": lambda s: 4 * s["decode_blocks"],
+         "append_kv_q8": lambda s: 4 * s["decode_blocks"], "flash_attention_causal": 40},
+        none=("append_kv",))
+    print(f"    prefix {summary['prefix_len']} positions, waves {summary['prefill_waves']}, "
+          f"pool {summary['pool_bytes']} bytes", flush=True)
+
+    dirs = _serve_lora_dirs(out_dir)
+    banked, _, _, _ = _serve_run("salmonn-7b LoRA bank", "salmonn-7b",
+                                 SERVE_7B_POOL + ["--lora_bank", ",".join(dirs)], 8,
+                                 {"flash_attention_causal": 32 * 2, "append_kv": 9 * 2},
+                                 none=("append_kv_q8",))
+    same = [banked[i] == served[i] for i in range(8)]
+    print(f"    tokens equal to run 1's: adapter 0 (requests 0, 2, 4, 6) {same[0::2]}, "
+          f"adapter 1 {same[1::2]}", flush=True)
+    if not all(same[0::2]):
+        raise AssertionError("the bank's adapter 0 (the model's LoRA) changed run 1's tokens")
+
+    _serve_run("salmonn-7b 4 beams", "salmonn-7b", SERVE_7B_POOL + ["--num_beams", "4"], 4,
+               {"flash_attention_causal": 32, "append_kv": 9, "flash_attention_noncausal": 32,
+                "gated_bias_attention": 12}, none=("append_kv_q8",))
+
+
+
 def main():
     smi = _device_phase()
     import torch
@@ -2270,12 +2481,16 @@ def main():
     print("phase main:", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=here) as d:
-        main_counts, quant_run = _main_phase(d)
+        main_counts, quant_run, bf16_paths = _main_phase(d)
         print(f"  phase main: {time.perf_counter() - t0:.1f} s", flush=True)
         print("phase load:", flush=True)
         t0 = time.perf_counter()
         _load_phase(d, quant_run)
         print(f"  phase load: {time.perf_counter() - t0:.1f} s", flush=True)
+        print("phase serve:", flush=True)
+        t0 = time.perf_counter()
+        _serve_phase(d, bf16_paths)
+        print(f"  phase serve: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase train:", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=here) as d:

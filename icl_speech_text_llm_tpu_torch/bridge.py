@@ -2,7 +2,8 @@
 
 The port keeps the JAX tree layout (key names, stacked ``(L, ...)`` layer
 leaves, LoRA ``{"a", "b"}`` leaves, quantized ``{"q", "s"}`` /
-``{"q4", "s"}`` weights, KV-cache ``{"k", "v"[, "k_s", "v_s"]}``), so the
+``{"q4", "s"}`` weights, KV-cache ``{"k", "v"[, "k_s", "v_s"]}``, a
+``stack_lora_bank``'s (L, n_adapters, ...) leaves), so the
 bridge is a name-for-name copy. Leaves may be numpy arrays or anything
 ``numpy.asarray`` accepts (a JAX array converted by the caller, a memmap).
 """

@@ -61,10 +61,12 @@ def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def beam_decode_from_sequence(llm_cfg, llm_params: Dict[str, Any], seq: torch.Tensor,
                               lengths: torch.Tensor, gen, lora=None,
                               lora_scaling: float = 1.0, dt=torch.float32,
-                              events=None) -> torch.Tensor:
+                              events=None, generator=None) -> torch.Tensor:
     """Prefill once, then K-wide beam decode → (B, max_new_tokens) int32
     tokens of each sample's best hypothesis, EOS-filled past its end.
-    ``events`` (CUDA) marks the prefill and each decode step."""
+    ``events`` (CUDA) marks the prefill and each decode step. Stochastic
+    beams draw from ``generator`` where given (the serving engine's), else
+    from a new one seeded with ``gen.seed``."""
     gen.check_supported()
     mark = events.mark if events is not None else (lambda: None)
     mark()
@@ -73,7 +75,7 @@ def beam_decode_from_sequence(llm_cfg, llm_params: Dict[str, Any], seq: torch.Te
     dev = seq.device
     V = llm_cfg.vocab_size
     sample = bool(gen.do_sample) and gen.temperature > 0
-    rng = sampling_generator(gen, dev) if sample else None
+    rng = (generator or sampling_generator(gen, dev)) if sample else None
     temp = gen.temperature if sample else 1.0
     lengths = lengths.to(device=dev, dtype=torch.int32)
     cache_len = -(-(L + Tmax) // 128) * 128

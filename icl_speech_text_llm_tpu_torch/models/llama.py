@@ -11,7 +11,12 @@ LoRA added inside the q/v projections, and a KV cache updated in place.
   cache it is the training forward: nothing is written in place, autograd
   differentiates it (the flash op's backward is the K5/K6 kernels), and
   ``remat`` recomputes layers in the backward as the JAX package's
-  ``jax.checkpoint`` options do.
+  ``jax.checkpoint`` options do. With ``cache_positions`` it prefills over
+  an existing cache (serving's suffix and chunk prefills): sample b's k/v
+  land at [cache_positions[b], cache_positions[b] + T), quantized under an
+  int8 cache, and its queries attend the whole cache, dequantized, under
+  ``make_chunk_mask`` with the plain ``dot_product_attention``, as the JAX
+  package does on every backend (no Pallas kernel computes it).
 - ``decode_step`` is the single-token cached step of the JAX package's
   ``_decode_step_zero_copy``: each layer attends its cache slice
   ``cache_k[l]`` read-only with the current token folded in as one extra
@@ -30,7 +35,9 @@ LoRA added inside the q/v projections, and a KV cache updated in place.
 
 Matmul weights may be plain tensors or the JAX package's quantized dicts
 (int8 ``{"q", "s"}``, int4 ``{"q4", "s"}``): every product goes through
-``ops/quant.py:dequant_matmul``.
+``ops/quant.py:dequant_matmul``. ``lora`` is one adapter (leaves (L, d_in,
+r) / (L, r, d_out)) or, with ``lora_ids`` (B,), a ``stack_lora_bank`` of
+several (leaves (L, n_adapters, ...)), each sample applying its own.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from ..ops.flash_attention import (
     flash_decode_usable,
     q8_cache_layout_ok,
 )
+from ..ops.attention import dot_product_attention, make_chunk_mask, repeat_kv
 from ..ops.quant import dequant_matmul, quantize_kv
 from .common import (
     apply_rope,
@@ -247,14 +255,36 @@ def init_lora(cfg: DecoderConfig, lora_cfg: LoraConfig, gen: torch.Generator,
     return tree
 
 
-def _proj(x, w, lora_layer, name: str, scaling: float, bias=None):
+def stack_lora_bank(adapters) -> Dict[str, Any]:
+    """Stack same-shaped LoRA adapter trees (tensors or arrays) into a
+    multi-adapter bank: leaves (n_layers, n_adapters, ...), the adapter axis
+    after the layer axis, so each layer sees (n_adapters, d_in, r) to gather
+    per-sample factors from (``lora_ids``)."""
+    if not adapters:
+        raise ValueError("stack_lora_bank needs at least one adapter")
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(d[k] for d in leaves)) for k in leaves[0]}
+        return torch.stack([torch.as_tensor(x) for x in leaves], dim=1)
+
+    return stack(*adapters)
+
+
+def _proj(x, w, lora_layer, name: str, scaling: float, bias=None, lora_ids=None):
     """x @ w (+ bias) with the optional additive LoRA delta ((x·A)·B)·scaling;
-    ``w`` a tensor or a quantized dict (``dequant_matmul``)."""
+    ``w`` a tensor or a quantized dict (``dequant_matmul``). With
+    ``lora_ids`` (B,) the layer's LoRA is a bank (n_adapters, d_in, r) and
+    each sample gathers its own rank-r factors."""
     y = dequant_matmul(x, w)
     if lora_layer is not None and name in lora_layer:
         a = lora_layer[name]["a"].to(x.dtype)
         b = lora_layer[name]["b"].to(x.dtype)
-        y = y + torch.matmul(torch.matmul(x, a), b) * scaling
+        if lora_ids is None:
+            y = y + torch.matmul(torch.matmul(x, a), b) * scaling
+        else:
+            delta = torch.bmm(x, a.index_select(0, lora_ids))
+            y = y + torch.bmm(delta, b.index_select(0, lora_ids)) * scaling
     if bias is not None:
         y = y + bias.to(x.dtype)
     return y
@@ -265,29 +295,31 @@ def _proj(x, w, lora_layer, name: str, scaling: float, bias=None):
 # ---------------------------------------------------------------------------
 
 
-def _qkv_heads(cfg, layer, lora_layer, lora_scaling, x, positions, inv_freq):
+def _qkv_heads(cfg, layer, lora_layer, lora_scaling, x, positions, inv_freq, lora_ids=None):
     """Pre-norm, q/k/v projections, head split and RoPE → (B, H|Hkv, T, hd)."""
     B, T, _ = x.shape
     hd = cfg.hd
     attn = layer["attn"]
+    pj = functools.partial(_proj, lora_ids=lora_ids)
     h = rms_norm(x, layer["ln_attn"], cfg.rms_eps)
-    q = _proj(h, attn["wq"], lora_layer, "wq", lora_scaling, attn.get("bq"))
-    k = _proj(h, attn["wk"], lora_layer, "wk", lora_scaling, attn.get("bk"))
-    v = _proj(h, attn["wv"], lora_layer, "wv", lora_scaling, attn.get("bv"))
+    q = pj(h, attn["wq"], lora_layer, "wq", lora_scaling, attn.get("bq"))
+    k = pj(h, attn["wk"], lora_layer, "wk", lora_scaling, attn.get("bk"))
+    v = pj(h, attn["wv"], lora_layer, "wv", lora_scaling, attn.get("bv"))
     q = q.view(B, T, cfg.n_heads, hd).transpose(1, 2)
     k = k.view(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
     v = v.view(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
     return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
 
 
-def _attn_out_mlp(cfg, layer, lora_layer, lora_scaling, x, out):
+def _attn_out_mlp(cfg, layer, lora_layer, lora_scaling, x, out, lora_ids=None):
     """Attention output projection + residual + SwiGLU MLP block."""
     attn, mlp = layer["attn"], layer["mlp"]
-    x = x + _proj(out, attn["wo"], lora_layer, "wo", lora_scaling)
+    pj = functools.partial(_proj, lora_ids=lora_ids)
+    x = x + pj(out, attn["wo"], lora_layer, "wo", lora_scaling)
     h = rms_norm(x, layer["ln_mlp"], cfg.rms_eps)
-    gate = _proj(h, mlp["w_gate"], lora_layer, "w_gate", lora_scaling)
-    up = _proj(h, mlp["w_up"], lora_layer, "w_up", lora_scaling)
-    return x + _proj(F.silu(gate) * up, mlp["w_down"], lora_layer, "w_down", lora_scaling)
+    gate = pj(h, mlp["w_gate"], lora_layer, "w_gate", lora_scaling)
+    up = pj(h, mlp["w_up"], lora_layer, "w_up", lora_scaling)
+    return x + pj(F.silu(gate) * up, mlp["w_down"], lora_layer, "w_down", lora_scaling)
 
 
 def _inv_freq(cfg: DecoderConfig, device) -> torch.Tensor:
@@ -341,30 +373,75 @@ def _checkpointed(remat, fn):
     return functools.partial(checkpoint, fn, **kw)
 
 
-def _layer_forward(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lengths,
-                   cache=None, l=0):
-    B, T, _ = x.shape
-    q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq)
-    if cache is not None:
-        if "k_s" in cache:  # int8 cache: quantized rows and their scales at [0, T)
-            (cache["k"][l, :, :, :T], cache["k_s"][l, :, :, :T]) = quantize_kv(k)
-            (cache["v"][l, :, :, :T], cache["v_s"][l, :, :, :T]) = quantize_kv(v)
+def _write_rows(plane, rows, starts):
+    """plane (B, Hkv, S[, hd]) gets rows (B, Hkv, T[, hd]) at [starts[b],
+    starts[b] + T) of sample b, in place."""
+    B, Hkv, T = rows.shape[:3]
+    dev = rows.device
+    pos = starts.long()[:, None, None] + torch.arange(T, device=dev)
+    b = torch.arange(B, device=dev)[:, None, None]
+    h = torch.arange(Hkv, device=dev)[None, :, None]
+    plane[b, h, pos] = rows.to(plane.dtype)
+
+
+def _cache_prefill_attn(cfg, q, k, v, cache, l, starts):
+    """The prefill over an existing cache: k/v (B, Hkv, T, hd) written at
+    ``starts`` (quantized with their scales under an int8 cache), then q
+    attends layer l's whole cache, dequantized, under ``make_chunk_mask``."""
+    quant = "k_s" in cache
+    for name, new in (("k", k), ("v", v)):
+        if quant:
+            rows, scales = quantize_kv(new)
+            _write_rows(cache[name + "_s"][l], scales, starts)
         else:
-            cache["k"][l, :, :, :T] = k
-            cache["v"][l, :, :, :T] = v
-    # attention over the current k/v, unquantized under an int8 cache
-    out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), lengths, causal=True)
+            rows = new
+        _write_rows(cache[name][l], rows, starts)
+    ck, cv = cache["k"][l], cache["v"][l]
+    if quant:
+        ck = ck.to(q.dtype) * cache["k_s"][l][..., None].to(q.dtype)
+        cv = cv.to(q.dtype) * cache["v_s"][l][..., None].to(q.dtype)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    mask = make_chunk_mask(starts, q.shape[2], ck.shape[2])
+    return dot_product_attention(q, repeat_kv(ck.to(q.dtype), n_rep),
+                                 repeat_kv(cv.to(q.dtype), n_rep), mask)
+
+
+def _layer_forward(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lengths,
+                   cache=None, l=0, starts=None, lora_ids=None):
+    B, T, _ = x.shape
+    q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lora_ids)
+    if starts is not None:
+        out = _cache_prefill_attn(cfg, q, k, v, cache, l, starts)
+    else:
+        if cache is not None:
+            if "k_s" in cache:  # int8 cache: quantized rows and their scales at [0, T)
+                (cache["k"][l, :, :, :T], cache["k_s"][l, :, :, :T]) = quantize_kv(k)
+                (cache["v"][l, :, :, :T], cache["v_s"][l, :, :, :T]) = quantize_kv(v)
+            else:
+                cache["k"][l, :, :, :T] = k
+                cache["v"][l, :, :, :T] = v
+        # attention over the current k/v, unquantized under an int8 cache
+        out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), lengths, causal=True)
     out = out.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.hd)
-    return _attn_out_mlp(cfg, layer, lo, lora_scaling, x, out)
+    return _attn_out_mlp(cfg, layer, lo, lora_scaling, x, out, lora_ids)
 
 
 def decoder_forward(cfg: DecoderConfig, params: Dict[str, Any], inputs_embeds: torch.Tensor,
                     lengths: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None,
                     lora: Optional[Dict[str, Any]] = None, lora_scaling: float = 1.0,
-                    remat=False) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+                    remat=False, lora_ids: Optional[torch.Tensor] = None,
+                    cache_positions: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Causal prefill over right-padded prompts: inputs_embeds (B, T, dim),
     lengths (B,) valid positions. Writes every layer's k/v into cache[..., :T, :]
     in place when a cache is given. Returns (final-normed hidden, cache).
+    ``lora_ids`` (B,): ``lora`` is a ``stack_lora_bank`` bank, sample b
+    applies adapter lora_ids[b].
+
+    ``cache_positions`` (B,) int (needs a cache; ``lengths`` is unused):
+    the prefill over an existing cache. Sample b's tokens sit at RoPE
+    positions cache_positions[b] + i, their k/v are written there, and they
+    attend every cache position up to their own (``_cache_prefill_attn``).
 
     ``remat`` (training): ``True`` checkpoints every layer,
     ``"dots"`` every layer with the weight-matmul outputs saved, ``"1inK"``
@@ -373,6 +450,10 @@ def decoder_forward(cfg: DecoderConfig, params: Dict[str, Any], inputs_embeds: t
     B, T, _ = inputs_embeds.shape
     inv_freq = _inv_freq(cfg, inputs_embeds.device)
     positions = torch.arange(T, device=inputs_embeds.device)[None].expand(B, T)
+    if cache_positions is not None:
+        if cache is None:
+            raise ValueError("cache_positions needs a cache")
+        positions = cache_positions.long()[:, None] + positions
     g = _mixed_remat_group(remat)
     if g and cfg.n_layers % g:
         _warn_remat_degraded(remat, cfg.n_layers, "n_layers not divisible by K")
@@ -384,7 +465,8 @@ def decoder_forward(cfg: DecoderConfig, params: Dict[str, Any], inputs_embeds: t
         layer = layer_at(params["layers"], l)
         lo = layer_at(lora, l) if lora is not None else None
         fn = plain if (g and l % g == g - 1) else ckpt
-        x = fn(layer, lo, lora_scaling, x, positions, inv_freq, lengths, cache, l)
+        x = fn(layer, lo, lora_scaling, x, positions, inv_freq, lengths, cache, l,
+               cache_positions, lora_ids)
     return rms_norm(x, params["final_norm"], cfg.rms_eps), cache
 
 
@@ -448,6 +530,7 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
                 cache: Dict[str, torch.Tensor], cache_positions: torch.Tensor,
                 lora: Optional[Dict[str, Any]] = None, lora_scaling: float = 1.0,
                 attention: DecodeAttention = DecodeAttention.XLA,
+                lora_ids: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One cached decode step: x (B, 1, dim) at positions cache_positions (B,)
     int32 (each sample's count of cached tokens). Every layer attends its
@@ -459,7 +542,8 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
     in place: ``append_kv`` for a bf16 cache, ``append_kv_q8`` for an int8
     one, which quantizes the rows and writes their scales in the same launch
     (the JAX package quantizes in its scan and writes the scales with a
-    per-sample DUS)."""
+    per-sample DUS). ``lora_ids`` (B,): ``lora`` is a bank, as in
+    ``decoder_forward``."""
     if attention is DecodeAttention.GENERIC:
         raise NotImplementedError(
             "use_flash_decode=False (the GSPMD scanned-cache decode) is not ported")
@@ -480,7 +564,7 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
     for l in range(L):
         layer = layer_at(params["layers"], l)
         lo = layer_at(lora, l) if lora is not None else None
-        q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq)
+        q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lora_ids)
         if flash and quant:
             out = flash_decode_attention_q8(q, cache["k"], cache["v"], *scales, cache_positions,
                                             self_kv=(k, v), layer=l)
@@ -493,7 +577,7 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
         new_k[l] = k
         new_v[l] = v
         x = _attn_out_mlp(cfg, layer, lo, lora_scaling, x,
-                          out.transpose(1, 2).reshape(B, 1, cfg.n_heads * hd))
+                          out.transpose(1, 2).reshape(B, 1, cfg.n_heads * hd), lora_ids)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if quant:
         append_kv_q8(cache["k"], cache["v"], *scales, new_k, new_v, cache_positions)

@@ -1,8 +1,10 @@
 """Attention ops: the plain masked attention and its masks.
 
 Counterpart of ``icl_speech_text_llm_tpu/ops/attention.py``. The Q-Former
-attends through ``dot_product_attention``; the encoders and the LLM prefill
-go through the kernel-backed ops of ``ops/flash_attention.py``.
+and the LLM's prefill over an existing cache (serving's suffix and chunk
+prefills, ``make_chunk_mask``) attend through ``dot_product_attention``;
+the encoders and the LLM's prefill from position 0 go through the
+kernel-backed ops of ``ops/flash_attention.py``.
 """
 
 from __future__ import annotations
@@ -62,3 +64,12 @@ def make_decode_mask(lengths: torch.Tensor, cache_len: int) -> torch.Tensor:
     """(B, 1, 1, cache_len) mask for single-token decode: positions < length."""
     return (torch.arange(cache_len, device=lengths.device)[None, :]
             < lengths[:, None])[:, None, None]
+
+
+def make_chunk_mask(starts: torch.Tensor, tq: int, cache_len: int) -> torch.Tensor:
+    """(B, 1, tq, cache_len) mask for a suffix or chunk prefill over an
+    existing cache: query i of sample b sits at absolute position
+    starts[b] + i and attends every cache position ≤ it."""
+    qi = starts[:, None] + torch.arange(tq, device=starts.device)[None, :]
+    kj = torch.arange(cache_len, device=starts.device)[None, None, :]
+    return (kj <= qi[:, :, None])[:, None]

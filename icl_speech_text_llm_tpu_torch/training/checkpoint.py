@@ -7,6 +7,8 @@ JAX package's ``load_checkpoint`` falls back to, so either package reads the
 other's — and ``train_meta.json`` holds ``epoch``, ``step``, ``loss`` and
 ``metadata``. Only the trainable subtrees are saved, with the optimizer's
 moments for resume; loads are non-strict (unknown subtrees are skipped).
+``load_lora_bank`` stacks the ``lora`` subtrees of several checkpoints into
+one multi-adapter bank for serving.
 """
 
 from __future__ import annotations
@@ -86,3 +88,21 @@ def copy_into(dst, src) -> None:
         return
     with torch.no_grad():
         dst.copy_(torch.as_tensor(np.asarray(src)))
+
+
+def load_lora_bank(ckpt_dirs) -> Dict[str, Any]:
+    """Stack the ``lora`` subtrees of N trainable checkpoints into a
+    multi-adapter bank (``models/llama.py:stack_lora_bank``; adapter id
+    follows list order; CPU tensors, leaves (n_layers, N, ...)). Every
+    checkpoint must share rank and targets."""
+    if not ckpt_dirs:
+        raise ValueError("load_lora_bank needs at least one checkpoint dir")
+    from ..models.llama import stack_lora_bank
+
+    adapters = []
+    for d in ckpt_dirs:
+        trainable = load_checkpoint(d)["trainable"]
+        if "lora" not in trainable:
+            raise KeyError(f"checkpoint {d} has no 'lora' subtree (keys: {list(trainable)})")
+        adapters.append(trainable["lora"])
+    return stack_lora_bank(adapters)

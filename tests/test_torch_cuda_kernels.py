@@ -809,3 +809,57 @@ def test_cuda_converted_int4_dir_matches_quantize_decoder_and_decodes_through_k1
     torch.cuda.synchronize()
     assert kernels.launch_counts()["int4_matmul"] - before == 7 * cfg.n_layers
     assert h.shape == (2, 1, cfg.dim) and torch.isfinite(h.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16_pool", "int8_pool"])
+def test_cuda_serving_pool_admits_through_k1_and_appends_through_k4(cuda_device, kv_int8):
+    """The serving engine at salmonn-7b's decoder widths cut to one layer,
+    bf16 on the card: one admission wave of 4 requests (K1, once a layer),
+    then every decode step one append into the pool's (L, S + 1, Hkv,
+    cache_len, hd) layout, scratch row included: K4 for the bf16 pool, K4
+    q8 for the int8 one, never the other. Each slot's KV block is
+    bit-identical to the static engine's prefill of the same 4 rows, and
+    each first token is that prefill's argmax."""
+    import dataclasses
+
+    from icl_speech_text_llm_tpu_torch.inference import engine as tengine
+    from icl_speech_text_llm_tpu_torch.inference import serving as tserving
+    from icl_speech_text_llm_tpu_torch.models import llama as tllama
+
+    cfg = dataclasses.replace(tllama.DECODER_CONFIGS["vicuna-7b"], n_layers=1)
+    params = tllama.init_decoder(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                                 cuda_device, torch.bfloat16)
+    lengths = [200, 256, 131, 17]
+    rng = np.random.RandomState(1)
+    embs = [torch.from_numpy((rng.randn(n, cfg.dim) * 0.3).astype(np.float32))
+            .to(cuda_device, torch.bfloat16) for n in lengths]
+    scfg = tserving.ServingConfig(num_slots=4, max_new_tokens=6, prompt_buckets=(256,),
+                                  admit_batch=4, sync_every=2, kv_int8=kv_int8, eos_token_id=2)
+    eng = tserving.ContinuousBatchingEngine(cfg, params, scfg, dtype=torch.bfloat16,
+                                            device=cuda_device)
+    assert eng._cache["k"].shape == (1, 5, cfg.n_kv_heads, 384, cfg.hd)
+    kernels.reset_launch_counts()
+    rids = [eng.submit(e, n) for e, n in zip(embs, lengths)]
+    res = eng.run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    steps = eng.stats["decode_blocks"] * scfg.sync_every
+    assert eng.stats["prefill_waves"] == {(256, 4, 0): 1} and steps == 6
+    assert counts["flash_attention_causal"] == cfg.n_layers
+    assert counts["append_kv_q8" if kv_int8 else "append_kv"] == steps
+    assert counts["append_kv" if kv_int8 else "append_kv_q8"] == 0
+    for r in rids:
+        assert len(res[r]) <= 6 and all(0 <= t < cfg.vocab_size for t in res[r])
+
+    seqs = torch.zeros((4, 256, cfg.dim), dtype=torch.bfloat16, device=cuda_device)
+    for j, e in enumerate(embs):
+        seqs[j, :lengths[j]] = e
+    logits, cache = tengine.prefill(
+        cfg, params, seqs, torch.tensor(lengths, dtype=torch.int32, device=cuda_device), 384,
+        dt=torch.bfloat16, kv_int8=kv_int8)
+    first = logits.argmax(-1).tolist()
+    for j, (r, n) in enumerate(zip(rids, lengths)):
+        assert res[r][:1] == ([] if first[j] == scfg.eos_token_id else [first[j]])
+        for key in cache:
+            assert torch.equal(eng._cache[key][:, j, :, :n], cache[key][:, j, :, :n]), (key, j)

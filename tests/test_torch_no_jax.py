@@ -19,7 +19,8 @@ REQUIRED = ("training.step", "training.loop", "training.schedulers", "training.c
             "ops.quant", "ops.int4_matmul", "inference.beam", "registry",
             "utils.tokenization", "evaluation.reporting", "cli.reprocess", "cli.convert",
             "utils.safetensors_np", "models.stream_convert", "models.convert",
-            "models.synth_ckpt", "models.base", "models.factory", "cli.inference")
+            "models.synth_ckpt", "models.base", "models.factory", "cli.inference",
+            "inference.serving", "cli.serve")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys

@@ -19,6 +19,7 @@ from icl_speech_text_llm_tpu.utils import tokenization as jtok
 from icl_speech_text_llm_tpu_torch import bridge
 from icl_speech_text_llm_tpu_torch import registry as tregistry
 from icl_speech_text_llm_tpu_torch.inference.engine import SalmonnEngine
+from icl_speech_text_llm_tpu_torch.inference.serving import ContinuousBatchingEngine
 from icl_speech_text_llm_tpu_torch.models import factory
 from icl_speech_text_llm_tpu_torch.models.llama import init_kv_cache
 from icl_speech_text_llm_tpu_torch.utils import tokenization as ttok
@@ -98,6 +99,6 @@ def test_tiny_tokenizer_encodes_and_decodes_as_the_original():
 @pytest.mark.parametrize("fn,arg", [
     (factory.create_model, "device"), (factory.SalmonnModel.__init__, "device"),
     (SalmonnEngine.__init__, "device"), (bridge.params_from_numpy, "device"),
-    (init_kv_cache, "device")])
+    (init_kv_cache, "device"), (ContinuousBatchingEngine.__init__, "device")])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
