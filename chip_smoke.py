@@ -29,6 +29,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                main path's sampled beams; K7 q8 at the 13B 4-row and 16-row shapes, with
                SDPA over a dequantized bf16 copy printed for reference; the
                streaming probe (K11) on two 75.5 MB buffers, with its GB/s;
+               and rows at phase qwen's shapes: K1 at (4, 28, 2048, 128)
+               over 4 kv heads (n_rep 7) with its prompts' lengths, K2 over
+               its 24 clips with each clip's frame count as the key length,
+               K5 + K6 at K1's shape, K4 and K4 q8 into its (28, 4, 4,
+               2176, 128) cache, K7 q8 over it, K10 and K12 at its decode
+               products and K12 at its 3584 × 156032 lm_head. The attention
+               bounds count the query rows below each length and the keys
+               below it (the rows past a length are padding no consumer
+               reads), the bound over every query row printed beside;
   4. check   — one-layer-per-stack models, the bf16 kernel path on the card
                against the f32 plain path on the CPU with the same weights and
                inputs: at salmonn-7b widths the first-token logits and 3
@@ -37,7 +46,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                widths with int4 weights and an int8 KV cache the first-token
                logits and 3 decode steps' logits, with the default decode
                attention and with the flash-decode kernel, each step's one
-               append through K4 q8; then the kernels one full-depth decode
+               append through K4 q8; at qwen2-audio-7b widths (128-mel
+               tower, Qwen2-7B: qkv biases, n_rep 7) the first-token
+               logits, 3 decode steps through K7 and the train loss and
+               LoRA gradients; then the kernels one full-depth decode
                step launches (13B int4 + int8 KV, 7B bf16) and its time
                (``_append_sweep`` counts and times another tree's beside);
   5. main    — the port's inference entry points at full width (random
@@ -90,12 +102,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   8. train   — the port's training CLI on salmonn-7b at full width: 4 optimizer
                steps (batch 4, seq 1024), validation by generation and a
                checkpoint, with each step's kernel launches read; then 2 steps
-               with full activation checkpointing.
-The line before the last is a JSON object of the fourteen kernels (launch
-counts from the run of each kernel's own path: the salmonn-13b int4 run for
-the int4 and int8 matmuls and K4 q8, the flash-decode runs of phase main for the
-flash-decode kernels and the K9 schedule, phase main's BEATs-layer run for
-the K8 schedule, its probe run for K11, the train phase for the others),
+               with full activation checkpointing;
+  9. qwen    — Qwen2-Audio-7B at full width on the same requests in Qwen's
+               chat format (each clip splicing its audio_output_length
+               positions, prompts packed to 2048): the inference CLI bf16
+               (8) and --quantize_int8 --kv_int8 (4), create_model +
+               run_inference with int4 weights, an int8 KV cache and
+               use_flash_decode=True (4), the serving CLI (8; first tokens
+               equal to the bf16 CLI run's), and the train CLI (2 steps,
+               then 2 with full remat), each run's launch counts read from
+               that run alone (``_qwen_phase``).
+The line before the last is a JSON object of the fourteen kernels and the
+Qwen-shape rows (launch counts from the run of each kernel's own path: the
+salmonn-13b int4 run for the int4 and int8 matmuls and K4 q8, the
+flash-decode runs of phase main for the flash-decode kernels and the K9
+schedule, phase main's BEATs-layer run for the K8 schedule, its probe run
+for K11, the train phase for the others; for a Qwen-shape row, the phase
+qwen run that launches it at that shape),
 after a line with K7 q8's launches × (ms − bound) at the 16-row shape; the
 last
 line is {"ok": true, "device": {...}} and is printed only when every phase
@@ -138,10 +161,12 @@ def _row_case(label, ker, ref):
     return f"{label} (worst row's max |err| / max |plain|)", ratio, 2e-2, d.max().item()
 
 
-def _causal_pairs(S, lens):
-    """(query row, key) pairs a causal pass with key lengths computes, per
-    (sample, head): Σ_i min(i + 1, len)."""
-    return sum(n * (n + 1) // 2 + (S - n) * n for n in lens)
+def _causal_pairs(lens):
+    """(query row, key) pairs of a causal pass with key lengths that its
+    result holds, per head: the rows below each sample's length, Σ n(n + 1)/2.
+    The rows past a length (padding: no consumer reads them, the checks
+    compare none) are work the kernels do, not work the function needs."""
+    return sum(n * (n + 1) // 2 for n in lens)
 
 
 def _device_phase():
@@ -411,32 +436,51 @@ def _wq_library(name, w, s, group=128):
     return lambda x: torch.ops.aten._weight_int8pack_mm(x, wt, s)
 
 
-#: (kernel, label, M, K, N, stacked copies) of the quantized matmuls: the
-#: salmonn-13b int4 decode products (M = 4: w_gate/w_up, w_down, wq/wk/wv/wo
-#: read as layer 17 of a stacked [40] weight) and an M = 256 prefill; K12 at
-#: the 13B lm_head and the 7B w_down. Copies whose bytes exceed the 50 MB L2,
+#: (kernel, model, label, M, K, N, stacked copies) of the quantized matmuls:
+#: the salmonn-13b int4 decode products (M = 4: w_gate/w_up, w_down,
+#: wq/wk/wv/wo read as layer 17 of a stacked [40] weight) and an M = 256
+#: prefill; K12 at the 13B lm_head and the 7B w_down; then qwen2-audio-7b's
+#: decode products (runs (b) and (c) of phase qwen): w_gate/w_up, w_down,
+#: wq/wo (layer 17 of a stacked [28]) and wk/wv, int4 and int8, and its
+#: lm_head (3584 × 156032, int8 at either width: ``quantize_decoder`` keeps
+#: the lm_head int8 under int4). Copies whose bytes exceed the 50 MB L2,
 #: cycled, so that each timed call streams its weight from device memory.
+#: Each model's first case of a kernel gives that kernel's row.
 WQ_CASES = (
-    ("int4_matmul", "13B w_gate M=4", 4, 5120, 13824, 4),
-    ("int4_matmul", "13B w_down M=4", 4, 13824, 5120, 4),
-    ("int4_matmul", "13B wq stacked [17] M=4", 4, 5120, 5120, 40),
-    ("int4_matmul", "13B w_gate M=256", 256, 5120, 13824, 4),
-    ("int8_matmul", "13B lm_head M=4", 4, 5120, 32000, 1),
-    ("int8_matmul", "7B w_down M=4", 4, 11008, 4096, 4),
+    ("int4_matmul", "salmonn", "13B w_gate M=4", 4, 5120, 13824, 4),
+    ("int4_matmul", "salmonn", "13B w_down M=4", 4, 13824, 5120, 4),
+    ("int4_matmul", "salmonn", "13B wq stacked [17] M=4", 4, 5120, 5120, 40),
+    ("int4_matmul", "salmonn", "13B w_gate M=256", 256, 5120, 13824, 4),
+    ("int8_matmul", "salmonn", "13B lm_head M=4", 4, 5120, 32000, 1),
+    ("int8_matmul", "salmonn", "7B w_down M=4", 4, 11008, 4096, 4),
+    ("int4_matmul", "qwen2-audio-7b", "Qwen w_gate M=4", 4, 3584, 18944, 4),
+    ("int4_matmul", "qwen2-audio-7b", "Qwen w_down M=4", 4, 18944, 3584, 4),
+    ("int4_matmul", "qwen2-audio-7b", "Qwen wq stacked [17] M=4", 4, 3584, 3584, 28),
+    ("int4_matmul", "qwen2-audio-7b", "Qwen wk M=4", 4, 3584, 512, 64),
+    ("int8_matmul", "qwen2-audio-7b", "Qwen w_gate M=4", 4, 3584, 18944, 2),
+    ("int8_matmul", "qwen2-audio-7b", "Qwen w_down M=4", 4, 18944, 3584, 2),
+    ("int8_matmul", "qwen2-audio-7b", "Qwen wq M=4", 4, 3584, 3584, 8),
+    ("int8_matmul", "qwen2-audio-7b", "Qwen wk M=4", 4, 3584, 512, 32),
+    ("int8_matmul", "qwen2-audio-7b", "Qwen lm_head M=4", 4, 3584, 156032, 1),
 )
+
+#: the phase qwen run whose launches a Qwen row reports: K12 in run (b)
+#: (--quantize_int8), K10 in run (c) (int4)
+QWEN_WQ_RUN = {"int8_matmul": "b", "int4_matmul": "c"}
 
 
 def _wq_kernel_rows(report, gen):
     """K10 (int4) and W8A16 (int8, K12) at ``WQ_CASES``. Bound: 1e-2 × max
     |plain| over the output, the plain version computing in f32 from the
-    same bf16 x. Every int4 M = 4 shape and the lm_head are timed in turns
-    with torch's weight-only matmul (``_wq_library``), which must meet the
-    same bound; each prints its GB/s, column tile, cluster split, the
-    busiest SM's share of the mean (``partition``'s model) and the weight
-    bytes in flight an SM; at the end the int4 wrapper's host µs a call at
-    the three M = 4 shapes, beside the two-launch wrapper's
-    (``WQ_HOST_US_BEFORE``). The
-    row's numbers are its first case's."""
+    same bf16 x. Every M = 4 shape is timed in turns with torch's
+    weight-only matmul (``_wq_library``), which must meet the same bound;
+    each prints its GB/s, column tile, cluster split, the busiest SM's share
+    of the mean (``partition``'s model) and the weight bytes in flight an
+    SM; at the end the int4 wrapper's host µs a call at the three 13B M = 4
+    shapes, beside the two-launch wrapper's (``WQ_HOST_US_BEFORE``). Each
+    kernel gets a row for each model, with that model's first case's
+    numbers; a qwen2-audio-7b row reports the launches of its phase qwen
+    run (``QWEN_WQ_RUN``)."""
     import torch
 
     from icl_speech_text_llm_tpu_torch import kernels as built
@@ -450,65 +494,74 @@ def _wq_kernel_rows(report, gen):
                "int8_matmul": (wq.int8_matmul, wq.int8_matmul_plain,
                                "icl_speech_text_llm_tpu/ops/quant.py:141 (XLA convert; "
                                "no Pallas kernel)")}
-    host_runs = []  # the int4 M = 4 calls, timed on the host at the end
+    host_runs = []  # the 13B int4 M = 4 calls, timed on the host at the end
     for name, (kernel, plain, replaces) in kernels.items():
-        errs, timed = [], None
-        for _, label, M, K, N, copies in (c for c in WQ_CASES if c[0] == name):
-            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-            w, s = _wq_weights(gen, name, K, N, copies)
-            first = 17 if copies == 40 else 0
-            y = kernel(x, w[first], s[first])
-            ref = plain(x.float(), w[first], s[first])
-            torch.cuda.synchronize()
-            tol = 1e-2 * ref.abs().max().item()
-            errs.append((f"{label} (bound 1e-2 × max |plain|)",
-                         (y.float() - ref).abs().max().item(), tol))
-            nbytes = w[0].numel() + 4 * s[0].numel() + 2 * (M * K + M * N)
-            bound = _bound(nbytes, 2.0 * M * K * N)
+        for model in ("salmonn", "qwen2-audio-7b"):
+            errs, timed = [], None
+            for _, _, label, M, K, N, copies in (c for c in WQ_CASES
+                                                 if c[0] == name and c[1] == model):
+                x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+                w, s = _wq_weights(gen, name, K, N, copies)
+                first = 17 if copies > 17 else 0
+                y = kernel(x, w[first], s[first])
+                ref = plain(x.float(), w[first], s[first])
+                torch.cuda.synchronize()
+                tol = 1e-2 * ref.abs().max().item()
+                errs.append((f"{label} (bound 1e-2 × max |plain|)",
+                             (y.float() - ref).abs().max().item(), tol))
+                nbytes = w[0].numel() + 4 * s[0].numel() + 2 * (M * K + M * N)
+                bound = _bound(nbytes, 2.0 * M * K * N)
 
-            def run(i=0, kernel=kernel, x=x, w=w, s=s, copies=copies):
-                return kernel(x, w[i % copies], s[i % copies])
+                def run(i=0, kernel=kernel, x=x, w=w, s=s, copies=copies):
+                    return kernel(x, w[i % copies], s[i % copies])
 
-            lib_ms = None
-            if M == 4 and (name == "int4_matmul" or timed is None):
-                libs = [_wq_library(name, w[c], s[c]) for c in range(copies)]
-                lib_err = (libs[first](x).float() - ref).abs().max().item()
-                print(f"  {name} {label}: library call vs plain {lib_err:.3e} (tolerance "
-                      f"{tol:.1e}) {'ok' if lib_err <= tol else 'FAIL'}", flush=True)
-                if lib_err > tol:
-                    raise AssertionError(f"{name} library call error {lib_err} > {tol}")
-                ms, lib_ms = _in_turns(f"{name} {label}", run, lambda i=0: libs[i % copies](x),
-                                       bound, lib_name=f"aten._weight_{name[:4]}pack_mm")
-                del libs
-                if name == "int4_matmul":
-                    host_runs.append(run)
-            else:
-                ms = _device_ms(run)
-            plain_ms = _device_ms(lambda i=0: plain(x, w[i % copies], s[i % copies]), reps=5)
-            n_steps = w.shape[1] // wq.STEP_ROWS
-            tile_n, splits = wq.partition(M, N, n_steps, sms)
-            work = wq.sm_work(M, N, n_steps, tile_n, splits, sms)
-            # blocks an SM holds at once (the clusters that fit, as many as
-            # the grid has) × the ring's weight boxes
-            mt = 8 if M <= 8 else 16 if M <= 16 else 64
-            blocks = (N // tile_n) * -(-M // (16 if M <= 16 else 64)) * splits
-            fit = lib.iclk_wq_max_clusters(int(name == "int4_matmul"), mt, tile_n, splits)
-            resident = min(blocks, fit * splits) / sms
-            in_flight = resident * wq.STAGES * tile_n * wq.STEP_ROWS
-            print(f"  {name} {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of "
-                  f"{nbytes / 1e6:.1f} MB), {tile_n}-column tiles, {splits} K splits a "
-                  f"cluster, {blocks} blocks, busiest SM {max(work) * len(work) / sum(work):.3f}"
-                  f"× the mean, {resident:.2f} blocks an SM at once: up to "
-                  f"{in_flight / 1024:.0f} KB of weight in flight an SM; plain "
-                  f"{plain_ms:.4f} ms", flush=True)
-            if timed is None:
-                timed = (ms, plain_ms, bound, lib_ms)
-            del y, ref
-        report(name, "cuda", "icl_speech_text_llm_tpu_torch/csrc/wq_matmul.cu", replaces,
-               errs, *timed)
+                lib_ms = None
+                if M == 4:
+                    libs = [_wq_library(name, w[c], s[c]) for c in range(copies)]
+                    lib_err = (libs[first](x).float() - ref).abs().max().item()
+                    print(f"  {name} {label}: library call vs plain {lib_err:.3e} (tolerance "
+                          f"{tol:.1e}) {'ok' if lib_err <= tol else 'FAIL'}", flush=True)
+                    if lib_err > tol:
+                        raise AssertionError(f"{name} library call error {lib_err} > {tol}")
+                    ms, lib_ms = _in_turns(f"{name} {label}", run,
+                                           lambda i=0: libs[i % copies](x), bound,
+                                           lib_name=f"aten._weight_{name[:4]}pack_mm")
+                    del libs
+                    if name == "int4_matmul" and model == "salmonn":
+                        host_runs.append(run)
+                else:
+                    ms = _device_ms(run)
+                plain_ms = _device_ms(lambda i=0: plain(x, w[i % copies], s[i % copies]),
+                                      reps=5)
+                n_steps = w.shape[1] // wq.STEP_ROWS
+                tile_n, splits = wq.partition(M, N, n_steps, sms)
+                work = wq.sm_work(M, N, n_steps, tile_n, splits, sms)
+                # blocks an SM holds at once (the clusters that fit, as many as
+                # the grid has) × the ring's weight boxes
+                mt = 8 if M <= 8 else 16 if M <= 16 else 64
+                blocks = (N // tile_n) * -(-M // (16 if M <= 16 else 64)) * splits
+                fit = lib.iclk_wq_max_clusters(int(name == "int4_matmul"), mt, tile_n, splits)
+                resident = min(blocks, fit * splits) / sms
+                in_flight = resident * wq.STAGES * tile_n * wq.STEP_ROWS
+                print(f"  {name} {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of "
+                      f"{nbytes / 1e6:.1f} MB) = {100 * bound[0] / ms:.1f}% of its bound, "
+                      f"{tile_n}-column tiles, {splits} K splits a cluster, {blocks} blocks, "
+                      f"busiest SM {max(work) * len(work) / sum(work):.3f}× the mean, "
+                      f"{resident:.2f} blocks an SM at once: up to {in_flight / 1024:.0f} KB "
+                      f"of weight in flight an SM; plain {plain_ms:.4f} ms", flush=True)
+                if timed is None:
+                    timed = (ms, plain_ms, bound, lib_ms)
+                del x, w, s, y, ref
+                torch.cuda.empty_cache()
+            qwen = model != "salmonn"
+            row = report(f"{name} (qwen2-audio-7b)" if qwen else name, "cuda",
+                         "icl_speech_text_llm_tpu_torch/csrc/wq_matmul.cu", replaces, errs,
+                         *timed)
+            if qwen:
+                row["counter"], row["qwen_run"] = name, QWEN_WQ_RUN[name]
     # the wrapper's host µs a call: the least of three rounds over the shapes
     hosts = [min(h) for h in zip(*[[_host_us(r) for r in host_runs] for _ in range(3)])]
-    print(f"  int4_matmul host µs a call at w_gate / w_down / wq: "
+    print(f"  int4_matmul host µs a call at 13B w_gate / w_down / wq: "
           f"{' / '.join(f'{h:.2f}' for h in hosts)} (the two-launch wrapper: "
           f"{' / '.join(f'{h:.2f}' for h in WQ_HOST_US_BEFORE)})", flush=True)
     del host_runs
@@ -554,7 +607,7 @@ def _wq_sweep(baseline=None, reps=20):
     gen = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chosen = wq.partition
-    for name, label, M, K, N, copies in WQ_CASES:
+    for name, _, label, M, K, N, copies in WQ_CASES:
         if M != 4 or label.startswith("7B"):
             continue
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
@@ -1085,8 +1138,9 @@ def _kernel_phase():
     rows_i = torch.arange(S, device=dev)
     sdpa_mask = ((rows_i[None, :] <= rows_i[:, None])[None]
                  & (rows_i[None, None, :] < lengths[:, None, None]))[:, None]
-    nbytes = 2 * 2 * B * H * S * D + 2 * 2 * H * D * sum(lens) + 2 * 4 * B * H * S
-    bound = _bound(nbytes, 4.0 * D * H * _causal_pairs(S, lens))
+    # q, k, v and o rows below the lengths, and m and l of those rows
+    nbytes = 4 * 2 * H * D * sum(lens) + 2 * 4 * H * sum(lens)
+    bound = _bound(nbytes, 4.0 * D * H * _causal_pairs(lens))
     ms, lib_ms = _in_turns(
         "flash_attention_causal (4, 32, 1024, 128)",
         lambda i=0: fa.flash_attention_causal(q, k, v, lengths),
@@ -1234,8 +1288,9 @@ def _kernel_phase():
         if timed is None:  # the main path's shape
             args = (q, k, v, o, m, l, do, lengths, causal)
             args_kv = (q, k, v, m, l, delta, do, lengths, causal)
-            pairs = H * _causal_pairs(S, lens)
-            qo = 2 * B * H * S * D  # bytes of one (B, H, S, D) bf16 tensor
+            # counted over the rows below the lengths, as K1's bound
+            pairs = H * _causal_pairs(lens)
+            qo = 2 * H * D * sum(lens)  # bytes of one (B, H, S, D) bf16 tensor's rows
             kv_len = 2 * 2 * Hkv * D * sum(lens)  # k and v rows below the lengths
             # dq: q·kᵀ, do·vᵀ, ds·k; dk/dv: those two and pᵀ·do, dsᵀ·q. No
             # single PyTorch call returns dq alone or dk/dv alone: the library
@@ -1249,13 +1304,13 @@ def _kernel_phase():
                          & (rows_i[None, None, :] < lengths[:, None, None]))[:, None]
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
-            stats = 3 * 4 * B * H * S  # m, l, delta
+            stats = 3 * 4 * H * sum(lens)  # m, l, delta
             _, sdpa_bwd_ms = _in_turns(
                 f"{label} backward K5 + K6 (4, 32, 1024, 128)",
                 lambda i=0: (fa.flash_attention_bwd_dq(*args),
                              fa.flash_attention_bwd_dkv(*args_kv)),
                 lambda i=0: torch.autograd.grad(out, leaves, do, retain_graph=True),
-                _bound(4 * qo + kv_len + 2 * 2 * B * Hkv * S * D + stats, 10.0 * D * pairs),
+                _bound(4 * qo + 2 * kv_len + stats, 10.0 * D * pairs),
                 lib_name="SDPA backward", reps=10)
             del leaves, out, sdpa_mask
             timed = {
@@ -1264,8 +1319,7 @@ def _kernel_phase():
                        _bound(4 * qo + kv_len + stats, 6.0 * D * pairs), sdpa_bwd_ms),
                 "dkv": (_device_ms(lambda i=0: fa.flash_attention_bwd_dkv(*args_kv)),
                         _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args_kv)),
-                        _bound(2 * qo + kv_len + 2 * 2 * B * Hkv * S * D + stats,
-                               8.0 * D * pairs), sdpa_bwd_ms)}
+                        _bound(2 * qo + 2 * kv_len + stats, 8.0 * D * pairs), sdpa_bwd_ms)}
             print(f"  {label} backward alone: K5 {timed['dq'][0]:.4f} ms, K6 "
                   f"{timed['dkv'][0]:.4f} ms", flush=True)
         del q, k, v, do, o, m, l, dq, dk, dv, delta, f, dq_p, dk_p, dv_p, delta_p
@@ -1276,6 +1330,8 @@ def _kernel_phase():
            "icl_speech_text_llm_tpu/ops/flash_attention.py:455", dkv_errs, *timed["dkv"])
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    seq_lens = _qwen_kernel_rows(report, randn, stat_errs, valid_rows_err)
+    _qwen_cache_rows(report, gen, seq_lens)
     _wq_kernel_rows(report, gen)
     _probe_kernel_rows(report, gen)
     return rows
@@ -1291,35 +1347,42 @@ def _one_layer(cfg):
     )
 
 
-def _check_batch(cfg, seed):
-    """One request: 20 text positions, clip 0 (88), 20 text, clip 1 (88) of
-    5 s clips, in a 256-position prompt → (batch, lengths)."""
+def _check_batch(cfg, seed, n_audio=None, L=256):
+    """One request: 20 text positions, clip 0, 20 text, clip 1 of 5 s clips,
+    in an L-position prompt, each clip splicing ``n_audio`` positions of its
+    slot (all of it when None; else ``audio_lengths`` of 5 s rides along)
+    → (batch, lengths)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    B, n_slots, L, n_text = 1, 2, 256, 40
+    B, n_slots, n_text = 1, 2, 40
     T_a = cfg.audio_tokens_per_slot
+    n = T_a if n_audio is None else n_audio
     wavs = (rng.randn(B, n_slots, 5 * 16000) * 3000).astype(np.int16)
     text = rng.randint(3, cfg.llm.vocab_size, size=(B, n_text)).astype(np.int32)
-    idx = np.concatenate([1 + np.arange(20), 1 + n_text + np.arange(T_a),
-                          21 + np.arange(20), 1 + n_text + T_a + np.arange(T_a)])
+    idx = np.concatenate([1 + np.arange(20), 1 + n_text + np.arange(n),
+                          21 + np.arange(20), 1 + n_text + T_a + np.arange(n)])
     gather = np.zeros((B, L), np.int64)
     gather[0, :len(idx)] = idx
-    return {"text_tokens": text, "gather_idx": gather, "wavs": wavs}, \
-        np.array([len(idx)], np.int32)
+    batch = {"text_tokens": text, "gather_idx": gather, "wavs": wavs}
+    if n_audio is not None:
+        batch["audio_lengths"] = np.full((B, n_slots), 5 * 16000, np.int32)
+    return batch, np.array([len(idx)], np.int32)
 
 
-def _logits_run(cfg, params, batch, lengths, device, tokens, kv_int8, attention):
+def _logits_run(cfg, params, batch, lengths, device, tokens, kv_int8, attention,
+                sequence_fn=None):
     """First-token logits, then one decode step (``attention``) per given
-    token → a list of (1, V) f32 CPU tensors."""
+    token → a list of (1, V) f32 CPU tensors. ``sequence_fn``: the family's
+    prompt embeddings (SALMONN's ``speech_sequence`` when None)."""
     import torch
 
     from icl_speech_text_llm_tpu_torch.inference.engine import prefill, speech_sequence
     from icl_speech_text_llm_tpu_torch.models.llama import decode_step, embed_tokens, lm_logits
 
     with torch.inference_mode():
-        seq = speech_sequence(cfg, params, {k: torch.as_tensor(v, device=device)
-                                            for k, v in batch.items()})
+        seq = (sequence_fn or speech_sequence)(cfg, params, {
+            k: torch.as_tensor(v, device=device) for k, v in batch.items()})
         cur = torch.as_tensor(lengths, device=device)
         scaling = cfg.lora.scaling
         logits, cache = prefill(cfg.llm, params["llm"], seq, cur, seq.shape[1] + 128,
@@ -1335,7 +1398,7 @@ def _logits_run(cfg, params, batch, lengths, device, tokens, kv_int8, attention)
     return out
 
 
-def _cpu_reference(cfg, params, batch, lengths, kv_int8, steps=3):
+def _cpu_reference(cfg, params, batch, lengths, kv_int8, steps=3, sequence_fn=None):
     """The f32 plain path on the CPU and its greedy tokens → (logits list,
     tokens)."""
     import torch
@@ -1346,11 +1409,11 @@ def _cpu_reference(cfg, params, batch, lengths, kv_int8, steps=3):
     cpu_params = _tree_to(params, torch.device("cpu"), torch.float32)
     toks = []
     ref = _logits_run(cpu_cfg, cpu_params, batch, lengths, "cpu", toks, kv_int8,
-                      DecodeAttention.XLA)
+                      DecodeAttention.XLA, sequence_fn)
     for _ in range(steps):
         toks.append(int(ref[-1].argmax(-1)[0]))
         ref = _logits_run(cpu_cfg, cpu_params, batch, lengths, "cpu", toks, kv_int8,
-                          DecodeAttention.XLA)
+                          DecodeAttention.XLA, sequence_fn)
     return ref, toks
 
 
@@ -1445,6 +1508,349 @@ def _quant_reference_phase():
             {"int4_matmul": 7 * 4, "int8_matmul": 4, "append_kv_q8": 3, **need}, {"append_kv"})
         _compare_logits(label, got, ref)
     del params
+    torch.cuda.empty_cache()
+
+
+def _qwen_one_layer(cfg):
+    """A Qwen2-Audio config with one layer per stack at the same widths."""
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, n_layers=1),
+                               llm=dataclasses.replace(cfg.llm, n_layers=1))
+
+
+def _qwen_reference_phase():
+    """qwen2-audio-7b widths with one layer per stack (the tower over 128
+    mels, Qwen2-7B's decoder: qkv biases, 28 query heads over 4 kv heads,
+    rope θ 1e6): the bf16 kernel path on the card against the f32 plain path
+    on the CPU, same weights and inputs, each 5 s clip splicing its 125
+    positions: the first-token logits, 3 decode steps through the
+    flash-decode kernel (K7 at n_rep 7) fed the CPU path's greedy tokens,
+    then the training loss and the LoRA gradients. The qkv biases and LoRA
+    B are drawn non-zero."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import DecodeAttention
+    from icl_speech_text_llm_tpu_torch.models.qwen_audio import (
+        audio_output_length,
+        init_qwen_audio,
+        qwen2_audio_7b,
+        qwen_audio_train_loss,
+        qwen_sequence,
+    )
+
+    cfg = _qwen_one_layer(qwen2_audio_7b())
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = init_qwen_audio(cfg, gen, dev, torch.bfloat16, trainable_dtype=torch.float32)
+    attn = params["llm"]["layers"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        attn[name] = (torch.randn(attn[name].shape, generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+    for sub in params["lora"].values():
+        sub["b"] = torch.randn(sub["b"].shape, generator=gen, device=dev) * 0.02
+    n_audio = audio_output_length(5 * 16000)
+    batch, lengths = _check_batch(cfg, 5, n_audio, 384)
+    ref, toks = _cpu_reference(cfg, params, batch, lengths, kv_int8=False,
+                               sequence_fn=qwen_sequence)
+    got = _checked_launches(
+        "qwen2-audio-7b bf16 one-layer check with K7",
+        lambda: _logits_run(cfg, params, batch, lengths, dev, toks, False,
+                            DecodeAttention.FLASH, qwen_sequence),
+        {"flash_decode_attention": 3, "flash_attention_causal": 1,
+         "flash_attention_noncausal": 1, "append_kv": 3})
+    _compare_logits("qwen2-audio-7b bf16", got, ref)
+    _grad_check("qwen2-audio-7b ", cfg, params, _train_batch(cfg, n_audio, 384, 5 * 16000),
+                qwen_audio_train_loss, {})
+    del params
+    torch.cuda.empty_cache()
+
+
+#: phase qwen's packing (--seq_len, --text_len) and Qwen2-7B's vocabulary
+QWEN_SEQ = (2048, 1024)
+QWEN_VOCAB = 156032
+
+
+def _qwen_batches(n_requests=8):
+    """Phase qwen's requests as the CLI packs them, on the host: for each
+    batch of 4, (prompt positions used, each clip's valid samples)."""
+    from icl_speech_text_llm_tpu_torch.data.collate import collate_icl_batch
+    from icl_speech_text_llm_tpu_torch.data.factory import create_dataset
+    from icl_speech_text_llm_tpu_torch.data.packing import PackConfig
+    from icl_speech_text_llm_tpu_torch.models.qwen_audio import audio_output_length
+    from icl_speech_text_llm_tpu_torch.registry import DatasetSplit, DatasetType
+    from icl_speech_text_llm_tpu_torch.utils.tokenization import get_tokenizer
+
+    ds = create_dataset(DatasetType.VOXCELEB, split=DatasetSplit.TEST,
+                        input_mode="speech_only", fewshot_mode="speech", num_examples=5,
+                        is_training=False, max_samples=n_requests, synthetic=True,
+                        synthetic_size=32, seed=42, prompt_style="qwen")
+    pack = PackConfig(seq_len=QWEN_SEQ[0], text_len=QWEN_SEQ[1], max_slots=6,
+                      audio_tokens_per_slot=750, audio_len_fn=audio_output_length)
+    out = []
+    for start in range(0, n_requests, 4):
+        b = collate_icl_batch([ds[i] for i in range(start, start + 4)], get_tokenizer(), pack)
+        out.append((b.seq_lengths.tolist(), b.audio["audio_lengths"].reshape(-1).tolist()))
+    return out
+
+
+def _qwen_kernel_rows(report, randn, stat_errs, valid_rows_err):
+    """K1, K2 and K5 + K6 at the shapes phase qwen gives them, from its first
+    batch (``_qwen_batches``): K1 the Qwen2-7B prefill (4, 28, 2048, 128)
+    over 4 kv heads (n_rep 7) with the prompts' lengths; K2 the tower's 24
+    clips (24, 20, 1500, 64) with each clip's frame count as its key length
+    (also checked at 250, a 5 s clip's frames); K5 + K6 K1's shape. Each
+    bound counts the rows the result holds: the query rows below each
+    length (the rows past it are padding that no consumer reads: K1, K5
+    and K6 are compared below the lengths, K2 on every row, as both sides
+    compute them) and the keys below it, not all 1500 or 2048; the share
+    of the bound over every query row the kernel computes is printed beside
+    it. The library calls are SDPA with the same masks (``enable_gqa`` for
+    n_rep 7) and its backward. Rows report run (a)'s launches (K1, K2) and
+    run (e)'s (K5, K6). → the prompts' lengths."""
+    import torch
+    import torch.nn.functional as F
+
+    from icl_speech_text_llm_tpu_torch.models.qwen_audio import audio_feat_lengths
+    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    seq_lens, clip_samples = _qwen_batches(4)[0]
+    frames = [int(audio_feat_lengths(n)) for n in clip_samples]
+    print(f"  qwen2-audio-7b shapes: prompt positions {seq_lens} of {QWEN_SEQ[0]}, clip "
+          f"frames {frames} of 1500", flush=True)
+
+    def qwen_row(name, errs, ms, plain_ms, bound, lib_ms, every_row):
+        print(f"  {name} qwen2-audio-7b: {100 * bound[0] / ms:.1f}% of its bound over the "
+              f"valid rows {bound[0]:.4f} ms ({bound[1]}); {100 * every_row[0] / ms:.1f}% of "
+              f"the bound over every query row the kernel computes {every_row[0]:.4f} ms "
+              f"({every_row[1]})", flush=True)
+        row = report(f"{name} (qwen2-audio-7b)", "cuda",
+                     "icl_speech_text_llm_tpu_torch/csrc/" + (
+                         "flash_bwd.cu" if "bwd" in name else "flash_fwd.cu"),
+                     "icl_speech_text_llm_tpu/ops/flash_attention.py:" + {
+                         "flash_attention_causal": "145", "flash_attention_noncausal": "238",
+                         "flash_attention_bwd_dq": "432", "flash_attention_bwd_dkv": "455"}[name],
+                     errs, ms, plain_ms, bound, lib_ms)
+        row["counter"], row["qwen_run"] = name, "e" if "bwd" in name else "a"
+
+    # K1: the prefill, n_rep 7
+    B, H, Hkv, S, D = 4, 28, 4, QWEN_SEQ[0], 128
+    lengths = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    q, do = randn(B, H, S, D), randn(B, H, S, D)
+    k, v = randn(B, Hkv, S, D), randn(B, Hkv, S, D)
+    keep = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+    do = do * keep[:, None, :, None].to(do.dtype)
+    o, m, l = fa.flash_attention_causal(q, k, v, lengths)
+    errs = stat_errs((o, m, l), fa.flash_attention_plain(q, k, v, lengths, causal=True),
+                     seq_lens)
+    rows_i = torch.arange(S, device=dev)
+    sdpa_mask = ((rows_i[None, :] <= rows_i[:, None])[None]
+                 & (rows_i[None, None, :] < lengths[:, None, None]))[:, None]
+    n_valid = sum(seq_lens)
+    pairs = H * _causal_pairs(seq_lens)
+    pairs_all = H * sum(n * (n + 1) // 2 + (S - n) * n for n in seq_lens)
+    qo = 2 * H * D * n_valid  # bytes of a (B, H, S, D) bf16 tensor's valid rows
+    qo_all = 2 * B * H * S * D
+    kv_len = 2 * 2 * Hkv * D * n_valid  # k and v rows below the lengths
+    bound = _bound(2 * qo + kv_len + 2 * 4 * H * n_valid, 4.0 * D * pairs)
+    every_row = _bound(2 * qo_all + kv_len + 2 * 4 * B * H * S, 4.0 * D * pairs_all)
+    ms, lib_ms = _in_turns(
+        f"flash_attention_causal qwen2-audio-7b ({B}, {H}, {S}, {D}) over {Hkv} kv heads",
+        lambda i=0: fa.flash_attention_causal(q, k, v, lengths),
+        lambda i=0: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
+                                                   enable_gqa=True), bound)
+    qwen_row("flash_attention_causal", errs, ms,
+             _time_ms(lambda: fa.flash_attention_plain(q, k, v, lengths, True)), bound, lib_ms,
+             every_row)
+
+    # K5 + K6 at K1's shape
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, m, l, do, lengths, True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, m, l, delta, do, lengths, True)
+    f = [t.float() for t in (q, k, v, o)]
+    dq_p, delta_p = fa.flash_attention_bwd_dq_plain(*f, m, l, do.float(), lengths, True)
+    dk_p, dv_p = fa.flash_attention_bwd_dkv_plain(*f[:3], m, l, delta_p, do.float(), lengths,
+                                                  True)
+    del f
+
+    def rel_bound(what, ker, ref, scale=2e-2):
+        return (f"n_rep 7 {what} (bound {scale:g} × max |plain|)",
+                valid_rows_err(ker, ref, seq_lens),
+                scale * valid_rows_err(ref, torch.zeros_like(ref), seq_lens))
+
+    dq_errs = [rel_bound("dq", dq, dq_p),
+               rel_bound("delta", delta[..., None], delta_p[..., None], 1e-3)]
+    dkv_errs = [rel_bound("dk", dk, dk_p), rel_bound("dv", dv, dv_p)]
+    del dq_p, dk_p, dv_p, delta_p
+    args = (q, k, v, o, m, l, do, lengths, True)
+    args_kv = (q, k, v, m, l, delta, do, lengths, True)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask, enable_gqa=True)
+    stats, stats_all = 3 * 4 * H * n_valid, 3 * 4 * B * H * S  # m, l, delta
+    kv_all = 2 * 2 * B * Hkv * S * D  # dk and dv, every row
+    _, sdpa_bwd_ms = _in_turns(
+        f"backward K5 + K6 qwen2-audio-7b ({B}, {H}, {S}, {D}) over {Hkv} kv heads",
+        lambda i=0: (fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args_kv)),
+        lambda i=0: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        _bound(4 * qo + 2 * kv_len + stats, 10.0 * D * pairs),
+        lib_name="SDPA backward", reps=10)
+    del leaves, out, sdpa_mask
+    dq_ms = _device_ms(lambda i=0: fa.flash_attention_bwd_dq(*args))
+    dkv_ms = _device_ms(lambda i=0: fa.flash_attention_bwd_dkv(*args_kv))
+    print(f"  backward alone qwen2-audio-7b: K5 {dq_ms:.4f} ms, K6 {dkv_ms:.4f} ms", flush=True)
+    qwen_row("flash_attention_bwd_dq", dq_errs, dq_ms,
+             _time_ms(lambda: fa.flash_attention_bwd_dq_plain(*args)),
+             _bound(4 * qo + kv_len + stats, 6.0 * D * pairs), sdpa_bwd_ms,
+             _bound(4 * qo_all + kv_len + stats_all, 6.0 * D * pairs_all))
+    qwen_row("flash_attention_bwd_dkv", dkv_errs, dkv_ms,
+             _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args_kv)),
+             _bound(2 * qo + 2 * kv_len + stats, 8.0 * D * pairs), sdpa_bwd_ms,
+             _bound(2 * qo_all + kv_len + kv_all + stats_all, 8.0 * D * pairs_all))
+    del q, k, v, do, o, m, l, dq, dk, dv, delta, args, args_kv
+    torch.cuda.empty_cache()
+
+    # K2: the audio tower, each clip's keys below its frame count
+    B, H, S, D = len(frames), 20, 1500, 64
+    lengths = torch.tensor(frames, dtype=torch.int32, device=dev)
+    q, k, v = randn(B, H, S, D), randn(B, H, S, D), randn(B, H, S, D)
+    # every query row compared: both sides compute the rows past a clip's
+    # frames over the same keys
+    errs = stat_errs(fa.flash_attention_noncausal(q, k, v, lengths),
+                     fa.flash_attention_plain(q, k, v, lengths, causal=False), [S] * B)
+    five_s = torch.full((B,), 250, dtype=torch.int32, device=dev)  # 5 s clips' frames
+    errs += [(f"5 s clips (250 keys) {what}", e, tol) for what, e, tol in stat_errs(
+        fa.flash_attention_noncausal(q, k, v, five_s),
+        fa.flash_attention_plain(q, k, v, five_s, causal=False), [S] * B)]
+    key_mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    # valid: q, k, v and o rows below each clip's frames, m and l of those
+    # rows, every such query row against its clip's keys; every row: all
+    # 1500 query rows of q, o, m and l against the clip's keys
+    n_valid = sum(frames)
+    bound = _bound(4 * 2 * H * D * n_valid + 2 * 4 * H * n_valid,
+                   4.0 * D * H * sum(n * n for n in frames))
+    every_row = _bound(2 * 2 * B * H * S * D + 2 * 2 * H * D * n_valid + 2 * 4 * B * H * S,
+                       4.0 * D * H * S * n_valid)
+    ms, lib_ms = _in_turns(
+        f"flash_attention_noncausal qwen2-audio-7b ({B}, {H}, {S}, {D}), keys {n_valid} "
+        f"of {B * S}",
+        lambda i=0: fa.flash_attention_noncausal(q, k, v, lengths),
+        lambda i=0: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask), bound)
+    qwen_row("flash_attention_noncausal", errs, ms,
+             _time_ms(lambda: fa.flash_attention_plain(q, k, v, lengths, False)), bound, lib_ms,
+             every_row)
+    del q, k, v, key_mask
+    torch.cuda.empty_cache()
+    return seq_lens
+
+
+#: the static engine's cache length at phase qwen's packing: the 2048
+#: positions and 10 new tokens, rounded up to 128 (``generate_tokens``)
+QWEN_CACHE_LEN = -(-(QWEN_SEQ[0] + 10) // 128) * 128
+
+
+def _qwen_cache_rows(report, gen, seq_lens):
+    """K4, K4 q8 and K7 q8 at qwen2-audio-7b's static cache (28, 4, 4, 2176,
+    128), n_rep 7, the first decode step of phase qwen's first batch: rows
+    written at the prompts' lengths, attention over the rows below them
+    plus the current token's column. K4 and K4 q8 bit-exact against their
+    plain versions, K7 q8 per output row (``_row_case``); K4 timed in turns
+    with two ``index_put_`` (which must write the same bytes), K7 q8 one
+    layer a call cycling over the 28; bounds as ``_append_kernel_rows``'s
+    and ``_decode_kernel_rows``'. Rows report run (a)'s K4 launches and run
+    (c)'s K4 q8 and K7 q8 launches."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    L, B, H, Hkv, S, D = 28, 4, 28, 4, QWEN_CACHE_LEN, 128
+    pos = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    shape = f"({L}, {B}, {Hkv}, {S}, {D})"
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=dev).to(bf)
+
+    def same(a, b):
+        return 0.0 if all(torch.equal(x, y) for x, y in zip(a, b)) else max(
+            (x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+    def row(name, errs, ms, plain_ms, bound, lib_ms, run):
+        r = report(f"{name} (qwen2-audio-7b)", "cuda",
+                   "icl_speech_text_llm_tpu_torch/csrc/" + (
+                       "flash_decode.cu" if "decode" in name else "append_kv.cu"),
+                   "icl_speech_text_llm_tpu/ops/flash_attention.py:" + (
+                       "1281" if "decode" in name else "1438"), errs, ms, plain_ms, bound,
+                   lib_ms)
+        r["counter"], r["qwen_run"] = name, run
+
+    # K4: bf16 rows into the bf16 cache
+    ck, cv = randn(L, B, Hkv, S, D), randn(L, B, Hkv, S, D)
+    nk, nv = randn(L, B, Hkv, 1, D), randn(L, B, Hkv, 1, D)
+    plain, lib_copy = [ck.clone(), cv.clone()], [ck.clone(), cv.clone()]
+    fa.append_kv(ck, cv, nk, nv, pos)
+    fa.append_kv_plain(*plain, nk, nv, pos)
+    b_idx, pos_l = torch.arange(B, device=dev), pos.long()
+    rows_k, rows_v = (t[:, :, :, 0].permute(1, 0, 2, 3).contiguous() for t in (nk, nv))
+
+    def index_put(i=0, ck=ck, cv=cv):
+        ck.permute(1, 3, 0, 2, 4).index_put_((b_idx, pos_l), rows_k)
+        cv.permute(1, 3, 0, 2, 4).index_put_((b_idx, pos_l), rows_v)
+
+    index_put(0, *lib_copy)
+    errs = [(f"bf16 cache {shape} (bit-exact)", same([ck, cv], plain), 0.0),
+            ("index_put_ (library) vs kernel (bit-exact)", same([ck, cv], lib_copy), 0.0)]
+    del plain, lib_copy
+    bound = _bound(4 * L * B * Hkv * D * 2, 0.0)
+    ms, lib_ms = _in_turns(f"append_kv qwen2-audio-7b {shape}",
+                           lambda i=0: fa.append_kv(ck, cv, nk, nv, pos), index_put, bound,
+                           lib_name="index_put_ ×2", reps=50)
+    row("append_kv", errs, ms,
+        _device_ms(lambda i=0: fa.append_kv_plain(ck, cv, nk, nv, pos), reps=50), bound, lib_ms,
+        "a")
+    del ck, cv, rows_k, rows_v
+
+    # K4 q8: the same bf16 rows quantized into the int8 cache and its scales
+    cache = [torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    cache += [torch.rand((L, B, Hkv, S), generator=gen, device=dev) for _ in range(2)]
+    plain = [t.clone() for t in cache]
+    fa.append_kv_q8(*cache, nk, nv, pos)
+    fa.append_kv_q8_plain(*plain, nk, nv, pos)
+    errs = [(f"int8 cache {shape}, bf16 rows, rows and scales (bit-exact)",
+             same(cache, plain), 0.0)]
+    del plain
+    bound = _bound(2 * L * B * Hkv * D * 2 + 2 * L * B * Hkv * D + 2 * L * B * Hkv * 4 + 4 * B,
+                   0.0)
+    ms = _device_ms(lambda i=0: fa.append_kv_q8(*cache, nk, nv, pos), reps=50)
+    print(f"  append_kv_q8 qwen2-audio-7b {shape}: kernel {ms:.4f} ms = "
+          f"{100 * bound[0] / ms:.1f}% of its bound {bound[0]:.4f} ms", flush=True)
+    row("append_kv_q8", errs, ms,
+        _device_ms(lambda i=0: fa.append_kv_q8_plain(*cache, nk, nv, pos), reps=5), bound,
+        None, "c")
+    del cache, nk, nv
+    torch.cuda.empty_cache()
+
+    # K7 q8: one token's attention over the int8 cache, n_rep 7
+    q, cache, lengths, self_kv = _decode_case(gen, L, B, H, Hkv, S, seq_lens, True)
+
+    def kernel(i=0):
+        return fa.flash_decode_attention_q8(q, *cache, lengths, self_kv=self_kv, layer=i % L)
+
+    def plain(i=0):
+        c = [t[i % L] for t in cache]
+        return fa.flash_decode_attention_plain(q, c[0], c[1], lengths, self_kv=self_kv,
+                                               k_s=c[2], v_s=c[3])
+
+    errs = [_row_case(f"int8 cache {shape}, H {H}, layer {layer}", kernel(layer),
+                      plain(layer)) for layer in (0, L - 1)]
+    nbytes = Hkv * sum(seq_lens) * (2 * D + 8) + 2 * 2 * B * H * D + 2 * 2 * B * Hkv * D
+    bound = _bound(nbytes, 4.0 * D * H * sum(n + 1 for n in seq_lens))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = fa.decode_splits(B, Hkv, sms, fa.decode_resident(0, H // Hkv))
+    ms = _device_ms(kernel)
+    print(f"  flash_decode_attention_q8 qwen2-audio-7b {shape}, H {H}: clusters of {splits}, "
+          f"{B * Hkv * splits} blocks; kernel {ms:.4f} ms = {100 * bound[0] / ms:.1f}% of its "
+          f"bound {bound[0]:.4f} ms", flush=True)
+    row("flash_decode_attention_q8", errs, ms, _device_ms(plain, reps=5), bound, None, "c")
+    del q, cache, lengths, self_kv
     torch.cuda.empty_cache()
 
 
@@ -1555,16 +1961,13 @@ def _train_check_phase():
     and K6 backward) against the f32 plain path on the CPU, same weights and
     batch. LoRA B is drawn non-zero so that the A gradients are non-zero
     too; the Q-Former gradient flows back through dq, dk and dv."""
-    import numpy as np
     import torch
 
-    from icl_speech_text_llm_tpu_torch import kernels
     from icl_speech_text_llm_tpu_torch.models.salmonn import (
         init_salmonn,
         salmonn_7b,
         salmonn_train_loss,
     )
-    from icl_speech_text_llm_tpu_torch.training.step import merge_params, split_params, tree_map
 
     cfg = _one_layer(salmonn_7b())
     dev = torch.device("cuda")
@@ -1572,8 +1975,22 @@ def _train_check_phase():
     params = init_salmonn(cfg, gen, dev, torch.bfloat16, trainable_dtype=torch.float32)
     for sub in params["lora"].values():
         sub["b"] = torch.randn(sub["b"].shape, generator=gen, device=dev) * 0.02
+    _grad_check("", cfg, params, _train_batch(cfg, cfg.audio_tokens_per_slot, 256),
+                salmonn_train_loss, {"qformer": lambda n: n.startswith("qformer.")})
+    del params
+    torch.cuda.empty_cache()
+
+
+def _train_batch(cfg, n_audio, L, clip_samples=None):
+    """Two requests of text, clip 0, text, clip 1 (5 s clips, ragged text
+    lengths) in an L-position prompt, ``n_audio`` positions spliced from
+    each clip's slot, labels on 5 positions before each end.
+    ``clip_samples``: each clip's valid samples (``audio_lengths``), for a
+    family that splices per clip."""
+    import numpy as np
+
     rng = np.random.RandomState(1)
-    B, n_slots, L, n_text = 2, 2, 256, 40
+    B, n_slots, n_text = 2, 2, 40
     T_a = cfg.audio_tokens_per_slot
     wavs = (rng.randn(B, n_slots, 5 * 16000) * 3000).astype(np.int16)
     text = rng.randint(3, cfg.llm.vocab_size, size=(B, n_text)).astype(np.int32)
@@ -1581,25 +1998,46 @@ def _train_check_phase():
     mask = np.zeros((B, L), np.int32)
     labels = np.full((B, L), -100, np.int64)
     for b, n in enumerate((20, 10)):  # text, clip 0, text, clip 1; ragged lengths
-        idx = np.concatenate([1 + np.arange(n), 1 + n_text + np.arange(T_a),
-                              1 + n + np.arange(n), 1 + n_text + T_a + np.arange(T_a)])
+        idx = np.concatenate([1 + np.arange(n), 1 + n_text + np.arange(n_audio),
+                              1 + n + np.arange(n), 1 + n_text + T_a + np.arange(n_audio)])
         gather[b, :len(idx)] = idx
         mask[b, :len(idx)] = 1
         labels[b, len(idx) - 6:len(idx) - 1] = rng.randint(3, cfg.llm.vocab_size, 5)
     batch = {"text_tokens": text, "gather_idx": gather, "seq_mask": mask,
              "shifted_labels": labels, "wavs": wavs}
+    if clip_samples is not None:
+        batch["audio_lengths"] = np.full((B, n_slots), clip_samples, np.int32)
+    return batch
+
+
+#: the LoRA gradient groups of the training checks
+LORA_GROUPS = {"lora.*.a": lambda n: n.startswith("lora.") and n.endswith(".a"),
+               "lora.*.b": lambda n: n.startswith("lora.") and n.endswith(".b")}
+
+
+def _grad_check(label, cfg, params, batch, loss_fn, groups):
+    """The training loss and the trainable gradients of the bf16 kernel path
+    on the card (one K1, K5 and K6 launch: one layer) against the f32 plain
+    path on the CPU, the same weights and batch: the loss within 1e-2
+    relative, each group of gradients (``LORA_GROUPS`` and ``groups``)
+    within 5e-2 relative (L2) with a cosine of 0.99 or more."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.training.step import merge_params, split_params, tree_map
 
     def loss_and_grads(cfg, params, device):
         trainable, frozen = split_params(params)
         trainable = tree_map(lambda t: t.detach().clone().requires_grad_(), trainable)
-        loss = salmonn_train_loss(cfg, merge_params(frozen, trainable),
-                                  {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+        loss = loss_fn(cfg, merge_params(frozen, trainable),
+                       {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
         named = _paths(trainable)
         grads = torch.autograd.grad(loss, list(named.values()))
         return loss.item(), {n: g.float().cpu() for n, g in zip(named, grads)}
 
     before = kernels.launch_counts()
-    got_loss, got = loss_and_grads(cfg, params, dev)
+    got_loss, got = loss_and_grads(cfg, params, torch.device("cuda"))
     after = kernels.launch_counts()
     for name in ("flash_attention_causal", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         if after[name] - before[name] != 1:
@@ -1607,26 +2045,23 @@ def _train_check_phase():
     cpu_params = _tree_to(params, torch.device("cpu"), torch.float32)
     want_loss, want = loss_and_grads(dataclasses.replace(cfg, compute_dtype=torch.float32),
                                      cpu_params, torch.device("cpu"))
+    del cpu_params
     rel = abs(got_loss - want_loss) / abs(want_loss)
-    print(f"  train loss: card {got_loss:.6f} vs f32 CPU {want_loss:.6f}, relative error "
-          f"{rel:.3e} (bound 1e-2)", flush=True)
+    print(f"  {label}train loss: card {got_loss:.6f} vs f32 CPU {want_loss:.6f}, relative "
+          f"error {rel:.3e} (bound 1e-2)", flush=True)
     if not (np.isfinite(got_loss) and rel <= 1e-2):
-        raise AssertionError(f"train loss check failed: {got_loss} vs {want_loss}")
-    groups = {"lora.*.a": lambda n: n.startswith("lora.") and n.endswith(".a"),
-              "lora.*.b": lambda n: n.startswith("lora.") and n.endswith(".b"),
-              "qformer": lambda n: n.startswith("qformer.")}
-    for gname, member in groups.items():
+        raise AssertionError(f"{label}train loss check failed: {got_loss} vs {want_loss}")
+    for gname, member in {**LORA_GROUPS, **groups}.items():
         names = [n for n in want if member(n)]
         g = torch.cat([got[n].flatten() for n in names]).double()
         w = torch.cat([want[n].flatten() for n in names]).double()
         rel = ((g - w).norm() / w.norm()).item()
         cos = (g @ w / (g.norm() * w.norm())).item()
-        print(f"  grad {gname} ({len(names)} leaves, |g| {w.norm().item():.4e}): relative "
-              f"error {rel:.3e} (bound 5e-2), cosine {cos:.6f} (bound 0.99)", flush=True)
+        print(f"  {label}grad {gname} ({len(names)} leaves, |g| {w.norm().item():.4e}): "
+              f"relative error {rel:.3e} (bound 5e-2), cosine {cos:.6f} (bound 0.99)",
+              flush=True)
         if not (w.norm() > 0 and rel <= 5e-2 and cos >= 0.99):
-            raise AssertionError(f"train gradient check failed for {gname}")
-    del params, cpu_params
-    torch.cuda.empty_cache()
+            raise AssertionError(f"{label}train gradient check failed for {gname}")
 
 
 def _tree_to(tree, device, dtype):
@@ -1639,10 +2074,11 @@ def _tree_to(tree, device, dtype):
     return tree.to(device)
 
 
-def _checked_run(label, run, n_requests, need, max_new=10):
+def _checked_run(label, run, n_requests, need, max_new=10, vocab=32000, none=()):
     """One inference run at full width on the card: ``run()`` → the paths of
     its results and metrics JSON. Launch counts are set to 0 just before the
-    run and read just after; returns (counts, paths)."""
+    run and read just after; every token in the ``vocab``, each ``need``
+    floor met, no launch of a kernel in ``none``; returns (counts, paths)."""
     import torch
 
     from icl_speech_text_llm_tpu_torch import kernels
@@ -1663,7 +2099,7 @@ def _checked_run(label, run, n_requests, need, max_new=10):
         raise AssertionError(f"expected {n_requests} results, got {len(results)}")
     for r in results:
         toks = r["tokens"]
-        if len(toks) != max_new or not all(0 <= t < 32000 for t in toks):
+        if len(toks) != max_new or not all(0 <= t < vocab for t in toks):
             raise AssertionError(f"bad generated tokens {toks}")
     if metrics.get("voxceleb", {}).get("total_samples") != n_requests:
         raise AssertionError(f"metrics of {n_requests} voxceleb results expected in "
@@ -1674,6 +2110,9 @@ def _checked_run(label, run, n_requests, need, max_new=10):
         print(f"    launches {name}: {counts[name]} (need >= {n})", flush=True)
         if counts[name] < n:
             raise AssertionError(f"{name} launched {counts[name]} < {n} times")
+    for name in none:
+        if counts[name]:
+            raise AssertionError(f"{label} launched {name} {counts[name]} times (needs none)")
     perf = metrics["perf"]
     steps = perf["decode_step_ms"]
     print(f"    {n_requests} requests in {wall:.3f} s wall (model build included); serving "
@@ -1688,29 +2127,31 @@ def _checked_run(label, run, n_requests, need, max_new=10):
 
 
 def _main_run(out_dir, model_type, extra, n_requests, need, max_new=10,
-              run_name="chip_smoke"):
-    """cli/inference.py at full width on the card; returns the run's kernel
-    launch counts and the paths of its results and metrics JSON."""
+              run_name="chip_smoke", seq=(1024, 448), vocab=32000, none=()):
+    """cli/inference.py at full width on the card, prompts packed to
+    ``seq`` = (seq_len, text_len); returns the run's kernel launch counts
+    and the paths of its results and metrics JSON."""
     from icl_speech_text_llm_tpu_torch.cli import inference
 
     argv = ["--model_type", model_type, "--dataset_type", "voxceleb", "--synthetic",
             "--input_mode", "speech_only", "--fewshot_mode", "speech",
             "--num_examples", "5", "--batch_size", "4", "--max_samples", str(n_requests),
-            "--seq_len", "1024", "--text_len", "448", "--max_new_tokens", str(max_new),
+            "--seq_len", str(seq[0]), "--text_len", str(seq[1]),
+            "--max_new_tokens", str(max_new),
             "--device", "cuda", "--results_dir", out_dir, "--run_name", run_name, *extra]
     return _checked_run(f"{model_type} {' '.join(extra) or 'bf16'}",
-                        lambda: inference.main(argv), n_requests, need, max_new)
+                        lambda: inference.main(argv), n_requests, need, max_new, vocab, none)
 
 
-def _api_run(out_dir, model_type, gen_kw, beats_kw, bits, n_requests, need, max_new=10):
+def _api_run(out_dir, model_type, gen_kw, beats_kw, bits, n_requests, need, max_new=10,
+             seq=(1024, 448), vocab=32000, none=()):
     """The library entry points a user calls for what the CLI has no flag
     for: ``create_model(generation=GenerationConfig(**gen_kw))``, the BEATs
-    options ``beats_kw`` set on the model's config, ``quantize_decoder`` when
-    ``bits``, then ``run_inference`` + ``save_final_results`` on voxceleb
-    requests as the CLI builds them; returns the run's launch counts and
-    paths."""
+    options ``beats_kw`` (None: no BEATs) set on the model's config,
+    ``quantize_decoder`` when ``bits``, then ``run_inference`` +
+    ``save_final_results`` on voxceleb requests as the CLI builds them
+    (packed to ``seq``); returns the run's launch counts and paths."""
     from icl_speech_text_llm_tpu_torch.data.factory import create_dataset
-    from icl_speech_text_llm_tpu_torch.data.packing import PackConfig
     from icl_speech_text_llm_tpu_torch.inference.engine import GenerationConfig
     from icl_speech_text_llm_tpu_torch.inference.runner import (
         InferenceSettings,
@@ -1729,15 +2170,17 @@ def _api_run(out_dir, model_type, gen_kw, beats_kw, bits, n_requests, need, max_
         model = create_model(model_type, seed=42, generation=gen, device="cuda")
         if bits:
             quantize_decoder(model.params["llm"], bits=bits)
-        cfg = dataclasses.replace(model.cfg, beats=dataclasses.replace(model.cfg.beats,
-                                                                       **beats_kw))
-        model.cfg = model.engine.cfg = cfg
-        pack_cfg = PackConfig(seq_len=1024, text_len=448, max_slots=6,
-                              audio_tokens_per_slot=cfg.audio_tokens_per_slot)
+        cfg = model.cfg
+        if beats_kw is not None:
+            cfg = dataclasses.replace(cfg, beats=dataclasses.replace(cfg.beats, **beats_kw))
+            model.cfg = model.engine.cfg = cfg
+        pack_cfg = dataclasses.replace(model.pack_cfg, seq_len=seq[0], text_len=seq[1],
+                                       max_slots=6)
         dataset = create_dataset(
             DatasetType.VOXCELEB, split=DatasetSplit.TEST, input_mode="speech_only",
             fewshot_mode="speech", num_examples=5, is_training=False, max_samples=n_requests,
-            synthetic=True, synthetic_size=32, seed=42, prompt_style="salmonn")
+            synthetic=True, synthetic_size=32, seed=42,
+            prompt_style="qwen" if model_type.startswith("qwen") else "salmonn")
         settings = InferenceSettings(
             batch_size=4, max_new_tokens=max_new, results_dir=out_dir, run_name="chip_smoke",
             input_mode="speech_only", fewshot_mode="speech", num_examples=5,
@@ -1746,7 +2189,7 @@ def _api_run(out_dir, model_type, gen_kw, beats_kw, bits, n_requests, need, max_
         return save_final_results(payload, [DatasetType.VOXCELEB], settings)
 
     label = f"{model_type} {gen_kw} BEATs {beats_kw}" + (f" int{bits}" if bits else "")
-    return _checked_run(label, run, n_requests, need, max_new)
+    return _checked_run(label, run, n_requests, need, max_new, vocab, none)
 
 
 def _beats_batched_run():
@@ -2174,19 +2617,20 @@ def _load_phase(out_dir, quant_run):
     _encode_chunk_run()
 
 
-def _train_run(out_dir, n_steps, extra, k1_per_step):
-    """cli/train.py at salmonn-7b, full width, on the card; returns (result,
-    launch counts of the run)."""
+def _train_run(out_dir, n_steps, extra, need, model_type="salmonn-7b", seq=(1024, 448)):
+    """cli/train.py at ``model_type``, full width, on the card, prompts
+    packed to ``seq``; each step's launches at least ``need``; returns
+    (result, launch counts of the run)."""
     import numpy as np
     import torch
 
     from icl_speech_text_llm_tpu_torch import kernels
     from icl_speech_text_llm_tpu_torch.cli import train
 
-    argv = ["--model_type", "salmonn-7b", "--dataset_type", "voxceleb", "--synthetic",
+    argv = ["--model_type", model_type, "--dataset_type", "voxceleb", "--synthetic",
             "--fewshot_mode", "speech", "--num_examples", "5", "--batch_size", "4",
             "--max_samples", str(4 * n_steps), "--synthetic_size", "16", "--num_epochs", "1",
-            "--seq_len", "1024", "--text_len", "448", "--val_max_samples", "4",
+            "--seq_len", str(seq[0]), "--text_len", str(seq[1]), "--val_max_samples", "4",
             "--warmup_steps", "0", "--device", "cuda", "--output_dir", out_dir, *extra]
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -2196,16 +2640,13 @@ def _train_run(out_dir, n_steps, extra, k1_per_step):
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     perf = result.perf
-    print(f"  {' '.join(extra) or 'no remat'}: {perf['steps']} steps, losses "
+    print(f"  {model_type} {' '.join(extra) or 'no remat'}: {perf['steps']} steps, losses "
           f"{[round(x, 4) for x in result.losses]}, skipped batches {result.skipped_batches}",
           flush=True)
     if perf["steps"] != n_steps or result.state.step != n_steps:
         raise AssertionError(f"expected {n_steps} steps, ran {perf['steps']}")
     if result.skipped_batches or not all(np.isfinite(result.losses)):
         raise AssertionError("a training batch was skipped or a loss is not finite")
-    need = {"flash_attention_causal": k1_per_step, "flash_attention_bwd_dq": 32,
-            "flash_attention_bwd_dkv": 32, "flash_attention_noncausal": 32,
-            "gated_bias_attention": 12}
     for i, per in enumerate(perf["launches_per_step"]):
         print(f"  step {i}: {perf['step_seconds'][i]:.4f} s, launches "
               f"{ {k: per[k] for k in need} }", flush=True)
@@ -2219,6 +2660,13 @@ def _train_run(out_dir, n_steps, extra, k1_per_step):
     return result, counts
 
 
+#: the least launches of one salmonn-7b training step: the encoders' K2 and
+#: K3, and K1, K5 and K6 in each of the 32 decoder layers
+SALMONN_7B_STEP = {"flash_attention_causal": 32, "flash_attention_bwd_dq": 32,
+                   "flash_attention_bwd_dkv": 32, "flash_attention_noncausal": 32,
+                   "gated_bias_attention": 12}
+
+
 def _train_phase(out_dir):
     """The training main path: 4 optimizer steps, then 2 with full remat."""
     import numpy as np
@@ -2227,7 +2675,7 @@ def _train_phase(out_dir):
     from icl_speech_text_llm_tpu_torch.models.factory import create_model
     from icl_speech_text_llm_tpu_torch.training.checkpoint import copy_into, load_checkpoint
 
-    result, counts = _train_run(os.path.join(out_dir, "plain"), 4, [], 32)
+    result, counts = _train_run(os.path.join(out_dir, "plain"), 4, [], SALMONN_7B_STEP)
     # trainable weights moved and frozen ones did not: against the same seed's init
     fresh = create_model("salmonn-7b", seed=42, device="cuda", trainable_dtype=torch.float32)
     trained = _paths(result.state.trainable)
@@ -2254,7 +2702,8 @@ def _train_phase(out_dir):
           f"{len(trained)} leaves identical, step {ck['step']}", flush=True)
     del result, fresh, trained, init, ck
     torch.cuda.empty_cache()
-    _train_run(os.path.join(out_dir, "remat"), 2, ["--gradient_checkpointing"], 64)
+    _train_run(os.path.join(out_dir, "remat"), 2, ["--gradient_checkpointing"],
+               {**SALMONN_7B_STEP, "flash_attention_causal": 64})
     torch.cuda.empty_cache()
     return counts
 
@@ -2270,7 +2719,8 @@ SERVE_7B_POOL = ["--num_slots", "4", "--admit_batch", "4", "--sync_every", "4",
                  "--prompt_buckets", "1024"]
 
 
-def _serve_run(label, model_type, extra, n_requests, need, none=(), max_new=10):
+def _serve_run(label, model_type, extra, n_requests, need, none=(), max_new=10,
+               base=None, vocab=32000):
     """cli/serve.py at full width on the card, its output captured: launch
     counts set to 0 just before the run and read just after, the peak memory
     reset before. Every request answered with 1..max_new tokens of the
@@ -2285,7 +2735,8 @@ def _serve_run(label, model_type, extra, n_requests, need, none=(), max_new=10):
     from icl_speech_text_llm_tpu_torch import kernels
     from icl_speech_text_llm_tpu_torch.cli import serve
 
-    argv = ["--model_type", model_type, "--max_samples", str(n_requests), *SERVE_ARGS, *extra]
+    argv = ["--model_type", model_type, "--max_samples", str(n_requests),
+            *(base or SERVE_ARGS), *extra]
     print(f"  {label}: cli.serve {' '.join(extra)}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -2301,7 +2752,7 @@ def _serve_run(label, model_type, extra, n_requests, need, none=(), max_new=10):
     if sorted(results) != list(range(n_requests)):
         raise AssertionError(f"expected requests 0..{n_requests - 1}, got {sorted(results)}")
     for toks in results.values():
-        if not (1 <= len(toks) <= max_new and all(0 <= t < 32000 for t in toks)):
+        if not (1 <= len(toks) <= max_new and all(0 <= t < vocab for t in toks)):
             raise AssertionError(f"bad served tokens {toks}")
     for name, floor in need.items():
         n = floor(summary) if callable(floor) else floor
@@ -2379,6 +2830,28 @@ def _serve_lora_dirs(out_dir):
     return dirs
 
 
+def _served_against_static(label, served, static, eos=2):
+    """Every served request's first token equal to the static engine's on
+    the same request (an EOS first token serves nothing); prints how many
+    full sequences agree and where the others first diverge."""
+    n = len(static)
+    firsts = [r["tokens"][0] for r in static]
+    got = [served[i][0] if served[i] else eos for i in range(n)]
+    print(f"    first tokens: served {got}, the static engine's {firsts}", flush=True)
+    if got != firsts:
+        raise AssertionError(f"{label}'s first tokens differ from the static engine's run")
+    agree, diverge = 0, {}
+    for i, r in enumerate(static):
+        want = r["tokens"][:r["tokens"].index(eos)] if eos in r["tokens"] else r["tokens"]
+        if served[i] == want:
+            agree += 1
+        else:
+            diverge[i] = next(t for t in range(len(want) + 1)
+                              if t >= len(served[i]) or t >= len(want) or served[i][t] != want[t])
+    print(f"    full sequences equal to the static engine's: {agree} of {n}; first "
+          f"divergent step {diverge}", flush=True)
+
+
 def _serve_phase(out_dir, bf16_paths):
     """The serving CLI (inference/serving.py's slot pool) at full width, on
     phase main's voxceleb requests:
@@ -2404,22 +2877,7 @@ def _serve_phase(out_dir, bf16_paths):
     unwrap()
     print(f"    wall {wall:.3f} s, {8 / wall:.4f} req/s with the model build; synchronizing "
           f"CUDA calls per decode block {syncs} (information, no gate)", flush=True)
-    eos = 2
-    firsts = [r["tokens"][0] for r in static]
-    got = [served[i][0] if served[i] else eos for i in range(8)]
-    print(f"    first tokens: served {got}, phase main's 7B run {firsts}", flush=True)
-    if got != firsts:
-        raise AssertionError("run 1's first tokens differ from phase main's 7B bf16 run")
-    agree, diverge = 0, {}
-    for i, r in enumerate(static):
-        want = r["tokens"][:r["tokens"].index(eos)] if eos in r["tokens"] else r["tokens"]
-        if served[i] == want:
-            agree += 1
-        else:
-            diverge[i] = next(t for t in range(len(want) + 1)
-                              if t >= len(served[i]) or t >= len(want) or served[i][t] != want[t])
-    print(f"    full sequences equal to phase main's: {agree} of 8; first divergent step "
-          f"{diverge}", flush=True)
+    _served_against_static("run 1", served, static)
 
     _, _, summary, _ = _serve_run(
         "salmonn-13b int4 + int8 KV, shared prefix, chunked", "salmonn-13b",
@@ -2450,6 +2908,71 @@ def _serve_phase(out_dir, bf16_paths):
 
 
 
+#: the least launches of one qwen2-audio-7b training step: the tower's K2
+#: in each of its 32 layers, and K1, K5 and K6 in each of the 28 decoder
+#: layers
+QWEN_STEP = {"flash_attention_noncausal": 32, "flash_attention_causal": 28,
+             "flash_attention_bwd_dq": 28, "flash_attention_bwd_dkv": 28}
+
+
+def _qwen_phase(out_dir):
+    """Qwen2-Audio-7B at full width (the tower over 128 mels, Qwen2-7B with
+    28 query heads over 4 kv heads; random weights from seed 42) on phase
+    main's voxceleb requests in Qwen's chat format, each clip splicing its
+    ``audio_output_length`` positions, packed to 2048 positions; each run's
+    launch counts read from that run alone:
+    (a) the inference CLI, bf16, 8 requests: K2 ×32 and K1 ×28 a batch, K4
+        a step;
+    (b) the CLI with --quantize_int8 --kv_int8, 4 requests: K12 ×(7 × 28)
+        + 1 and K4 q8 a step;
+    (c) create_model + run_inference with int4 weights, an int8 KV cache
+        and use_flash_decode=True, 4 requests: K10 ×7 × 28, K7 q8 ×28 and
+        K4 q8 a step;
+    (d) the serving CLI, bf16, 8 requests, 4 slots, waves of 4, blocks of 4
+        steps, bucket 2048: every first token equal to (a)'s;
+    (e) the train CLI, batch 4: 2 steps (K2 ×32, K1, K5 and K6 ×28 each),
+        then 2 with full remat (K1 ×56); every loss finite.
+    → {"a" | "b" | "c" | "e": that run's launch counts}."""
+    for i, (lens, clips) in enumerate(_qwen_batches()):
+        print(f"  batch {i}: prompt positions used {lens} of {QWEN_SEQ[0]}; clip samples "
+              f"{sorted(set(clips))}", flush=True)
+    qwen = dict(seq=QWEN_SEQ, vocab=QWEN_VOCAB)
+    counts = {}
+    counts["a"], bf16_paths = _main_run(
+        os.path.join(out_dir, "qwen_bf16"), "qwen2-audio-7b", [], 8,
+        {"flash_attention_noncausal": 32 * 2, "flash_attention_causal": 28 * 2,
+         "append_kv": 9 * 2}, none=("append_kv_q8", "gated_bias_attention"), **qwen)
+    counts["b"], _ = _main_run(
+        os.path.join(out_dir, "qwen_int8"), "qwen2-audio-7b", ["--quantize_int8", "--kv_int8"],
+        4, {"int8_matmul": (7 * 28 + 1) * 9, "append_kv_q8": 9, "flash_attention_causal": 28,
+            "flash_attention_noncausal": 32}, none=("append_kv",), **qwen)
+    counts["c"], _ = _api_run(
+        os.path.join(out_dir, "qwen_int4_flash_q8"), "qwen2-audio-7b",
+        {"use_flash_decode": True, "kv_int8": True}, None, 4, 4,
+        {"int4_matmul": 7 * 28 * 9, "flash_decode_attention_q8": 28 * 9, "append_kv_q8": 9},
+        none=("append_kv", "flash_decode_attention"), **qwen)
+    with open(bf16_paths["results"]) as f:
+        static = json.load(f)["results"]
+    base = list(SERVE_ARGS)
+    base[base.index("--seq_len") + 1], base[base.index("--text_len") + 1] = map(str, QWEN_SEQ)
+    served, _, _, _ = _serve_run(
+        "qwen2-audio-7b bf16", "qwen2-audio-7b",
+        ["--num_slots", "4", "--admit_batch", "4", "--sync_every", "4", "--prompt_buckets",
+         str(QWEN_SEQ[0])], 8,
+        {"flash_attention_noncausal": 32 * 2, "flash_attention_causal": 28 * 2,
+         "append_kv": 9 * 2}, none=("append_kv_q8",), base=base, vocab=QWEN_VOCAB)
+    _served_against_static("run (d)", served, static)
+    # 32 synthetic samples, as the inference runs draw: every request then
+    # has its 5 exemplar clips (from 16, some lack one, and a missing clip
+    # takes its slot's whole 750 positions, as in JAX)
+    full = ["--synthetic_size", "32"]
+    _, counts["e"] = _train_run(os.path.join(out_dir, "qwen_train"), 2, full, QWEN_STEP,
+                                "qwen2-audio-7b", QWEN_SEQ)
+    _train_run(os.path.join(out_dir, "qwen_remat"), 2, full + ["--gradient_checkpointing"],
+               {**QWEN_STEP, "flash_attention_causal": 56}, "qwen2-audio-7b", QWEN_SEQ)
+    return counts
+
+
 def main():
     smi = _device_phase()
     import torch
@@ -2475,6 +2998,7 @@ def main():
     _reference_phase()
     _train_check_phase()
     _quant_reference_phase()
+    _qwen_reference_phase()
     _step_launches()
     print(f"  phase check: {time.perf_counter() - t0:.1f} s", flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2496,8 +3020,16 @@ def main():
     with tempfile.TemporaryDirectory(dir=here) as d:
         counts = _train_phase(d)
     print(f"  phase train: {time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase qwen:", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        qwen_counts = _qwen_phase(d)
+    print(f"  phase qwen: {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
-        row["launches"] = main_counts.get(row["name"], counts[row["name"]])
+        if "counter" in row:  # a Qwen-shape row: the launches of its phase qwen run
+            row["launches"] = qwen_counts[row["qwen_run"]][row["counter"]]
+        else:
+            row["launches"] = main_counts.get(row["name"], counts[row["name"]])
         if "beam" in row:
             ms, bound = row["beam"]
             print(f"{row['name']} at the 16-row shape of its main-path run: {row['launches']} "

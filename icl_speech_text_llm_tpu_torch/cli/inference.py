@@ -18,16 +18,20 @@ dir quantized at another width than ``--quantize_int*`` asks is an error; one
 at that width is used as it is), and ``--peft_model_path`` a trainable-only
 checkpoint (``state.npy``) over them. ``--auto_batch`` is not ported yet: it
 is accepted and raises ``NotImplementedError`` when set. ``--compile_cache``
-(the XLA compilation cache) has no counterpart and is gone.
+(the XLA compilation cache) has no counterpart and is gone. The Qwen2-Audio
+model types (``qwen2-audio-7b``, ``qwen2-audio-tiny``, ...) build their
+prompts in Qwen's chat format and splice each clip's
+``audio_output_length`` positions out of a 750-position slot: 6 clips of
+5 s need ``--seq_len 2048``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 
 from ..data.factory import create_dataset
-from ..data.packing import PackConfig
 from ..inference.engine import GenerationConfig
 from ..inference.runner import InferenceSettings, run_inference, save_final_results
 from ..models.factory import create_model, get_model_from_checkpoint
@@ -142,10 +146,9 @@ def main(argv=None):
         model = create_model(args.model_type, **model_kw)
     if args.quantize_int8 or args.quantize_int4:
         _quantize(model, 4 if args.quantize_int4 else 8)
-    pack_cfg = PackConfig(
-        seq_len=args.seq_len, text_len=args.text_len, max_slots=n_slots,
-        audio_tokens_per_slot=model.cfg.audio_tokens_per_slot,
-    )
+    # the model's own pack config carries its family's splice counts
+    pack_cfg = dataclasses.replace(model.pack_cfg, seq_len=args.seq_len, text_len=args.text_len,
+                                   max_slots=n_slots)
     dataset = create_dataset(
         dataset_types if len(dataset_types) > 1 else dataset_types[0],
         split=DatasetSplit(args.split),
@@ -158,7 +161,7 @@ def main(argv=None):
         synthetic=args.synthetic,
         synthetic_size=args.synthetic_size,
         seed=args.seed,
-        prompt_style="salmonn",
+        prompt_style="qwen" if args.model_type.lower().startswith("qwen") else "salmonn",
     )
     settings = InferenceSettings(
         batch_size=args.batch_size, max_new_tokens=args.max_new_tokens,

@@ -3,9 +3,11 @@ flag surface, with ``--device`` in place of ``--platform``.
 
 Streams dataset samples as individual requests through the slot-pool
 engine (``inference/serving.py``): each wave of ``--admit_batch`` samples
-is collated and encoded together (``salmonn_prompt_embeddings``), its
-requests submitted, and one engine step taken; ``run`` then drains the
-pool. Hermetic example:
+is collated and encoded together (``salmonn_prompt_embeddings``, or
+``qwen_prompt_embeddings`` for the Qwen2-Audio model types, whose pack
+config splices each clip's ``audio_output_length``), its requests
+submitted, and one engine step taken; ``run`` then drains the pool.
+Hermetic example:
 
     python -m icl_speech_text_llm_tpu_torch.cli.serve \\
         --model_type salmonn-tiny --dataset_type voxceleb --synthetic \\
@@ -15,15 +17,18 @@ The engine runs in the model's compute dtype (JAX's CLI leaves its engine
 at f32; on the card the port's K1 and K4 take bf16). ``--shared_prefix``
 registers the first sample's exemplar header once and submits only each
 request's query suffix; ``--lora_bank`` stacks checkpoints' LoRAs into a
-bank and cycles requests over it. ``--mesh`` and the Qwen model types are
-not ported yet (``NotImplementedError``); ``--compile_cache`` (the XLA
-compilation cache) has no counterpart and is refused. The last line printed
+bank and cycles requests over it. ``--mesh`` is not ported yet
+(``NotImplementedError``); ``--compile_cache`` (the XLA compilation cache)
+has no counterpart and is refused. Qwen2-Audio splices up to 750
+positions a clip: 6 clips take ``--seq_len 2048 --prompt_buckets 2048``.
+The last line printed
 is a JSON summary: throughput and the engine's counts.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import time
@@ -33,11 +38,11 @@ import torch
 
 from ..data.collate import ICLSample, collate_icl_batch
 from ..data.factory import create_dataset
-from ..data.packing import PackConfig
 from ..data.prompts import split_prompt_plan
 from ..inference.serving import (
     ContinuousBatchingEngine,
     ServingConfig,
+    qwen_prompt_embeddings,
     salmonn_prompt_embeddings,
 )
 from ..models.factory import create_model
@@ -106,11 +111,8 @@ def _check_ported(args) -> None:
     if args.compile_cache:
         raise SystemExit("--compile_cache is the JAX package's XLA compilation cache "
                          "(TPU only); the PyTorch port has no counterpart")
-    unported = {"--mesh": args.mesh,
-                f"--model_type {args.model_type}": args.model_type.lower().startswith("qwen")}
-    asked = [flag for flag, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)} (see ROADMAP.md)")
+    if args.mesh:
+        raise NotImplementedError("not ported yet: --mesh (see ROADMAP.md)")
     if args.shared_prefix and args.num_beams > 1:
         raise SystemExit("--shared_prefix is slot-pool only (the beam lane prefills its "
                          "full prompt); drop --num_beams")
@@ -124,6 +126,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
     _check_ported(args)
+    is_qwen = args.model_type.lower().startswith("qwen")
 
     tok = get_tokenizer(None)
     model = create_model(args.model_type, seed=args.seed, device=args.device,
@@ -135,12 +138,13 @@ def main(argv=None):
         dataset_types[0], split=DatasetSplit(args.split), input_mode=args.input_mode,
         fewshot_mode=args.fewshot_mode, num_examples=args.num_examples, is_training=False,
         max_samples=args.max_samples, synthetic=args.synthetic,
-        synthetic_size=args.synthetic_size, seed=args.seed, prompt_style="salmonn")
+        synthetic_size=args.synthetic_size, seed=args.seed,
+        prompt_style="qwen" if is_qwen else "salmonn")
     buckets = tuple(int(b) for b in args.prompt_buckets.split(","))
 
     def pack(max_slots):
-        return PackConfig(seq_len=args.seq_len, text_len=args.text_len, max_slots=max_slots,
-                          audio_tokens_per_slot=model.cfg.audio_tokens_per_slot)
+        return dataclasses.replace(model.pack_cfg, seq_len=args.seq_len,
+                                   text_len=args.text_len, max_slots=max_slots)
 
     pack_cfg = pack(args.num_examples + 1 if args.fewshot_mode == "speech" else 1)
     scfg = ServingConfig(
@@ -168,6 +172,7 @@ def main(argv=None):
         model.cfg.llm, model.params["llm"], scfg, lora=lora,
         lora_scaling=model.cfg.lora.scaling if model.cfg.lora is not None else 1.0,
         dtype=model.cfg.compute_dtype, device=dev)
+    prompt_embeddings = qwen_prompt_embeddings if is_qwen else salmonn_prompt_embeddings
 
     def embed(samples, cfg_pack):
         packed = collate_icl_batch(samples, tok, cfg_pack)
@@ -175,7 +180,7 @@ def main(argv=None):
                   "seq_lengths": packed.seq_lengths, **packed.audio}
         batch = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in arrays.items()}
         with torch.no_grad():
-            seq, _ = salmonn_prompt_embeddings(model.cfg, model.params, batch)
+            seq, _ = prompt_embeddings(model.cfg, model.params, batch)
         # lengths from the host-side batch: reading the device's would sync
         return seq, np.asarray(packed.seq_lengths)
 

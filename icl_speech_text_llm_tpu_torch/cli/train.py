@@ -7,16 +7,19 @@ Hermetic example (CPU, plain PyTorch versions of the kernels):
         --num_epochs 1 --batch_size 2 --max_samples 4 --seq_len 768 \\
         --text_len 384 --device cpu --output_dir /tmp/ckpt
 
-LoRA and the Q-Former train as f32 master weights; the frozen encoders and
-LLM keep the preset's compute dtype (bf16 at salmonn-7b). Flags for what is
-not ported yet (``--mesh``, ``--pp_microbatches`` > 1, ``--auto_batch``,
-Qwen model types) raise ``NotImplementedError``; ``--compile_cache`` (an XLA
-compilation cache) has no counterpart and is refused.
+LoRA (and SALMONN's Q-Former) train as f32 master weights; the frozen
+encoders and LLM keep the preset's compute dtype (bf16 at salmonn-7b and
+qwen2-audio-7b). The Qwen2-Audio model types train their LoRA alone through
+``qwen_audio_train_loss`` (6 clips of 5 s need ``--seq_len 2048``). Flags
+for what is not ported yet (``--mesh``, ``--pp_microbatches`` > 1,
+``--auto_batch``) raise ``NotImplementedError``; ``--compile_cache`` (an
+XLA compilation cache) has no counterpart and is refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import random
 import re
@@ -25,7 +28,6 @@ import numpy as np
 import torch
 
 from ..data.factory import create_dataset
-from ..data.packing import PackConfig
 from ..models.factory import create_model
 from ..registry import DatasetSplit, parse_dataset_types
 from ..training.loop import TrainSettings, train
@@ -34,7 +36,7 @@ from ..training.step import AdamW, OptimizerSettings, init_train_state, make_tra
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="LoRA + Q-Former fine-tuning (PyTorch/CUDA port)")
+    p = argparse.ArgumentParser(description="LoRA (+ Q-Former) fine-tuning (PyTorch/CUDA port)")
     p.add_argument("--dataset_type", type=str, default="voxceleb")
     p.add_argument("--input_mode", type=str, default="speech_only",
                    choices=["speech_only", "speech_and_text", "text_only"])
@@ -92,8 +94,7 @@ def _check_ported(args) -> None:
         raise SystemExit("--compile_cache is the JAX package's XLA compilation cache "
                          "(TPU only); the PyTorch port has no counterpart")
     unported = {"--mesh": args.mesh, "--pp_microbatches > 1": args.pp_microbatches > 1,
-                "--auto_batch": args.auto_batch,
-                f"--model_type {args.model_type}": args.model_type.lower().startswith("qwen")}
+                "--auto_batch": args.auto_batch}
     asked = [flag for flag, on in unported.items() if on]
     if asked:
         raise NotImplementedError(f"not ported yet: {', '.join(asked)} (see ROADMAP.md)")
@@ -118,16 +119,17 @@ def main(argv=None):
     dataset_types = parse_dataset_types(args.dataset_type)
     max_samples = args.max_samples or args.debug_samples
 
+    is_qwen = args.model_type.lower().startswith("qwen")
     model = create_model(args.model_type, tokenizer=args.tokenizer, seed=args.seed,
                          device=args.device, trainable_dtype=torch.float32)
     n_slots = args.num_examples + 1 if args.fewshot_mode == "speech" else 1
-    pack_cfg = PackConfig(seq_len=args.seq_len, text_len=args.text_len, max_slots=n_slots,
-                          audio_tokens_per_slot=model.cfg.audio_tokens_per_slot)
+    pack_cfg = dataclasses.replace(model.pack_cfg, seq_len=args.seq_len,
+                                   text_len=args.text_len, max_slots=n_slots)
     common = dict(input_mode=args.input_mode, fewshot_mode=args.fewshot_mode,
                   num_examples=0 if args.fewshot_mode == "none" else args.num_examples,
                   randomize_swap=args.randomize_swap, max_samples=max_samples,
                   synthetic=args.synthetic, synthetic_size=args.synthetic_size,
-                  seed=args.seed, prompt_style="salmonn")
+                  seed=args.seed, prompt_style="qwen" if is_qwen else "salmonn")
     ds_arg = dataset_types if len(dataset_types) > 1 else dataset_types[0]
     train_ds = create_dataset(ds_arg, split=DatasetSplit.TRAIN, is_training=True,
                               balance_datasets=args.balance_datasets,
@@ -143,7 +145,7 @@ def main(argv=None):
         max_grad_norm=args.max_grad_norm, grad_accum_steps=args.gradient_accumulation_steps,
         schedule=schedule))
     state, frozen = init_train_state(model.params, optimizer)
-    step_fn = make_train_step(model.cfg, optimizer, remat=_remat(args))
+    step_fn = make_train_step(model.cfg, optimizer, loss_fn=model.loss_fn, remat=_remat(args))
 
     settings = TrainSettings(num_epochs=args.num_epochs, batch_size=args.batch_size,
                              save_every=args.save_every, output_dir=args.output_dir,

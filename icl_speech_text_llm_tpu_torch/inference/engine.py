@@ -230,14 +230,16 @@ def speech_sequence(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor])
 
 
 @torch.inference_mode()
-def salmonn_generate(cfg, gen: GenerationConfig, params: Dict[str, Any],
-                     batch: Dict[str, torch.Tensor],
-                     events: Optional[StepEvents] = None) -> torch.Tensor:
-    """Packed batch → (B, max_new_tokens) generated token ids. ``batch``:
-    text_tokens (B, L_text), gather_idx (B, L_seq), seq_lengths (B,), wavs
-    (B, n_slots, n_samples), all on the model's device. ``num_beams > 1``
-    decodes with beam search."""
-    seq = speech_sequence(cfg, params, batch)
+def generate_batch(cfg, gen: GenerationConfig, params: Dict[str, Any],
+                   batch: Dict[str, torch.Tensor], sequence_fn,
+                   events: Optional[StepEvents] = None) -> torch.Tensor:
+    """Packed batch → (B, max_new_tokens) generated token ids, the prompt
+    embeddings from the model family's ``sequence_fn(cfg, params, batch)``
+    (SALMONN's ``speech_sequence``, Qwen2-Audio's ``qwen_sequence``).
+    ``batch``: text_tokens (B, L_text), gather_idx (B, L_seq), seq_lengths
+    (B,), wavs (B, n_slots, n_samples) [, audio_lengths], all on the
+    model's device. ``num_beams > 1`` decodes with beam search."""
+    seq = sequence_fn(cfg, params, batch)
     scaling = cfg.lora.scaling if cfg.lora is not None else 1.0
     decode = decode_from_sequence
     if gen.num_beams > 1:
@@ -249,11 +251,20 @@ def salmonn_generate(cfg, gen: GenerationConfig, params: Dict[str, Any],
                   events=events)
 
 
+def salmonn_generate(cfg, gen: GenerationConfig, params: Dict[str, Any],
+                     batch: Dict[str, torch.Tensor],
+                     events: Optional[StepEvents] = None) -> torch.Tensor:
+    """``generate_batch`` over SALMONN's ``speech_sequence``."""
+    return generate_batch(cfg, gen, params, batch, speech_sequence, events)
+
+
 @torch.inference_mode()
-def first_token_logits(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-    """The logits that pick the first generated token, (B, V): the encoders,
-    the assembly and the prefill of ``salmonn_generate``."""
-    seq = speech_sequence(cfg, params, batch)
+def first_token_logits(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                       sequence_fn=speech_sequence):
+    """The logits that pick the first generated token, (B, V): the family's
+    ``sequence_fn`` (the encoders and the assembly) and the prefill of
+    ``generate_batch``."""
+    seq = sequence_fn(cfg, params, batch)
     lengths = batch["seq_lengths"].to(device=seq.device, dtype=torch.int32)
     cache_len = -(-(seq.shape[1] + 1) // 128) * 128
     scaling = cfg.lora.scaling if cfg.lora is not None else 1.0
@@ -265,11 +276,13 @@ class SalmonnEngine:
     """Host-side wrapper: ships a packed batch to the device, generates, and
     decodes rows to strings (API of the JAX package's SalmonnEngine). On a
     CUDA device ``timings`` collects each batch's [prefill ms, decode step
-    ms, …] (CUDA events)."""
+    ms, …] (CUDA events). ``sequence_fn`` builds the family's prompt
+    embeddings (``generate_batch``)."""
 
     def __init__(self, cfg, params, tokenizer: Tokenizer, gen: Optional[GenerationConfig] = None,
-                 device="cuda"):
+                 device="cuda", sequence_fn=speech_sequence):
         self.cfg = cfg
+        self.sequence_fn = sequence_fn
         self.params = params
         self.tokenizer = tokenizer
         self.gen = gen or GenerationConfig(eos_token_id=tokenizer.eos_token_id,
@@ -285,7 +298,8 @@ class SalmonnEngine:
         }
         batch = {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
         events = StepEvents() if self.device.type == "cuda" else None
-        toks = salmonn_generate(self.cfg, self.gen, self.params, batch, events).cpu().numpy()
+        toks = generate_batch(self.cfg, self.gen, self.params, batch, self.sequence_fn,
+                              events).cpu().numpy()
         if events is not None:
             self.timings.append(events.millis())
         return toks
@@ -304,3 +318,4 @@ class SalmonnEngine:
                 ids.append(int(t))
             out.append(self.tokenizer.decode(ids, skip_special_tokens=True))
         return out
+

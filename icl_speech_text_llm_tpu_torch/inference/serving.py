@@ -631,3 +631,13 @@ def salmonn_prompt_embeddings(cfg, params: Dict[str, Any], batch: Dict[str, torc
     from .engine import speech_sequence
 
     return speech_sequence(cfg, params, batch), batch["seq_lengths"]
+
+
+def qwen_prompt_embeddings(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+    """The Qwen2-Audio counterpart of ``salmonn_prompt_embeddings``: the
+    audio tower (K2 with each clip's frame count as its key length), the
+    pool, the final LN, the projector and the one-gather assembly
+    (``models/qwen_audio.py:qwen_sequence``) → (prompt embeddings, lengths)."""
+    from ..models.qwen_audio import qwen_sequence
+
+    return qwen_sequence(cfg, params, batch), batch["seq_lengths"]

@@ -8,7 +8,9 @@ reference's weight sources (SURVEY.md §7.3 hard part #2):
 - HF Whisper encoder (``encoder.layers.N.*``);
 - SALMONN v1 checkpoints (``salmonn_v1.pth``: Q-Former, projection, LoRA over
   Vicuna with PEFT-nested keys; ref: models/custom_salmon.py:83,190-192);
-- BEATs (microsoft/unilm layout).
+- BEATs (microsoft/unilm layout);
+- Qwen2-Audio (``audio_tower.*``, ``multi_modal_projector.linear.*``,
+  ``language_model.*``).
 
 All converters consume a flat ``{name: numpy array}`` dict; load torch and
 safetensors files with ``load_torch_state_dict`` (CPU, no grad). Linear
@@ -152,6 +154,21 @@ def convert_hf_whisper_encoder(
         "positions": g("embed_positions.weight"),
         "blocks": _stack(blocks),
         "ln_post": {"w": g("layer_norm.weight"), "b": g("layer_norm.bias")},
+    }
+
+
+def convert_hf_qwen_audio(sd: Mapping[str, np.ndarray], cfg) -> Dict[str, Any]:
+    """Qwen2AudioForConditionalGeneration state dict → the QwenAudio tree:
+    the Whisper-style tower and its final LN (``audio_tower.*``), the
+    projector (``multi_modal_projector.linear.*``) and the Qwen2 decoder
+    (``language_model.*``)."""
+    llm = convert_hf_decoder({k[len("language_model."):]: v for k, v in sd.items()
+                              if k.startswith("language_model.")}, cfg.llm)
+    return {
+        "encoder": convert_hf_whisper_encoder(sd, cfg.encoder, prefix="audio_tower."),
+        "projector": {"w": _t(sd["multi_modal_projector.linear.weight"]),
+                      "b": sd["multi_modal_projector.linear.bias"]},
+        "llm": llm,
     }
 
 

@@ -1,0 +1,176 @@
+"""Qwen2-Audio in PyTorch: Whisper-style audio tower → average pool →
+final LN → projector → Qwen2 LLM (+LoRA).
+
+Counterpart of ``icl_speech_text_llm_tpu/models/qwen_audio.py`` (ref:
+models/custom_qwen.py:29-247): the configs, ``init_qwen_audio``, the length
+formulas the host packer and the device mask share, ``encode_audio``,
+``qwen_sequence`` (the same one-gather assembly as SALMONN, 750 audio
+positions a slot of which each clip splices ``audio_output_length(n)``),
+``qwen_audio_train_loss`` and ``qwen_audio_generate``. The tower's
+self-attention is K2 with each clip's valid frame count as its key length.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..ops.mel import log_mel_spectrogram, pad_or_trim, wavs_to_float
+from .common import dense_init, layer_norm, linear
+from .llama import (
+    DECODER_CONFIGS,
+    DecoderConfig,
+    LoraConfig,
+    cross_entropy_loss,
+    decoder_forward,
+    init_decoder,
+    init_lora,
+    lm_logits,
+)
+from .salmonn import assemble_sequence
+from .whisper import WHISPER_CONFIGS, WhisperEncoderConfig, init_whisper_encoder, whisper_encode
+
+
+def audio_feat_lengths(n_samples, hop: int = 160):
+    """Raw 16 kHz sample count → valid post-conv encoder frames: n // hop mel
+    frames, then the stride-2 conv's (mel − 1) // 2 + 1 (HF
+    ``Qwen2AudioEncoder._get_feat_extract_output_lengths``). Integer floor
+    division on ints, numpy arrays and tensors alike."""
+    mel = n_samples // hop
+    return (mel - 1) // 2 + 1
+
+
+def audio_output_length(n_samples, hop: int = 160):
+    """Raw 16 kHz sample count → audio positions spliced after the stride-2
+    average pool, (feat − 2) // 2 + 1; 480000 samples → 750. The packer's
+    gather and the tower's key mask both use it, so they always agree."""
+    return (audio_feat_lengths(n_samples, hop) - 2) // 2 + 1
+
+
+@dataclass(frozen=True)
+class QwenAudioConfig:
+    encoder: WhisperEncoderConfig
+    llm: DecoderConfig
+    lora: Optional[LoraConfig] = LoraConfig(rank=8, alpha=32.0, targets=("wq", "wk"))
+    pool_stride: int = 2
+    compute_dtype: Any = torch.float32
+
+    @property
+    def audio_tokens_per_slot(self) -> int:
+        return self.encoder.n_ctx // self.pool_stride  # 750 for 30 s
+
+    @property
+    def audio_len_fn(self):
+        """Each clip's splice count for ``PackConfig`` (HF
+        feature_attention_mask semantics)."""
+        return audio_output_length
+
+
+def qwen2_audio_7b() -> QwenAudioConfig:
+    """Qwen2-Audio-7B-Instruct (ref: models/custom_qwen.py:51): the tower is
+    Whisper-large-v2's shape over 128 mel bins, the decoder Qwen2-7B."""
+    return QwenAudioConfig(encoder=dataclasses.replace(WHISPER_CONFIGS["large-v2"], n_mels=128),
+                           llm=DECODER_CONFIGS["qwen2-7b"], compute_dtype=torch.bfloat16)
+
+
+def qwen2_audio_tiny() -> QwenAudioConfig:
+    """CPU-testable config; the LLM uses the TinyTokenizer vocabulary."""
+    return QwenAudioConfig(encoder=WHISPER_CONFIGS["tiny-test"], llm=DECODER_CONFIGS["tiny"],
+                           lora=LoraConfig(rank=4, alpha=8.0, targets=("wq", "wk")))
+
+
+def qwen2_audio_smoke() -> QwenAudioConfig:
+    """Qwen2-0.5B backbone with a small tower."""
+    return QwenAudioConfig(encoder=WhisperEncoderConfig(dim=128, n_heads=4, n_layers=2),
+                           llm=DECODER_CONFIGS["qwen2-0.5b"])
+
+
+def init_qwen_audio(cfg: QwenAudioConfig, gen: torch.Generator, device, dtype=torch.float32,
+                    trainable_dtype=None, skip_llm: bool = False) -> Dict[str, Any]:
+    """Random-init parameter tree with the JAX package's layout, drawn from
+    ``gen`` on ``device`` in ``dtype``: the encoder, the projector, the LoRA
+    (in ``trainable_dtype`` when given), and the decoder last, so that
+    ``skip_llm`` (converted weights load in its place) leaves every other
+    draw unchanged."""
+    params = {
+        "encoder": init_whisper_encoder(cfg.encoder, gen, device, dtype),
+        "projector": {"w": dense_init(gen, cfg.encoder.dim, cfg.llm.dim, device, dtype),
+                      "b": torch.zeros((cfg.llm.dim,), device=device, dtype=dtype)},
+    }
+    if cfg.lora is not None:
+        params["lora"] = init_lora(cfg.llm, cfg.lora, gen, device,
+                                   dtype if trainable_dtype is None else trainable_dtype)
+    if not skip_llm:
+        params["llm"] = init_decoder(cfg.llm, gen, device, dtype)
+    return params
+
+
+def encode_audio(cfg: QwenAudioConfig, params: Dict[str, Any], mels: torch.Tensor,
+                 sample_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, n_mels, 3000) mel → (N, 750, llm_dim) audio positions, in HF's
+    order: the tower's layers, the stride-2 average pool, THEN the final LN,
+    then the projector. ``sample_lengths`` (N,) valid raw samples a clip:
+    the tower's keys past ``audio_feat_lengths(n)`` are masked, and only
+    positions below ``audio_output_length(n)`` carry meaning (the packed
+    gather splices that many)."""
+    dt = cfg.compute_dtype
+    frames = None if sample_lengths is None else audio_feat_lengths(sample_lengths.long())
+    feats = whisper_encode(cfg.encoder, params["encoder"], mels, dtype=dt, apply_ln_post=False,
+                           frame_lengths=frames)
+    N, T, D = feats.shape
+    s = cfg.pool_stride
+    pooled = feats[:, :(T // s) * s].reshape(N, T // s, s, D).mean(dim=2)
+    ln = params["encoder"]["ln_post"]
+    pooled = layer_norm(pooled, ln["w"], ln["b"])
+    return linear(pooled, params["projector"]["w"], params["projector"]["b"])
+
+
+def encode_batch_audio(cfg: QwenAudioConfig, params: Dict[str, Any],
+                       batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A packed batch's clips (wavs (B, n_slots, n), audio_lengths (B,
+    n_slots) when packed with ``audio_len_fn``) → (B, n_slots, 750, llm_dim)."""
+    B = batch["text_tokens"].shape[0]
+    wavs = wavs_to_float(batch["wavs"])
+    n_slots = wavs.shape[1]
+    flat = pad_or_trim(wavs.reshape(B * n_slots, wavs.shape[-1]))
+    mels = log_mel_spectrogram(flat, cfg.encoder.n_mels)
+    lengths = batch.get("audio_lengths")
+    if lengths is not None:
+        lengths = lengths.reshape(B * n_slots)
+    return encode_audio(cfg, params, mels, lengths).reshape(B, n_slots, -1, cfg.llm.dim)
+
+
+def qwen_sequence(cfg: QwenAudioConfig, params: Dict[str, Any],
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Packed batch → the assembled prompt embeddings (B, L_seq, D)."""
+    audio = encode_batch_audio(cfg, params, batch)
+    return assemble_sequence(cfg, params, batch["text_tokens"], audio, batch["gather_idx"])
+
+
+def qwen_audio_train_loss(cfg: QwenAudioConfig, params: Dict[str, Any],
+                          batch: Dict[str, torch.Tensor], remat=False) -> torch.Tensor:
+    """Training forward (ref: models/custom_qwen.py:141-145): packed batch →
+    mean CE over completion tokens. The frozen tower and projector run under
+    ``torch.no_grad()``; the assembly, the decoder (LoRA inside, ``remat``
+    as ``decoder_forward``), the logits and the CE run with grad."""
+    with torch.no_grad():
+        audio = encode_batch_audio(cfg, params, batch)
+    seq = assemble_sequence(cfg, params, batch["text_tokens"], audio, batch["gather_idx"])
+    lengths = batch["seq_mask"].sum(dim=1).to(torch.int32)
+    scaling = cfg.lora.scaling if cfg.lora is not None else 1.0
+    hidden, _ = decoder_forward(cfg.llm, params["llm"], seq, lengths, lora=params.get("lora"),
+                                lora_scaling=scaling, remat=remat)
+    return cross_entropy_loss(lm_logits(cfg.llm, params["llm"], hidden), batch["shifted_labels"])
+
+
+def qwen_audio_generate(cfg: QwenAudioConfig, gen, params: Dict[str, Any],
+                        batch: Dict[str, torch.Tensor], events=None) -> torch.Tensor:
+    """Packed batch → (B, max_new_tokens) token ids: greedy, sampled, the
+    history processors or beams, as ``inference/engine.py:salmonn_generate``
+    over Qwen2-Audio's sequence (ref: models/custom_qwen.py:199-247)."""
+    from ..inference.engine import generate_batch
+
+    return generate_batch(cfg, gen, params, batch, qwen_sequence, events)

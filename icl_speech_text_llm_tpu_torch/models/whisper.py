@@ -5,13 +5,15 @@ Counterpart of ``icl_speech_text_llm_tpu/models/whisper.py``: conv1(k3,s1)
 with biases, GELU MLP) → final LN; (B, n_mels, 3000) mel in, (B, 1500, dim)
 out. Self-attention goes through the non-causal flash op over the 1500 real
 frames: the kernel masks the ragged last tile itself, so the 1500→1536
-padding of the Pallas path is gone.
+padding of the Pallas path is gone. Qwen2-Audio's tower passes each clip's
+valid frame count (K2's key lengths) and takes the states before the final
+LN.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -86,7 +88,8 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int) -> to
     return out.transpose(1, 2)
 
 
-def _block_forward(cfg: WhisperEncoderConfig, blk, x: torch.Tensor) -> torch.Tensor:
+def _block_forward(cfg: WhisperEncoderConfig, blk, x: torch.Tensor,
+                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, T, d = x.shape
     hd = d // cfg.n_heads
     a = blk["attn"]
@@ -94,7 +97,8 @@ def _block_forward(cfg: WhisperEncoderConfig, blk, x: torch.Tensor) -> torch.Ten
     q = linear(h, a["wq"], a["bq"]).view(B, T, cfg.n_heads, hd).transpose(1, 2)
     k = linear(h, a["wk"]).view(B, T, cfg.n_heads, hd).transpose(1, 2)
     v = linear(h, a["wv"], a["bv"]).view(B, T, cfg.n_heads, hd).transpose(1, 2)
-    out = flash_attention(q, k, v, None, causal=False)
+    # keys past lengths[b] masked; rows past it are garbage the caller drops
+    out = flash_attention(q, k, v, lengths, causal=False)
     out = out.transpose(1, 2).reshape(B, T, d)
     x = x + linear(out, a["wo"], a["bo"])
     h = layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"])
@@ -103,13 +107,22 @@ def _block_forward(cfg: WhisperEncoderConfig, blk, x: torch.Tensor) -> torch.Ten
 
 
 def whisper_encode(cfg: WhisperEncoderConfig, params: Dict[str, Any], mel: torch.Tensor,
-                   dtype=torch.float32) -> torch.Tensor:
-    """Mel (B, n_mels, 3000) → (B, 1500, dim) encoder states."""
+                   dtype=torch.float32, apply_ln_post: bool = True,
+                   frame_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mel (B, n_mels, 3000) → (B, 1500, dim) encoder states.
+
+    ``apply_ln_post=False`` returns the states before the final LN
+    (Qwen2-Audio pools first). ``frame_lengths`` (B,) masks self-attention
+    keys past each clip's valid post-conv frames (Qwen2-Audio's
+    ``feature_attention_mask``); rows past a clip's length are garbage."""
     x = mel.to(dtype).transpose(1, 2)
     x = gelu(conv1d(x, params["conv1"]["w"], params["conv1"]["b"], 1))
     x = gelu(conv1d(x, params["conv2"]["w"], params["conv2"]["b"], 2))
     x = x + params["positions"].to(dtype)[None, : x.shape[1]]
+    lengths = None if frame_lengths is None else frame_lengths.to(x.device, torch.int32)
     blocks = params["blocks"]
     for l in range(cfg.n_layers):
-        x = _block_forward(cfg, layer_at(blocks, l), x)
+        x = _block_forward(cfg, layer_at(blocks, l), x, lengths)
+    if not apply_ln_post:
+        return x
     return layer_norm(x, params["ln_post"]["w"], params["ln_post"]["b"])

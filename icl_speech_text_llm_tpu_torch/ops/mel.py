@@ -133,3 +133,31 @@ def log_mel_spectrogram(wav: torch.Tensor, n_mels: int = N_MELS) -> torch.Tensor
     log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
     log_spec = (log_spec + 4.0) / 4.0
     return log_spec.transpose(-1, -2).reshape(*lead, n_mels, N_FRAMES)
+
+
+def resample_kaiser(wav: torch.Tensor, orig_sr: int, new_sr: int, zeros: int = 16) -> torch.Tensor:
+    """Windowed-sinc polyphase resampler for (n,) audio at ``orig_sr`` →
+    ``new_sr`` (host-side preparation of non-16 kHz audio): zero-stuffed by
+    ``up``, convolved with a Kaiser(β = 8) windowed sinc of half-width
+    ``zeros`` crossings at the upsampled rate (numpy's ``convolve(mode=
+    "same")`` alignment), then every ``down``-th sample kept. The JAX
+    package's filter and output length."""
+    if orig_sr == new_sr:
+        return wav
+    from math import gcd
+
+    g = gcd(orig_sr, new_sr)
+    up, down = new_sr // g, orig_sr // g
+    rate = max(up, down)
+    T = zeros * rate
+    cutoff = 1.0 / rate
+    n = np.arange(-T, T + 1)
+    h = np.sinc(n * cutoff) * cutoff * up * np.kaiser(2 * T + 1, 8.0)
+    h = torch.from_numpy(h.astype(np.float32)).to(wav.device)
+    x = torch.zeros(wav.shape[-1] * up, dtype=torch.float32, device=wav.device)
+    x[::up] = wav.float()
+    M, N = x.shape[0], h.shape[0]
+    with full_f32():  # the full convolution, then its centred max(M, N) samples
+        full = F.conv1d(x[None, None], h.flip(0)[None, None], padding=N - 1)[0, 0]
+    start = (min(M, N) - 1) // 2
+    return full[start:start + max(M, N)][::down]

@@ -81,6 +81,9 @@ def _check_flash(o, m, l, o_p, m_p, l_p, rows):
     (True, 128, 8, 2, 256, [256, 100]),       # GQA n_rep 4
     (False, 64, 8, 1, 300, [1, 300]),         # GQA n_rep 8
     (True, 64, 6, 3, 333, [333, 200]),        # causal at D = 64 (192-row blocks)
+    (True, 128, 7, 1, 256, [256, 100]),       # Qwen2-7B's n_rep 7
+    (True, 128, 14, 2, 300, [300, 131]),      # n_rep 7 over two kv heads
+    (False, 64, 4, 4, 1500, [250, 1500]),     # Qwen2-Audio's tower: 5 s and 30 s clips
 ])
 def test_cuda_flash_kernel_matches_plain(cuda_device, causal, D, H, Hkv, S, lengths):
     B = 2
@@ -336,7 +339,10 @@ def _grad_err(got, want, rows):
     (True, 128, 4, 2, 200, [200, 0], False),    # a sample of length 0
     (False, 64, 8, 1, 300, [1, 300], False),    # GQA n_rep 8
     (True, 128, 4, 4, 300, [300, 201], True),   # fused QKV views, strided do
-    (False, 64, 4, 4, 200, [200, 130], True)])
+    (False, 64, 4, 4, 200, [200, 130], True),
+    (True, 128, 7, 1, 256, [256, 147], False),  # Qwen2-7B's n_rep 7
+    (True, 128, 14, 2, 300, [300, 131], False),  # n_rep 7 over two kv heads
+    (False, 128, 7, 1, 256, [100, 256], False)])
 def test_cuda_flash_backward_kernels_match_plain(cuda_device, causal, D, H, Hkv, S, lengths,
                                                  fused):
     """K5 (dq, delta) and K6 (dk, dv) against flash_attention_bwd_plain on the
@@ -432,7 +438,9 @@ def _wq_err(y, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,group", [
     (4, 1024, 384, 128), (1, 512, 128, 128), (33, 1024, 256, 256), (256, 512, 512, 128),
-    (4, 2048, 640, 128)])
+    (4, 2048, 640, 128),
+    # Qwen2-7B's widths: wk/wv (N = 512), w_gate/w_up, w_down (K = 18944)
+    (4, 3584, 512, 128), (4, 3584, 18944, 128), (4, 18944, 3584, 128)])
 def test_cuda_int4_kernel_matches_plain(cuda_device, M, K, N, group):
     """K10 at decode (one 16-row tile, K split over blocks) and prefill row
     counts (64-row tiles, a ragged last tile), groups of 128 and 256."""
@@ -486,11 +494,43 @@ def test_cuda_wq_kernels_match_plain_at_forced_partitions(cuda_device, monkeypat
     assert _wq_err(y8, tint4.int8_matmul_plain(x[:, :1024].float(), qt["q"], qt["s"])) < 1e-2
 
 
+#: CUgraphNodeType of a kernel node (cuda.h)
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def _captured_nodes(fn):
+    """A CUDA graph captured from one call of ``fn`` (its result kept as
+    ``graph.output``) and the CUgraphNodeType of each of its nodes, read by
+    ``cuGraphGetNodes`` / ``cuGraphNodeGetType`` of the driver library."""
+    import ctypes
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        graph.output = fn()
+    driver = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert driver.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert driver.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    graph.instantiate()
+    return graph, types
+
+
 @pytest.mark.cuda
 def test_cuda_int4_kernel_is_deterministic_and_one_launch(cuda_device):
     """The split-K sum runs in rank order inside the cluster: two calls on
     the same inputs give the same bits, and a call is one kernel on the
-    card (no reduce kernel)."""
+    card (no reduce kernel, no memset): a CUDA graph captured from one call
+    holds one node, a kernel node, whose replay alone gives the same bits.
+    The graph's nodes are read through the driver API, not a profiler
+    window (whose CUDA events CUPTI has dropped on this card)."""
     x, packed, scales = _int4_case(cuda_device, 4, 5120, 5120)
     assert tint4.partition(4, 5120, 2560 // tint4.STEP_ROWS,
                            torch.cuda.get_device_properties(0).multi_processor_count)[1] > 1
@@ -498,13 +538,14 @@ def test_cuda_int4_kernel_is_deterministic_and_one_launch(cuda_device):
     y2 = tint4.int4_matmul(x, packed, scales)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tint4.int4_matmul(x, packed, scales)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) == 1 and "wq_matmul_kernel" in names[0], names
+    before = tint4.int4_matmul.launches
+    graph, types = _captured_nodes(lambda: tint4.int4_matmul(x, packed, scales))
+    assert tint4.int4_matmul.launches == before + 1
+    assert types == [_CU_GRAPH_NODE_TYPE_KERNEL], types
+    graph.output.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graph.output, y1)
 
 
 @pytest.mark.cuda
@@ -521,7 +562,9 @@ def test_cuda_int4_kernel_reads_a_stacked_layer_in_place(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(4, 1024, 256), (17, 512, 384), (256, 1024, 128),
-                                   (4, 2560, 1280)])
+                                   (4, 2560, 1280),
+                                   # Qwen2-7B's widths
+                                   (4, 3584, 512), (4, 3584, 18944), (4, 18944, 3584)])
 def test_cuda_int8_kernel_matches_plain(cuda_device, M, K, N):
     w, = _arrays([(K, N)], 44, 0.05)
     qt = {k: v.to(cuda_device) for k, v in tquant.quantize_tensor(torch.from_numpy(w)).items()}

@@ -20,7 +20,7 @@ REQUIRED = ("training.step", "training.loop", "training.schedulers", "training.c
             "utils.tokenization", "evaluation.reporting", "cli.reprocess", "cli.convert",
             "utils.safetensors_np", "models.stream_convert", "models.convert",
             "models.synth_ckpt", "models.base", "models.factory", "cli.inference",
-            "inference.serving", "cli.serve")
+            "inference.serving", "cli.serve", "models.qwen_audio")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys

@@ -99,6 +99,7 @@ def test_tiny_tokenizer_encodes_and_decodes_as_the_original():
 @pytest.mark.parametrize("fn,arg", [
     (factory.create_model, "device"), (factory.SalmonnModel.__init__, "device"),
     (SalmonnEngine.__init__, "device"), (bridge.params_from_numpy, "device"),
-    (init_kv_cache, "device"), (ContinuousBatchingEngine.__init__, "device")])
+    (init_kv_cache, "device"), (ContinuousBatchingEngine.__init__, "device"),
+    (factory.QwenAudioModel.__init__, "device")])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"

@@ -110,8 +110,6 @@ def test_serve_cli_refuses_what_is_not_ported():
         tserve.main(PLAIN + ["--compile_cache", "/nonexistent", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="--mesh"):
         tserve.main(PLAIN + ["--mesh", "1,1,1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="qwen"):
-        tserve.main(["--model_type", "qwen2-audio-7b", "--device", "cpu"])
     with pytest.raises(SystemExit):
         tserve.main(PREFIX + ["--num_beams", "2", "--device", "cpu"])
     with pytest.raises(SystemExit):
