@@ -42,7 +42,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                against the f32 plain path on the CPU with the same weights and
                inputs: at salmonn-7b widths the first-token logits and 3
                decode steps' logits through the flash-decode kernel, then the
-               training loss and the LoRA / Q-Former gradients; at salmonn-13b
+               training loss and the LoRA / Q-Former gradients, then the symbol
+               adapter's loss (soft quantization at T = 0.1 over the 32000-row
+               vocabulary) on two MELD-emotion requests whose labels are a
+               seeded SymbolManager's symbols, its LoRA and input_mlp
+               gradients (5e-2 × max |plain gradient| besides the L2 and cosine
+               bounds) and the hard ids wherever the top-two similarity gap
+               is resolved; at salmonn-13b
                widths with int4 weights and an int8 KV cache the first-token
                logits and 3 decode steps' logits, with the default decode
                attention and with the flash-decode kernel, each step's one
@@ -111,7 +117,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                use_flash_decode=True (4), the serving CLI (8; first tokens
                equal to the bf16 CLI run's), and the train CLI (2 steps,
                then 2 with full remat), each run's launch counts read from
-               that run alone (``_qwen_phase``).
+               that run alone (``_qwen_phase``);
+ 10. symbol  — BASELINE.md config 4 at salmonn-7b full width:
+               cli/symbol_train.py --training_mode lora_mlp_joint on MELD
+               emotion + SQA (8 samples each, batch 2; a LoRA step with the
+               MLP bypassed, an MLP-only step whose gradient reaches the text
+               embeddings through every layer's K6/K5, a joint step, each
+               validated in three modes on 2 + 2 samples and checkpointed):
+               every loss finite, the MLP adapter bit-identical through the
+               LoRA step, LoRA through the MLP step, both changed by the
+               joint step, each step's training launches (validation taken
+               out) at least K2 ×32, K3 ×12, K1, K5, K6 ×32 a batch,
+               each validation's K1 and K4 and no K5/K6, three checkpoints
+               with the mappings; then cli/symbol_inference.py on the joint
+               checkpoint: 4 predictions a mode, the no_mlp_symbols and
+               no_mlp_original composites, and their MELD prediction rows
+               (SQA draws new exemplars at each access), equal to the
+               joint step's validation (the same weights, the restored
+               mappings, greedy); no kernel's plain version called on the card in
+               the phase. Prints s an optimizer step, examples/s, peak
+               memory and the phase's seconds.
 The line before the last is a JSON object of the fourteen kernels and the
 Qwen-shape rows (launch counts from the run of each kernel's own path: the
 salmonn-13b int4 run for the int4 and int8 matmuls and K4 q8, the
@@ -1981,6 +2006,108 @@ def _train_check_phase():
     torch.cuda.empty_cache()
 
 
+def _symbol_batch(cfg, seq=(768, 512)):
+    """Two MELD-emotion train requests (k = 5 text exemplars, one clip) with
+    every label replaced by the symbols of a ``SymbolManager`` seeded 0,
+    packed to ``seq``, and the label mask over each symbol's tokens (bare
+    and space-prefixed, as the trainer builds it)."""
+    from icl_speech_text_llm_tpu_torch.data.collate import collate_icl_batch
+    from icl_speech_text_llm_tpu_torch.data.factory import create_dataset
+    from icl_speech_text_llm_tpu_torch.data.packing import PackConfig
+    from icl_speech_text_llm_tpu_torch.registry import DatasetSplit, DatasetType
+    from icl_speech_text_llm_tpu_torch.symbol_adapter import (
+        SymbolManager,
+        extract_dataset_labels,
+        label_token_mask,
+        replace_symbols_in_sample,
+    )
+    from icl_speech_text_llm_tpu_torch.utils.tokenization import get_tokenizer
+
+    tok = get_tokenizer()
+    sm = SymbolManager(extract_dataset_labels([DatasetType.MELD_EMOTION]), tok, seed=0)
+    ds = create_dataset(DatasetType.MELD_EMOTION, split=DatasetSplit.TRAIN, is_training=True,
+                        input_mode="speech_only", fewshot_mode="text", num_examples=5,
+                        max_samples=2, synthetic=True, seed=0)
+    samples = [replace_symbols_in_sample(ds[i], sm.fixed_mappings) for i in range(2)]
+    b = collate_icl_batch(samples, tok, PackConfig(seq_len=seq[0], text_len=seq[1], max_slots=1,
+                                                   audio_tokens_per_slot=cfg.audio_tokens_per_slot))
+    ids = [i for sym in sm.fixed_mappings.values()
+           for i in tok.encode(sym, add_special_tokens=False)
+           + tok.encode(" " + sym, add_special_tokens=False)]
+    mask = label_token_mask(b.text_tokens, ids)
+    if b.labels_shifted.max() >= cfg.llm.vocab_size or not mask.any():
+        raise AssertionError("symbol batch: a label past the vocabulary, or no symbol token")
+    print(f"  symbol batch: mappings {sm.fixed_mappings}; {int(mask.sum())} masked text "
+          f"positions, prompts of {b.seq_lengths.tolist()} positions", flush=True)
+    return {"text_tokens": b.text_tokens, "gather_idx": b.gather_idx, "seq_mask": b.seq_mask,
+            "shifted_labels": b.labels_shifted, "wavs": b.audio["wavs"], "label_mask": mask}
+
+
+def _symbol_check_phase():
+    """salmonn-7b widths with one layer per stack: the symbol loss
+    (``mlp_salmonn_train_loss``, soft quantization at T = 0.1 over the
+    32000-row vocabulary) and the LoRA and ``input_mlp`` gradients of the
+    bf16 kernel path on the card against the f32 plain path on the CPU, the
+    same weights and batch (``_grad_check``'s bounds, plus each element
+    within 5e-2 × max |plain gradient|); then the hard ids of the masked
+    positions, equal wherever the CPU's top-two similarity gap exceeds the
+    resolution: twice the card's largest similarity error, at least one
+    bf16 step (2^-8 on these unit-norm products), that error itself at
+    most 2^-6."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import embed_tokens
+    from icl_speech_text_llm_tpu_torch.models.salmonn import init_salmonn, salmonn_7b
+    from icl_speech_text_llm_tpu_torch.symbol_adapter import (
+        init_mlp_adapter,
+        transform_label_embeddings,
+    )
+    from icl_speech_text_llm_tpu_torch.symbol_adapter.losses import mlp_salmonn_train_loss
+    from icl_speech_text_llm_tpu_torch.symbol_adapter.mlp_adapter import _unit, mlp_forward
+
+    cfg = _one_layer(salmonn_7b())
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = init_salmonn(cfg, gen, dev, torch.bfloat16, trainable_dtype=torch.float32)
+    for sub in params["lora"].values():
+        sub["b"] = torch.randn(sub["b"].shape, generator=gen, device=dev) * 0.02
+    params["mlp_adapter"] = init_mlp_adapter(gen, cfg.llm.dim, 8, device=dev)
+    batch = _symbol_batch(cfg)
+
+    def loss_fn(cfg, p, b):
+        return mlp_salmonn_train_loss(cfg, p, b, mlp_params=p["mlp_adapter"], temperature=0.1)[0]
+
+    _grad_check("symbol ", cfg, params, batch, loss_fn,
+                {"mlp_adapter.input_mlp": lambda n: n.startswith("mlp_adapter.input_mlp.")},
+                trainable_keys=("lora", "mlp_adapter"), max_abs=True)
+
+    cpu = torch.device("cpu")
+    tokens, mask = (torch.as_tensor(batch[k]) for k in ("text_tokens", "label_mask"))
+    with torch.no_grad():
+        got, want = [], []
+        for device, dt, out in ((dev, torch.bfloat16, got), (cpu, torch.float32, want)):
+            mlp = _tree_to(params["mlp_adapter"], device, torch.float32)
+            vocab = params["llm"]["tok_embed"].to(device, dt)
+            emb = embed_tokens({"tok_embed": vocab}, tokens.to(device), dtype=dt)
+            _, ids, _ = transform_label_embeddings(mlp, emb, mask.to(device), vocab, hard=True)
+            x = (emb + mlp_forward(mlp["input_mlp"], emb))[mask.to(device)]
+            sims = _unit(x) @ _unit(vocab).T.to(x.dtype)
+            out += [ids[mask.to(device)].cpu(), sims.float().cpu()]
+    err = (got[1] - want[1]).abs().max().item()
+    top2 = want[1].topk(2, dim=-1).values
+    res = max(2 * err, 2.0 ** -8)
+    clear = (top2[:, 0] - top2[:, 1]) > res
+    same = got[0] == want[0]
+    print(f"  symbol hard ids: {int(mask.sum())} masked positions, similarity error "
+          f"{err:.3e} (bound {2.0 ** -6:.3e}); {int(clear.sum())} with a top-two gap over "
+          f"{res:.3e}, all equal: {bool(same[clear].all())}; {int(same.sum())} equal in all",
+          flush=True)
+    if err > 2.0 ** -6 or not same[clear].all():
+        raise AssertionError("symbol hard ids differ where the similarity gap is resolved")
+    del params
+    torch.cuda.empty_cache()
+
+
 def _train_batch(cfg, n_audio, L, clip_samples=None):
     """Two requests of text, clip 0, text, clip 1 (5 s clips, ragged text
     lengths) in an L-position prompt, ``n_audio`` positions spliced from
@@ -2015,12 +2142,16 @@ LORA_GROUPS = {"lora.*.a": lambda n: n.startswith("lora.") and n.endswith(".a"),
                "lora.*.b": lambda n: n.startswith("lora.") and n.endswith(".b")}
 
 
-def _grad_check(label, cfg, params, batch, loss_fn, groups):
+def _grad_check(label, cfg, params, batch, loss_fn, groups,
+                trainable_keys=("lora", "qformer"), max_abs=False):
     """The training loss and the trainable gradients of the bf16 kernel path
     on the card (one K1, K5 and K6 launch: one layer) against the f32 plain
     path on the CPU, the same weights and batch: the loss within 1e-2
     relative, each group of gradients (``LORA_GROUPS`` and ``groups``)
-    within 5e-2 relative (L2) with a cosine of 0.99 or more."""
+    within 5e-2 relative (L2) with a cosine of 0.99 or more, and with
+    ``max_abs`` each element within 5e-2 × the group's max |plain
+    gradient|. The subtrees ``trainable_keys`` get gradients (a leaf the
+    loss does not reach gets zeros)."""
     import numpy as np
     import torch
 
@@ -2028,13 +2159,14 @@ def _grad_check(label, cfg, params, batch, loss_fn, groups):
     from icl_speech_text_llm_tpu_torch.training.step import merge_params, split_params, tree_map
 
     def loss_and_grads(cfg, params, device):
-        trainable, frozen = split_params(params)
+        trainable, frozen = split_params(params, trainable_keys)
         trainable = tree_map(lambda t: t.detach().clone().requires_grad_(), trainable)
         loss = loss_fn(cfg, merge_params(frozen, trainable),
                        {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
         named = _paths(trainable)
-        grads = torch.autograd.grad(loss, list(named.values()))
-        return loss.item(), {n: g.float().cpu() for n, g in zip(named, grads)}
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+        return loss.item(), {n: (torch.zeros(p.shape) if g is None else g.float().cpu())
+                             for (n, p), g in zip(named.items(), grads)}
 
     before = kernels.launch_counts()
     got_loss, got = loss_and_grads(cfg, params, torch.device("cuda"))
@@ -2057,10 +2189,12 @@ def _grad_check(label, cfg, params, batch, loss_fn, groups):
         w = torch.cat([want[n].flatten() for n in names]).double()
         rel = ((g - w).norm() / w.norm()).item()
         cos = (g @ w / (g.norm() * w.norm())).item()
+        elem = ((g - w).abs().max() / w.abs().max()).item()
         print(f"  {label}grad {gname} ({len(names)} leaves, |g| {w.norm().item():.4e}): "
-              f"relative error {rel:.3e} (bound 5e-2), cosine {cos:.6f} (bound 0.99)",
-              flush=True)
-        if not (w.norm() > 0 and rel <= 5e-2 and cos >= 0.99):
+              f"relative error {rel:.3e} (bound 5e-2), cosine {cos:.6f} (bound 0.99), "
+              f"max abs error / max |g| {elem:.3e}"
+              + (" (bound 5e-2)" if max_abs else ""), flush=True)
+        if not (w.norm() > 0 and rel <= 5e-2 and cos >= 0.99) or (max_abs and elem > 5e-2):
             raise AssertionError(f"{label}train gradient check failed for {gname}")
 
 
@@ -2973,6 +3107,216 @@ def _qwen_phase(out_dir):
     return counts
 
 
+#: phase symbol's datasets and sample counts (BASELINE.md config 4)
+SYMBOL_ARGS = ["--model_type", "salmonn-7b", "--dataset_type", "meld_emotion-sqa",
+               "--val_dataset_type", "meld_emotion-sqa", "--synthetic", "--max_samples", "8",
+               "--val_max_samples", "2", "--device", "cuda"]
+#: the kernels' plain versions: none may run on the card
+PLAIN_ROUTES = {"ops.flash_attention": (
+    "flash_attention_plain", "flash_attention_bwd_plain", "flash_attention_bwd_dq_plain",
+    "flash_attention_bwd_dkv_plain", "gated_bias_attention_plain", "gated_bias_rows_plain",
+    "gated_bias_batched_plain", "append_kv_plain", "append_kv_q8_plain",
+    "flash_decode_attention_plain"),
+    "ops.int4_matmul": ("int4_matmul_plain", "int8_matmul_plain")}
+
+
+def _count_plain_routes():
+    """Count every call of a kernel's plain version (their wrappers call
+    them by module name) → (counts, undo)."""
+    import importlib
+
+    counts, saved = {}, []
+    for mod_name, names in PLAIN_ROUTES.items():
+        mod = importlib.import_module(f"icl_speech_text_llm_tpu_torch.{mod_name}")
+        for name in names:
+            fn = getattr(mod, name)
+            counts[name] = 0
+            saved.append((mod, name, fn))
+
+            def counted(*a, _name=name, _fn=fn, **kw):
+                counts[_name] += 1
+                return _fn(*a, **kw)
+
+            setattr(mod, name, counted)
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return counts, undo
+
+
+def _symbol_train_run(out_dir):
+    """cli/symbol_train.py lora_mlp_joint at salmonn-7b full width; each
+    schedule step's training launches (its validations' taken out), the
+    trainable leaves it changed, and each validation's launches and
+    prediction rows by mode."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.cli import symbol_train
+    from icl_speech_text_llm_tpu_torch.symbol_adapter import trainer as strainer
+    from icl_speech_text_llm_tpu_torch.symbol_adapter import validation as sval
+
+    steps, vals, rows = [], [], []
+    train_step, validate = strainer.UnifiedTrainer.train_step, sval.ValidationManager.validate_model
+    run_mode = sval.ValidationManager._run_mode
+
+    def validate_counted(self, epoch=0):
+        before = kernels.launch_counts()
+        rows.append({})
+        out = validate(self, epoch)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        vals.append({k: after[k] - before[k] for k in after})
+        return out
+
+    def run_mode_kept(self, mode, epoch, collect_predictions=False):
+        out = run_mode(self, mode, epoch, collect_predictions=True)
+        rows[-1][mode] = out["predictions"]
+        return out
+
+    def step_counted(self, step, dataset):
+        def snap():
+            return {"lora": {n: t.clone() for n, t in _paths(self.model.params["lora"]).items()},
+                    "mlp": {n: t.clone() for n, t in _paths(self.mlp_params).items()}}
+
+        before, n_val, c0 = snap(), len(vals), kernels.launch_counts()
+        summary = train_step(self, step, dataset)
+        torch.cuda.synchronize()
+        c1, after = kernels.launch_counts(), snap()
+        steps.append({
+            "phase": step.phase, "summary": summary,
+            "launches": {k: c1[k] - c0[k] - sum(v[k] for v in vals[n_val:]) for k in c1},
+            "changed": {sub: [n for n in before[sub] if not torch.equal(before[sub][n],
+                                                                          after[sub][n])]
+                        for sub in before}})
+        return summary
+
+    strainer.UnifiedTrainer.train_step = step_counted
+    sval.ValidationManager.validate_model = validate_counted
+    sval.ValidationManager._run_mode = run_mode_kept
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        symbol_train.main(["--training_mode", "lora_mlp_joint", "--total_cycles", "1",
+                           "--lora_epochs", "1", "--mlp_epochs", "1", "--batch_size", "2",
+                           *SYMBOL_ARGS, "--output_dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        strainer.UnifiedTrainer.train_step = train_step
+        sval.ValidationManager.validate_model = validate
+        sval.ValidationManager._run_mode = run_mode
+    return steps, vals, rows, wall, torch.cuda.max_memory_allocated()
+
+
+def _symbol_phase(out_dir):
+    """BASELINE.md config 4 at full width: cli/symbol_train.py
+    (lora_mlp_joint on salmonn-7b, MELD emotion + SQA, batch 2, validation
+    in three modes after each epoch), then cli/symbol_inference.py on the
+    joint step's checkpoint; see the module docstring."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.cli import symbol_inference
+    from icl_speech_text_llm_tpu_torch.training.checkpoint import load_checkpoint
+
+    plain, undo = _count_plain_routes()
+    try:
+        kernels.reset_launch_counts()
+        steps, vals, rows, wall, peak = _symbol_train_run(os.path.join(out_dir, "train"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  symbol_train: {len(steps)} schedule steps, {len(vals)} validations, "
+              f"{wall:.3f} s wall (model build included), peak {peak / 2**30:.3f} GiB",
+              flush=True)
+        if [s["phase"] for s in steps] != ["lora", "mlp", "joint"]:
+            raise AssertionError(f"schedule {[s['phase'] for s in steps]}")
+        trains = {"lora": ("lora",), "mlp": ("mlp",), "joint": ("lora", "mlp")}
+        for s in steps:
+            summ, perf = s["summary"], s["summary"]["perf"]
+            losses = [e["loss"] for e in summ["epochs"]]
+            n = perf["steps"]
+            need = {k: v * n for k, v in SALMONN_7B_STEP.items()}
+            print(f"  {s['phase']} step: {n} batches, final loss {summ['final_loss']:.6f}, "
+                  f"{perf['avg_step_time']:.4f} s an optimizer step, "
+                  f"{perf['examples_per_sec']:.4f} examples/s; launches "
+                  f"{ {k: s['launches'][k] for k in need} }; changed: lora "
+                  f"{len(s['changed']['lora'])}, mlp {len(s['changed']['mlp'])} leaves; "
+                  f"validation {summ['epochs'][-1]['val']}", flush=True)
+            if not np.all(np.isfinite(losses + [summ["final_loss"]])):
+                raise AssertionError(f"{s['phase']} step: a loss is not finite")
+            if any(s["launches"][k] < v for k, v in need.items()):
+                raise AssertionError(f"{s['phase']} step launched too few kernels")
+            for sub in ("lora", "mlp"):
+                if bool(s["changed"][sub]) != (sub in trains[s["phase"]]):
+                    raise AssertionError(f"{s['phase']} step: {sub} changed "
+                                         f"{len(s['changed'][sub])} leaves")
+        for i, v in enumerate(vals):
+            if v["flash_attention_causal"] < 32 or v["append_kv"] < 1 or \
+                    v["flash_attention_bwd_dq"] or v["flash_attention_bwd_dkv"]:
+                raise AssertionError(f"validation {i} launches {v}")
+        print(f"  validation launches (each): K1 {[v['flash_attention_causal'] for v in vals]}, "
+              f"K4 {[v['append_kv'] for v in vals]}, K2 "
+              f"{[v['flash_attention_noncausal'] for v in vals]}, no K5/K6", flush=True)
+        ckpts = {}
+        for s in steps:
+            d = os.path.join(out_dir, "train", f"{s['phase']}_step{steps.index(s)}_cycle0")
+            ck = load_checkpoint(d)
+            meta = ck["meta"]["metadata"]
+            if set(ck["trainable"]) != {"lora", "mlp_adapter"} or \
+                    sorted(meta["symbol_mappings"]) != sorted(
+                        ["neutral", "joy", "sadness", "anger", "fear", "disgust", "surprise"]):
+                raise AssertionError(f"checkpoint {d}: {sorted(ck['trainable'])}, {meta}")
+            ckpts[s["phase"]] = d
+        print(f"  checkpoints: {sorted(os.path.basename(d) for d in ckpts.values())}, mappings "
+              f"{meta['symbol_mappings']}", flush=True)
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        symbol_inference.main(["--checkpoint", ckpts["joint"], *SYMBOL_ARGS, "--batch_size", "1",
+                               "--output_dir", os.path.join(out_dir, "infer")])
+        torch.cuda.synchronize()
+        infer_wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        undo()
+    with open(os.path.join(out_dir, "infer", "symbol_inference_inference_results.json")) as f:
+        results = json.load(f)
+    last = steps[-1]["summary"]["epochs"][-1]["val"]
+    for mode in ("no_mlp_symbols", "no_mlp_fresh", "no_mlp_original"):
+        preds = results[mode]["predictions"]
+        per = {dt: sum(p["dataset_type"] == dt for p in preds) for dt in ("meld_emotion", "sqa")}
+        # SQA draws its exemplars anew at every access of a sample (the
+        # reference's lookup sampling), so only MELD's prompts repeat
+        same = {dt: [p for p in preds if p["dataset_type"] == dt]
+                == [p for p in rows[-1][mode] if p["dataset_type"] == dt]
+                for dt in ("meld_emotion", "sqa")}
+        print(f"  symbol_inference {mode}: {results[mode]['composite']} (training's last "
+              f"epoch: {last[mode]}); predictions per dataset {per}, rows equal to "
+              f"training's last validation: {same}; predicted "
+              f"{[p['predicted_label'] for p in preds]}", flush=True)
+        if per != {"meld_emotion": 2, "sqa": 2}:
+            raise AssertionError(f"{mode}: predictions per dataset {per}")
+        if mode != "no_mlp_fresh" and (results[mode]["composite"] != last[mode]
+                                       or not same["meld_emotion"]):
+            raise AssertionError(f"{mode}: inference differs from training's last validation")
+    print(f"  symbol_inference: {infer_wall:.3f} s wall; launches K1 "
+          f"{counts['flash_attention_causal']}, K4 {counts['append_kv']}, K2 "
+          f"{counts['flash_attention_noncausal']}, K3 {counts['gated_bias_attention']}, K5 "
+          f"{counts['flash_attention_bwd_dq']}, K6 {counts['flash_attention_bwd_dkv']}; plain "
+          f"routes on the card {sum(plain.values())}", flush=True)
+    if counts["flash_attention_causal"] < 32 or counts["append_kv"] < 1 or \
+            counts["flash_attention_bwd_dq"] or any(plain.values()):
+        raise AssertionError(f"symbol_inference launches {counts}, plain routes {plain}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     smi = _device_phase()
     import torch
@@ -2997,6 +3341,7 @@ def main():
     t0 = time.perf_counter()
     _reference_phase()
     _train_check_phase()
+    _symbol_check_phase()
     _quant_reference_phase()
     _qwen_reference_phase()
     _step_launches()
@@ -3025,6 +3370,11 @@ def main():
     with tempfile.TemporaryDirectory(dir=here) as d:
         qwen_counts = _qwen_phase(d)
     print(f"  phase qwen: {time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase symbol:", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        _symbol_phase(d)
+    print(f"  phase symbol: {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         if "counter" in row:  # a Qwen-shape row: the launches of its phase qwen run
             row["launches"] = qwen_counts[row["qwen_run"]][row["counter"]]

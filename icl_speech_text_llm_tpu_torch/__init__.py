@@ -6,9 +6,10 @@ code is PyTorch; every Pallas kernel the main path runs is a hand-written
 CUDA kernel under ``csrc/`` (built at first use by ``kernels.py``), with a
 plain PyTorch version beside it that runs on CPU tensors.
 
-This package imports ``torch`` and never ``jax``. It reuses the JAX
-package's framework-free modules that import without jax (``registry``,
-``utils.tokenization``, ``utils.native``) and carries its own copies of the
+This package imports ``torch`` and never ``jax``, nor anything of the JAX
+package: it carries its own copies of the framework-free modules
+(``registry``, ``utils.tokenization``, ``utils.native``, the symbol
+adapter's ``configs``, ``schedulers`` and ``symbol_manager``) and of the
 data and evaluation modules, whose JAX-package versions pull in jax or
 pandas at import.
 """

@@ -180,10 +180,16 @@ def assemble_sequence(cfg: SalmonnConfig, params: Dict[str, Any], text_tokens: t
                       speech_embeds: torch.Tensor, gather_idx: torch.Tensor) -> torch.Tensor:
     """One gather builds the interleaved text/speech sequence (B, L_seq, D):
     index 0 is padding, then the text embeddings, then the flattened clips."""
-    dt = cfg.compute_dtype
-    B = text_tokens.shape[0]
-    text_embeds = embed_tokens(params["llm"], text_tokens, dtype=dt)
-    D = text_embeds.shape[-1]
+    text_embeds = embed_tokens(params["llm"], text_tokens, dtype=cfg.compute_dtype)
+    return gather_sequence(text_embeds, speech_embeds, gather_idx)
+
+
+def gather_sequence(text_embeds: torch.Tensor, speech_embeds: torch.Tensor,
+                    gather_idx: torch.Tensor) -> torch.Tensor:
+    """The gather of ``assemble_sequence`` over given text embeddings (B,
+    L_text, D) (the symbol adapter transforms them first), in their dtype."""
+    B, _, D = text_embeds.shape
+    dt = text_embeds.dtype
     table = torch.cat([torch.zeros((B, 1, D), dtype=dt, device=text_embeds.device),
                        text_embeds, speech_embeds.reshape(B, -1, D).to(dt)], dim=1)
     idx = gather_idx.long()[..., None].expand(-1, -1, D)

@@ -19,7 +19,11 @@ attention kernels are; the int8-cache instance also at every cluster size it
 takes, and to the same bits on two calls. The streaming probe (K11) is held to its plain
 version within 1e-5 × the largest block's Σ|x| (f32 sums in another order).
 K10 also runs at forced partitions (column tile, cluster split) and must
-give the same bits on two calls, in one kernel launch.
+give the same bits on two calls, in one kernel launch. The symbol
+adapter's loss at salmonn-bench widths (one layer a stack) runs the
+encoders and the decoder through the kernels, K5 and K6 included, and is
+held to the f32 CPU path: the loss within 1e-2 relative, the LoRA and
+``input_mlp`` gradients within 5e-2 × max |plain gradient|.
 """
 
 import numpy as np
@@ -906,3 +910,85 @@ def test_cuda_serving_pool_admits_through_k1_and_appends_through_k4(cuda_device,
         assert res[r][:1] == ([] if first[j] == scfg.eos_token_id else [first[j]])
         for key in cache:
             assert torch.equal(eng._cache[key][:, j, :, :n], cache[key][:, j, :, :n]), (key, j)
+
+
+@pytest.mark.cuda
+def test_cuda_symbol_loss_and_mlp_gradient_match_the_plain_path(cuda_device):
+    """The symbol adapter's loss (``mlp_salmonn_train_loss``, soft
+    quantization at T = 0.1) at salmonn-bench widths cut to one layer per
+    stack: bf16 on the card (the encoders through K2 and K3, the decoder
+    through K1, then K5 and K6 in the backward) against the f32 plain path
+    on the CPU with the same weights and batch. The loss within 1e-2
+    relative; the ``input_mlp`` and LoRA gradients within 5e-2 × max
+    |plain gradient|, the gradient reaching the masked text embeddings
+    through the decoder's attention."""
+    import dataclasses
+
+    from icl_speech_text_llm_tpu_torch.models.salmonn import init_salmonn, salmonn_bench
+    from icl_speech_text_llm_tpu_torch.symbol_adapter import init_mlp_adapter
+    from icl_speech_text_llm_tpu_torch.symbol_adapter.losses import mlp_salmonn_train_loss
+
+    base = salmonn_bench()
+    cfg = dataclasses.replace(base, whisper=dataclasses.replace(base.whisper, n_layers=1),
+                              beats=dataclasses.replace(base.beats, n_layers=1),
+                              llm=dataclasses.replace(base.llm, n_layers=1))
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    params = init_salmonn(cfg, gen, cuda_device, torch.bfloat16, trainable_dtype=torch.float32)
+    for sub in params["lora"].values():
+        sub["b"] = torch.randn(sub["b"].shape, generator=gen, device=cuda_device) * 0.02
+    params["mlp"] = init_mlp_adapter(gen, cfg.llm.dim, 8, device=cuda_device)
+    rng = np.random.RandomState(6)
+    B, n_text, T_a, L = 2, 64, cfg.audio_tokens_per_slot, 256
+    idx = np.concatenate([1 + np.arange(40), 1 + n_text + np.arange(T_a), 41 + np.arange(24)])
+    gather = np.zeros((B, L), np.int64)
+    gather[:, :len(idx)] = idx
+    seq_mask = (gather > 0).astype(np.int32)
+    labels = np.full((B, L), -100, np.int64)
+    labels[:, len(idx) - 6:len(idx) - 1] = rng.randint(3, cfg.llm.vocab_size, (B, 5))
+    label_mask = np.zeros((B, n_text), bool)
+    label_mask[:, rng.choice(n_text, 8, replace=False)] = True
+    batch = {"text_tokens": rng.randint(3, cfg.llm.vocab_size, (B, n_text)),
+             "gather_idx": gather, "seq_mask": seq_mask, "shifted_labels": labels,
+             "wavs": (rng.randn(B, 1, 5 * 16000) * 3000).astype(np.int16),
+             "label_mask": label_mask}
+
+    def run(device, dtype):
+        p = _tree_to_device(params, device, dtype)
+        lora = [t.requires_grad_() for sub in p["lora"].values() for t in sub.values()]
+        mlp = [t.requires_grad_() for t in _leaves(p["mlp"]["input_mlp"])]
+        loss = mlp_salmonn_train_loss(
+            dataclasses.replace(cfg, compute_dtype=dtype), p,
+            {k: torch.as_tensor(v, device=device) for k, v in batch.items()},
+            mlp_params=p["mlp"], temperature=0.1)[0]
+        grads = torch.autograd.grad(loss, lora + mlp)
+        return loss.item(), [g.float().cpu() for g in grads[:len(lora)]], \
+            [g.float().cpu() for g in grads[len(lora):]]
+
+    before = kernels.launch_counts()
+    got = run(cuda_device, torch.bfloat16)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("flash_attention_causal", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] - before[name] == 1, name
+    for name in ("flash_attention_noncausal", "gated_bias_attention"):
+        assert after[name] - before[name] >= 1, name
+    want = run(torch.device("cpu"), torch.float32)
+    assert np.isfinite(got[0]) and abs(got[0] - want[0]) <= 1e-2 * abs(want[0])
+    for g, w in zip(got[1:], want[1:]):
+        g, w = torch.cat([t.flatten() for t in g]), torch.cat([t.flatten() for t in w])
+        assert w.abs().max() > 0
+        assert (g - w).abs().max() <= 5e-2 * w.abs().max()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
+def _tree_to_device(tree, device, dtype):
+    """A copy of a parameter tree on ``device``: bf16 leaves in ``dtype``,
+    f32 leaves f32."""
+    if isinstance(tree, dict):
+        return {k: _tree_to_device(v, device, dtype) for k, v in tree.items()}
+    return tree.detach().to(device, dtype if tree.dtype == torch.bfloat16 else tree.dtype).clone()

@@ -20,7 +20,12 @@ REQUIRED = ("training.step", "training.loop", "training.schedulers", "training.c
             "utils.tokenization", "evaluation.reporting", "cli.reprocess", "cli.convert",
             "utils.safetensors_np", "models.stream_convert", "models.convert",
             "models.synth_ckpt", "models.base", "models.factory", "cli.inference",
-            "inference.serving", "cli.serve", "models.qwen_audio")
+            "inference.serving", "cli.serve", "models.qwen_audio",
+            "symbol_adapter", "symbol_adapter.configs", "symbol_adapter.schedulers",
+            "symbol_adapter.symbol_manager", "symbol_adapter.mlp_adapter",
+            "symbol_adapter.losses", "symbol_adapter.trainer", "symbol_adapter.validation",
+            "symbol_adapter.orchestrator", "cli.symbol_train", "cli.symbol_inference",
+            "cli.interactive", "models.multi_task", "utils.perf")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys

@@ -18,6 +18,8 @@ from icl_speech_text_llm_tpu import registry as jregistry
 from icl_speech_text_llm_tpu.utils import tokenization as jtok
 from icl_speech_text_llm_tpu_torch import bridge
 from icl_speech_text_llm_tpu_torch import registry as tregistry
+from icl_speech_text_llm_tpu_torch import symbol_adapter
+from icl_speech_text_llm_tpu_torch.cli import interactive, symbol_inference
 from icl_speech_text_llm_tpu_torch.inference.engine import SalmonnEngine
 from icl_speech_text_llm_tpu_torch.inference.serving import ContinuousBatchingEngine
 from icl_speech_text_llm_tpu_torch.models import factory
@@ -100,6 +102,18 @@ def test_tiny_tokenizer_encodes_and_decodes_as_the_original():
     (factory.create_model, "device"), (factory.SalmonnModel.__init__, "device"),
     (SalmonnEngine.__init__, "device"), (bridge.params_from_numpy, "device"),
     (init_kv_cache, "device"), (ContinuousBatchingEngine.__init__, "device"),
-    (factory.QwenAudioModel.__init__, "device")])
+    (factory.QwenAudioModel.__init__, "device"),
+    (symbol_adapter.build_training_world, "device"),
+    (symbol_adapter.InferenceOrchestrator.__init__, "device"),
+    (symbol_adapter.init_mlp_adapter, "device")])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
+
+
+@pytest.mark.parametrize("parse", [
+    lambda: symbol_adapter.parse_training_args([]),
+    lambda: symbol_inference.build_parser().parse_args(["--checkpoint", "c"]),
+    lambda: interactive.build_parser().parse_args([])],
+    ids=["symbol_train", "symbol_inference", "interactive"])
+def test_cli_entry_points_default_to_the_card(parse):
+    assert parse().device == "cuda"
