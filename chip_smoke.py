@@ -137,6 +137,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                mappings, greedy); no kernel's plain version called on the card in
                the phase. Prints s an optimizer step, examples/s, peak
                memory and the phase's seconds.
+  11. util    — the last single-card entry points and data parallelism: (a)
+               the inference CLI's --auto_batch search (utils/memory.py)
+               over salmonn-7b's generation of phase main's request, each
+               probed size's peak memory printed (every size up to 16 must
+               fit), then again with the budget halfway between the peaks
+               of 8 and 16 (it must pick the lower of the two sizes the
+               budget falls between), then cli/inference.py --auto_batch
+               --auto_batch_max 16 to the end at the pick; (b)
+               cli/train.py --auto_batch --auto_batch_max 16 at salmonn-7b
+               without remat: a probe runs out of memory and is caught, the
+               search leaves the trainable leaves and moments bit-identical,
+               the pick trains; (c) cli/train.py --mesh 1 under
+               torch.distributed.run (one NCCL rank) with phase train's
+               first run's arguments: the same losses, bit for bit; (d) two
+               data-parallel ranks on the card over gloo at salmonn-7b's
+               widths with one layer a stack (salmonn-tiny's head dims are
+               not the kernels'), one request each with 5 and 1 label
+               tokens: the step of the two equals one process's full-batch
+               step within phase check's card bounds (loss 1e-2, gradients
+               5e-2 × the group's max) while plain DDP averaging does not,
+               the replicas stay bit-identical, a NaN on one rank skips the
+               step on both, predictions gathered on both;
+               (e) topk_similar (few-shot retrieval) on a 6000 × 512 hashed
+               pool, k = 10: the CPU's indices, and its time; (f) one
+               generation under utils/perf.py:torch_profile, whose trace
+               must name K1's kernel. No kernel's plain version is called
+               in (b) and (c).
 The line before the last is a JSON object of the fourteen kernels and the
 Qwen-shape rows (launch counts from the run of each kernel's own path: the
 salmonn-13b int4 run for the int4 and int8 matmuls and K4 q8, the
@@ -158,6 +185,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -2751,6 +2779,17 @@ def _load_phase(out_dir, quant_run):
     _encode_chunk_run()
 
 
+def _train_argv(out_dir, n_steps, extra, model_type="salmonn-7b", seq=(1024, 448)):
+    """cli/train.py's arguments of the train phase's runs: ``n_steps``
+    batches of 4 voxceleb requests (k = 5 speech exemplars) packed to
+    ``seq``, one epoch, validation on 4 requests."""
+    return ["--model_type", model_type, "--dataset_type", "voxceleb", "--synthetic",
+            "--fewshot_mode", "speech", "--num_examples", "5", "--batch_size", "4",
+            "--max_samples", str(4 * n_steps), "--synthetic_size", "16", "--num_epochs", "1",
+            "--seq_len", str(seq[0]), "--text_len", str(seq[1]), "--val_max_samples", "4",
+            "--warmup_steps", "0", "--device", "cuda", "--output_dir", out_dir, *extra]
+
+
 def _train_run(out_dir, n_steps, extra, need, model_type="salmonn-7b", seq=(1024, 448)):
     """cli/train.py at ``model_type``, full width, on the card, prompts
     packed to ``seq``; each step's launches at least ``need``; returns
@@ -2761,11 +2800,7 @@ def _train_run(out_dir, n_steps, extra, need, model_type="salmonn-7b", seq=(1024
     from icl_speech_text_llm_tpu_torch import kernels
     from icl_speech_text_llm_tpu_torch.cli import train
 
-    argv = ["--model_type", model_type, "--dataset_type", "voxceleb", "--synthetic",
-            "--fewshot_mode", "speech", "--num_examples", "5", "--batch_size", "4",
-            "--max_samples", str(4 * n_steps), "--synthetic_size", "16", "--num_epochs", "1",
-            "--seq_len", str(seq[0]), "--text_len", str(seq[1]), "--val_max_samples", "4",
-            "--warmup_steps", "0", "--device", "cuda", "--output_dir", out_dir, *extra]
+    argv = _train_argv(out_dir, n_steps, extra, model_type, seq)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2802,7 +2837,8 @@ SALMONN_7B_STEP = {"flash_attention_causal": 32, "flash_attention_bwd_dq": 32,
 
 
 def _train_phase(out_dir):
-    """The training main path: 4 optimizer steps, then 2 with full remat."""
+    """The training main path: 4 optimizer steps, then 2 with full remat;
+    returns the first run's launch counts and losses."""
     import numpy as np
     import torch
 
@@ -2834,12 +2870,13 @@ def _train_phase(out_dir):
             raise AssertionError(f"checkpoint leaf {n} differs after reload")
     print(f"  checkpoint {os.path.basename(result.checkpoints[0])} reloads: "
           f"{len(trained)} leaves identical, step {ck['step']}", flush=True)
+    losses = list(result.losses)
     del result, fresh, trained, init, ck
     torch.cuda.empty_cache()
     _train_run(os.path.join(out_dir, "remat"), 2, ["--gradient_checkpointing"],
                {**SALMONN_7B_STEP, "flash_attention_causal": 64})
     torch.cuda.empty_cache()
-    return counts
+    return counts, losses
 
 
 #: the serving CLI's requests: phase main's voxceleb requests (6 clips, k =
@@ -3317,6 +3354,613 @@ def _symbol_phase(out_dir):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase util
+#: the optimizer of the data-parallel step checks (``_dp_worker``). Clipping
+#: to 1e-9, below AdamW's eps (1e-8), keeps its first step linear in the
+#: gradient (each weight moves by about lr · g / (10 ‖g‖)), so the updated
+#: leaves are a well-conditioned function of the summed gradients; above
+#: eps the first step moves every weight by ±lr wherever |g| ≫ eps, and
+#: rounding noise in a near-zero gradient flips it.
+DP_OPT = dict(learning_rate=1e-3, weight_decay=0.01, max_grad_norm=1e-9)
+#: their limits at f32 on the CPU (``_check_dp_ranks``), ``tests/test_torch_training.py``'s
+DP_LIMITS = {"loss": 1e-5, "grad_norm": 1e-5, "grads": 1e-4, "leaves": 1e-5}
+#: and on the card, where the model computes in bf16 through the kernels:
+#: phase check's card bounds (loss 1e-2; gradients 5e-2 × the group's max);
+#: the ranks' replicas must be bit-identical.
+DP_CARD_LIMITS = {"loss": 1e-2, "grad_norm": 1e-2, "grads": 5e-2}
+#: the least launches of one salmonn-7b generation batch: K2 and K3 over
+#: the clips, K1 in each of the 32 decoder layers, K4 each decode step
+SALMONN_7B_GENERATE = {"flash_attention_noncausal": 32, "gated_bias_attention": 12,
+                       "flash_attention_causal": 32, "append_kv": 9}
+
+
+def _unpaths(flat):
+    """{'a.b.c': leaf} → the nested dict (``_paths``' inverse)."""
+    tree = {}
+    for name, leaf in flat.items():
+        *parents, key = name.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[key] = leaf
+    return tree
+
+
+def _dp_batch(cfg):
+    """phase check's two-request train batch (``_train_batch``) at ``cfg``,
+    row 1 keeping 1 of its 5 labels: 5 against 1 label tokens (the
+    data-parallel step must weight each rank's mean loss by them)."""
+    batch = _train_batch(cfg, cfg.audio_tokens_per_slot, 256)
+    labels = batch["shifted_labels"]
+    labels[1, (labels[1] != -100).nonzero()[0][1:]] = -100
+    return batch
+
+
+def _dp_model(model, out_dir, device):
+    """(cfg, params) of a ``_dp_worker`` model: ``"file"`` is salmonn-tiny
+    from ``out_dir/params.npz`` (f32; the CPU test's JAX weights);
+    ``"salmonn-7b-1layer"`` salmonn-7b's widths, one layer per stack, bf16
+    with f32 trainable weights and LoRA B non-zero, drawn from seed 2 on
+    ``device`` (every process draws the same; the kernels take its shapes)."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
+    from icl_speech_text_llm_tpu_torch.models.salmonn import (
+        init_salmonn,
+        salmonn_7b,
+        salmonn_tiny,
+    )
+
+    if model == "file":
+        with np.load(os.path.join(out_dir, "params.npz")) as f:
+            return salmonn_tiny(), params_from_numpy(_unpaths(dict(f)), device=device)
+    cfg = _one_layer(salmonn_7b())
+    gen = torch.Generator(device=device).manual_seed(2)
+    params = init_salmonn(cfg, gen, torch.device(device), torch.bfloat16,
+                          trainable_dtype=torch.float32)
+    for sub in params["lora"].values():
+        sub["b"] = torch.randn(sub["b"].shape, generator=gen, device=device) * 0.02
+    return cfg, params
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_spawn(out_dir, model, params, batch, device, world=2, timeout=50):
+    """Run ``world`` ranks of ``_dp_worker`` (gloo, one process each) on the
+    ``model`` of ``_dp_model`` (``params``: the numpy tree of ``"file"``)
+    and the global ``batch`` (``world`` × the rows of a rank); returns each
+    rank's (result dict, {"trainable.*" / "mu.*": array})."""
+    import numpy as np
+
+    os.makedirs(out_dir, exist_ok=True)
+    if params is not None:
+        np.savez(os.path.join(out_dir, "params.npz"), **_paths(params))
+    np.savez(os.path.join(out_dir, "batch.npz"), **batch)
+    port = _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp_worker",
+                               str(r), str(world), str(port), out_dir, device, model],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            raise AssertionError(f"dp rank {r} failed ({proc.returncode}):\n{outs[r][-3000:]}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res = json.load(f)
+        with np.load(os.path.join(out_dir, f"rank{r}.npz")) as f:
+            ranks.append((res, dict(f)))
+    return ranks
+
+
+def _dp_worker(rank, world, port, out_dir, device, model):
+    """One rank of the data-parallel step (``python3 chip_smoke.py
+    --dp_worker RANK WORLD PORT DIR DEVICE MODEL``): ``_dp_model(MODEL)``,
+    its rows of ``DIR/batch.npz``, over gloo (two ranks may share one card). Steps once (``DP_OPT``), then once more with a
+    label past the vocabulary on the last rank alone (every rank must skip),
+    gathers prediction rows and broadcasts from rank 0; writes
+    ``DIR/rank{RANK}.json`` and, after the first step, the trainable leaves
+    and AdamW's first moments (``trainable.*``, ``mu.*``) to
+    ``DIR/rank{RANK}.npz``."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.data.packing import IGNORE_INDEX
+    from icl_speech_text_llm_tpu_torch.parallel import (
+        broadcast_from_main,
+        gather_predictions,
+        initialize_distributed,
+        make_mesh,
+        process_count,
+        shard_indices,
+        shutdown_distributed,
+        sync_hosts,
+    )
+    from icl_speech_text_llm_tpu_torch.training.loop import local_rows
+    from icl_speech_text_llm_tpu_torch.training.step import (
+        AdamW,
+        OptimizerSettings,
+        init_train_state,
+        make_train_step,
+    )
+
+    torch.set_num_threads(1)
+    initialize_distributed(f"localhost:{port}", world, rank, device=device, backend="gloo")
+    try:
+        mesh = make_mesh(dp=world, device=device)
+        cfg, params = _dp_model(model, out_dir, device)
+        with np.load(os.path.join(out_dir, "batch.npz")) as f:
+            batch = {k: torch.as_tensor(local_rows(f[k], rank, world), device=device)
+                     for k in f.files}
+        opt = AdamW(OptimizerSettings(**DP_OPT))
+        state, frozen = init_train_state(params, opt)
+        step = make_train_step(cfg, opt, mesh=mesh)
+        state, m1 = step(state, frozen, batch)
+        leaves = {k: t.detach().cpu().numpy() for k, t in _paths(
+            {"trainable": state.trainable, "mu": state.opt_state["mu"]}).items()}
+        labels = batch["shifted_labels"].clone()
+        if rank == world - 1:
+            first = (labels != IGNORE_INDEX).nonzero()[0]
+            labels[first[0], first[1]] = cfg.llm.vocab_size
+        state, m2 = step(state, frozen, {**batch, "shifted_labels": labels})
+        kept = all(np.array_equal(t.detach().cpu().numpy(), leaves[f"trainable.{k}"])
+                   for k, t in _paths(state.trainable).items())
+        rows = [{"rank": rank, "index": int(i), "pred": f"p{int(i)}"}
+                for i in shard_indices(5, shuffle=False)]
+        gathered = gather_predictions(rows)
+        sent = broadcast_from_main({"rank": rank, "order": [int(i) for i in
+                                                            shard_indices(7, epoch=rank)]})
+        sync_hosts("dp_worker")
+        res = {"world": process_count(), "loss": m1["loss"], "grad_norm": m1["grad_norm"],
+               "skipped": m1["skipped_nonfinite"], "nan_loss": m2["loss"],
+               "nan_skipped": m2["skipped_nonfinite"], "kept_after_nan": kept,
+               "label_count": int((batch["shifted_labels"] != IGNORE_INDEX).sum()),
+               "gathered": gathered, "broadcast": sent}
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **leaves)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        shutdown_distributed()
+
+
+def _group_max(tree, name):
+    """max |x| over the leaf's group of ``tree`` ({path: array}): lora.*.a,
+    lora.*.b or qformer. Some trainable gradients are zero up to rounding
+    (a key bias shifts every score of a softmax row alike), so their
+    updates are noise too and a leaf's own max is no scale for them
+    (``tests/test_torch_training.py``)."""
+    import numpy as np
+
+    group = ("lora", name[-1]) if name.startswith("lora") else ("qformer", "")
+    return max(np.abs(v).max() for n, v in tree.items()
+               if n.startswith(group[0]) and n.endswith(group[1]))
+
+
+def _dp_grads(mu, grad_norm):
+    """The step's (reduced) gradients from AdamW's first moments after one
+    update: ``mu = (1 − b1) · clip(g)``, ``clip(g) = g · max_norm / ‖g‖``
+    when ‖g‖ ≥ max_norm (``DP_OPT``)."""
+    scale = max(grad_norm / DP_OPT["max_grad_norm"], 1.0) / 0.1
+    return {k: v * scale for k, v in mu.items()}
+
+
+def _check_dp_ranks(ranks, world, want_loss, want_norm, want_leaves, want_grads, label,
+                    limits=DP_LIMITS):
+    """Every rank of ``_dp_spawn`` against the global batch's step: the loss
+    and grad norm (relative), the gradients the ranks summed (as AdamW's
+    moments hold them; × the max |g| of the leaf's group) and, where
+    ``want_leaves``, the updated leaves (× the max |x| of the leaf's group),
+    each within ``limits``; the ranks' replicas bit-identical, the NaN step
+    skipped on every rank, every gathered row on every rank, rank 0's
+    broadcast. Prints and returns the errors."""
+    import numpy as np
+
+    errs = {k: 0.0 for k in limits}
+    for r, (res, arrays) in enumerate(ranks):
+        if res["world"] != world or res["skipped"]:
+            raise AssertionError(f"{label} rank {r}: {res}")
+        errs["loss"] = max(errs["loss"], abs(res["loss"] - want_loss) / abs(want_loss))
+        errs["grad_norm"] = max(errs["grad_norm"],
+                                abs(res["grad_norm"] - want_norm) / abs(want_norm))
+        leaves = {k[len("trainable."):]: v for k, v in arrays.items()
+                  if k.startswith("trainable.")}
+        grads = _dp_grads({k[len("mu."):]: v for k, v in arrays.items() if k.startswith("mu.")},
+                         res["grad_norm"])
+        if set(grads) != set(want_grads) or set(leaves) != set(want_grads):
+            raise AssertionError(f"{label} rank {r}: leaves {sorted(leaves)}")
+        if any(not np.array_equal(v, ranks[0][1][k]) for k, v in arrays.items()):
+            raise AssertionError(f"{label} rank {r}: the replicas differ from rank 0's")
+        for name, want in (want_leaves or {}).items():
+            errs["leaves"] = max(errs["leaves"], np.abs(leaves[name] - want).max()
+                                 / _group_max(want_leaves, name))
+        for name, want in want_grads.items():
+            errs["grads"] = max(errs["grads"], np.abs(grads[name] - want).max()
+                                / _group_max(want_grads, name))
+        if not (res["nan_skipped"] == 1.0 and res["kept_after_nan"]
+                and not np.isfinite(res["nan_loss"])):
+            raise AssertionError(f"{label} rank {r}: the NaN step was not skipped: {res}")
+        got = res["gathered"]
+        if len(got) != 5 + (-5) % world or {row["index"] for row in got} != set(range(5)) \
+                or {row["rank"] for row in got} != set(range(world)):
+            raise AssertionError(f"{label} rank {r}: gathered {got}")
+        if res["broadcast"] != ranks[0][0]["broadcast"] or res["broadcast"]["rank"] != 0:
+            raise AssertionError(f"{label} rank {r}: broadcast {res['broadcast']}")
+    if len({res["label_count"] for res, _ in ranks}) < 2:
+        raise AssertionError(f"{label}: the ranks hold the same label counts")
+    print(f"  {label}: {world} ranks, label tokens "
+          f"{[res['label_count'] for res, _ in ranks]}; loss {ranks[0][0]['loss']:.8f} "
+          f"(full batch {want_loss:.8f}), grad norm {ranks[0][0]['grad_norm']:.8f} "
+          f"({want_norm:.8f}); relative errors loss {errs['loss']:.3e}, grad norm "
+          f"{errs['grad_norm']:.3e}, gradients {errs['grads']:.3e} and leaves "
+          f"{errs.get('leaves', float('nan')):.3e} of their group's max; replicas "
+          f"bit-identical; the NaN step skipped on every rank; "
+          f"{len(ranks[0][0]['gathered'])} rows gathered on each", flush=True)
+    if any(errs[k] > limits[k] for k in errs):
+        raise AssertionError(f"{label}: the data-parallel step is not the full batch's: "
+                             f"{errs} against {limits}")
+    return errs
+
+
+def _train_worker(out_json, argv):
+    """``python3 chip_smoke.py --train_worker OUT.json ARGV...``: cli/train.py's
+    ``main(ARGV)`` in this process (TF32 off, as ``main`` sets it; launched
+    by ``torch.distributed.run`` in phase util); rank 0 writes the losses,
+    the run's kernel launches and its calls of a kernel's plain version."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.cli import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    plain, undo = _count_plain_routes()
+    kernels.reset_launch_counts()
+    try:
+        result = train.main(argv)
+    finally:
+        undo()
+    if int(os.environ.get("RANK", 0)) == 0:
+        with open(out_json, "w") as f:
+            json.dump({"losses": result.losses, "steps": result.state.step,
+                       "skipped": result.skipped_batches,
+                       "launches": kernels.launch_counts(), "plain": plain}, f)
+
+
+#: the largest batch size phase util's searches try
+UTIL_MAX_BATCH = 16
+
+
+def _util_generate_probe():
+    """(model, fn, make_args) of the inference CLI's --auto_batch probe on
+    phase main's first voxceleb request at salmonn-7b (k = 5 speech
+    exemplars, packed to 1024 / 448)."""
+    from icl_speech_text_llm_tpu_torch.cli.inference import generation_probe
+    from icl_speech_text_llm_tpu_torch.data.factory import create_dataset
+    from icl_speech_text_llm_tpu_torch.models.factory import create_model
+    from icl_speech_text_llm_tpu_torch.registry import DatasetSplit, DatasetType
+
+    model = create_model("salmonn-7b", seed=42, device="cuda")
+    dataset = create_dataset(
+        DatasetType.VOXCELEB, split=DatasetSplit.TEST, input_mode="speech_only",
+        fewshot_mode="speech", num_examples=5, is_training=False, max_samples=8,
+        synthetic=True, synthetic_size=32, seed=42)
+    pack_cfg = dataclasses.replace(model.pack_cfg, seq_len=1024, text_len=448, max_slots=6)
+    return (model, *generation_probe(model, dataset[0], pack_cfg))
+
+
+def _util_inference_search(smi):
+    """(a) BatchSizeOptimizer over salmonn-7b's generation of phase main's
+    request, each probed size's measured peak printed (every size up to
+    ``UTIL_MAX_BATCH`` must fit); a second search, from half that size,
+    with the budget halfway between the peaks of the two must pick the
+    lower of the two sizes the budget falls between. Returns (numbers
+    printed, model, fn, make_args)."""
+    from icl_speech_text_llm_tpu_torch.utils import memory
+
+    top = UTIL_MAX_BATCH
+    model, fn, make_args = _util_generate_probe()
+    out = {}
+    for label in ("search", "search at a set budget"):
+        probed = []
+
+        def measure(bs):
+            t0 = time.perf_counter()
+            need = memory.peak_bytes(fn, lambda: make_args(bs))
+            probed.append((bs, need, time.perf_counter() - t0))
+            return need
+
+        budget, start = None, 1
+        if "peaks" in out:
+            budget, start = (out["peaks"][top // 2] + out["peaks"][top]) // 2, top // 2
+        sizer = memory.BatchSizeOptimizer(fn, make_args, memory_budget_bytes=budget,
+                                          max_batch=top, measure=measure)
+        pick = sizer.find_optimal_batch_size(start)
+        print(f"  (a) {label}: budget {sizer.budget / 2**30:.3f} GiB, probed "
+              + ", ".join(f"{bs}: {'OOM' if need is None else f'{need / 2**30:.3f} GiB'} "
+                          f"({sec:.2f} s)" for bs, need, sec in probed)
+              + f" → pick {pick}  [{smi}]", flush=True)
+        need = {bs: n for bs, n, _ in probed}
+        if "peaks" not in out:
+            want = [1 << i for i in range(top.bit_length())]
+            if list(need) != want or pick != top:
+                raise AssertionError(f"expected every size of {want} to fit, probed {probed}")
+            out.update(peaks=need, pick=pick, budget_gib=sizer.budget / 2**30)
+        else:
+            if not (top // 2 <= pick < top and need[pick] <= sizer.budget < need[pick + 1]):
+                raise AssertionError(f"pick {pick} is not the lower size around the budget "
+                                     f"{sizer.budget}: {probed}")
+            out["pick_at_budget"] = pick
+    return out, model, fn, make_args
+
+
+def _util_trace(out_dir, model, fn, make_args):
+    """(f) one generation of one request under ``utils/perf.py:torch_profile``:
+    one Chrome trace, which must name K1's kernel."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.utils.perf import torch_profile
+
+    trace_dir = os.path.join(out_dir, "trace")
+    with torch.inference_mode():
+        _, batch = make_args(1)
+        with torch_profile(trace_dir):
+            fn(model.params, batch)
+            torch.cuda.synchronize()
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    with open(traces[0]) as f:
+        text = f.read()
+    n_k1 = text.count("flash_fwd_wgmma_kernel")
+    print(f"  (f) torch_profile: {len(traces)} trace, {len(text) / 2**20:.1f} MiB, {n_k1} "
+          f"mentions of flash_fwd_wgmma_kernel (K1/K2)", flush=True)
+    if len(traces) != 1 or not n_k1:
+        raise AssertionError(f"the trace {traces} does not name K1's kernel")
+    return {"trace_mib": len(text) / 2**20, "k1_mentions": n_k1}
+
+
+def _util_inference_cli(out_dir, pick):
+    """(a) cli/inference.py --auto_batch on phase main's 8 requests at
+    salmonn-7b: it must run them at the size the search picked."""
+    _, paths = _main_run(os.path.join(out_dir, "auto"), "salmonn-7b",
+                         ["--auto_batch", "--auto_batch_max", str(UTIL_MAX_BATCH)], 8,
+                         SALMONN_7B_GENERATE)
+    with open(paths["metrics"]) as f:
+        batches = json.load(f)["perf"]["batches"]
+    print(f"  (a) cli/inference.py --auto_batch --auto_batch_max {UTIL_MAX_BATCH}: {batches} "
+          f"batch(es) for 8 requests (the search's pick {pick})", flush=True)
+    if batches != -(-8 // pick):
+        raise AssertionError(f"the CLI ran {batches} batches, not at batch size {pick}")
+    return batches
+
+
+def _util_train_search(out_dir, smi):
+    """(b) cli/train.py --auto_batch at salmonn-7b, no remat, phase train's
+    1024 / 448 and 16 requests: a probe runs out of memory and is caught,
+    the search leaves the trainable leaves and the AdamW moments
+    bit-identical, and the pick trains (finite losses)."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.cli import train
+    from icl_speech_text_llm_tpu_torch.utils import memory
+
+    cls = memory.BatchSizeOptimizer
+    measure, search = cls._peak_bytes, cls.find_optimal_batch_size
+    probed, held = [], {}
+
+    def recorded(self, bs):
+        t0 = time.perf_counter()
+        need = measure(self, bs)
+        probed.append((bs, need, time.perf_counter() - t0))
+        return need
+
+    def state_leaves(self, start):
+        state = self.make_args(start)[0]
+        return {k: t.detach().cpu().clone() for k, t in _paths(
+            {"trainable": state.trainable, "mu": state.opt_state["mu"],
+             "nu": state.opt_state["nu"]}).items()}
+
+    def checked(self, start=1):
+        before = state_leaves(self, start)
+        pick = search(self, start)
+        after = state_leaves(self, start)
+        held["leaves"] = len(before)
+        held["identical"] = all(torch.equal(after[k], v) for k, v in before.items())
+        return pick
+
+    cls._peak_bytes, cls.find_optimal_batch_size = recorded, checked
+    plain, undo = _count_plain_routes()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        result = train.main(_train_argv(os.path.join(out_dir, "train_auto"), 4, [
+            "--auto_batch", "--auto_batch_max", str(UTIL_MAX_BATCH)]))
+    finally:
+        cls._peak_bytes, cls.find_optimal_batch_size = measure, search
+        undo()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    perf = result.perf
+    pick = perf["examples"] // max(perf["steps"], 1)
+    print(f"  (b) cli/train.py --auto_batch --auto_batch_max {UTIL_MAX_BATCH} (salmonn-7b, no "
+          f"remat, 1024 / 448, 16 requests): probed "
+          + ", ".join(f"{bs}: {'OOM' if need is None else f'{need / 2**30:.3f} GiB'} "
+                      f"({sec:.2f} s)" for bs, need, sec in probed)
+          + f" → pick {pick}; {held.get('leaves')} leaves of the trainable tree and its "
+          f"moments bit-identical after the search: {held.get('identical')}; trained "
+          f"{result.state.step} steps, losses {[round(x, 4) for x in result.losses]}, "
+          f"median step {perf['p50_step_seconds']:.4f} s, {perf['examples_per_sec']:.4f} "
+          f"examples/s; run {wall:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{smi}]", flush=True)
+    if not any(need is None for _, need, _ in probed):
+        raise AssertionError(f"no probe ran out of memory: {probed}")
+    if not held.get("identical"):
+        raise AssertionError("the batch-size search changed the trainable state")
+    if result.skipped_batches or not result.losses or not all(np.isfinite(result.losses)) \
+            or result.state.step != -(-16 // pick):
+        raise AssertionError(f"the picked size {pick} did not train: {result.losses}")
+    if sum(plain.values()):
+        raise AssertionError(f"a kernel's plain version ran on the card: {plain}")
+    for name, n in SALMONN_7B_STEP.items():
+        if counts[name] < n * result.state.step:
+            raise AssertionError(f"{name} launched {counts[name]} times")
+    del result
+    torch.cuda.empty_cache()
+    return {"probed": probed, "pick": pick}
+
+
+def _util_dp_one(out_dir, smi, train_losses):
+    """(c) --mesh 1 under ``torch.distributed.run --nproc_per_node=1`` (a
+    group of one over NCCL) with the arguments of phase train's first run:
+    the same losses, bit for bit, and no plain kernel version called."""
+    out_json = os.path.join(out_dir, "mesh1.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", os.path.abspath(__file__), "--train_worker", out_json,
+           *_train_argv(os.path.join(out_dir, "mesh1"), 4, ["--mesh", "1"])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"--mesh 1 under torch.distributed.run failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    with open(out_json) as f:
+        res = json.load(f)
+    print(f"  (c) --mesh 1, one NCCL rank under torch.distributed.run: {res['steps']} steps, "
+          f"losses {res['losses']} against phase train's {train_losses}; launches "
+          f"{ {k: res['launches'][k] for k in SALMONN_7B_STEP} }; {wall:.1f} s with the "
+          f"process start  [{smi}]", flush=True)
+    if res["losses"] != train_losses or res["skipped"] or res["steps"] != 4:
+        raise AssertionError("--mesh 1 did not reproduce phase train's losses")
+    if sum(res["plain"].values()):
+        raise AssertionError(f"a kernel's plain version ran on the card: {res['plain']}")
+    for name, n in SALMONN_7B_STEP.items():
+        if res["launches"][name] < 4 * n:
+            raise AssertionError(f"--mesh 1 launched {name} {res['launches'][name]} times")
+    return res
+
+
+def _util_dp_two(out_dir, smi):
+    """(d) two data-parallel ranks on the one card over gloo: salmonn-7b's
+    widths with one layer per stack (``_dp_model``; salmonn-tiny's head dims
+    16 and 32 are not the kernels'), phase check's two requests with 5 and 1
+    label tokens. Their step must be one process's full-batch step on the
+    card within ``DP_CARD_LIMITS``, and the mean of the two requests' own
+    gradients (plain DDP averaging) must not be."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.training.step import (
+        AdamW,
+        OptimizerSettings,
+        init_train_state,
+        make_train_probe,
+        make_train_step,
+    )
+
+    model = "salmonn-7b-1layer"
+    cfg, params = _dp_model(model, out_dir, "cuda")
+    batch = _dp_batch(cfg)
+    t0 = time.perf_counter()
+    ranks = _dp_spawn(os.path.join(out_dir, "dp2"), model, None, batch, "cuda", timeout=240)
+    wall = time.perf_counter() - t0
+    opt = AdamW(OptimizerSettings(**DP_OPT))
+    state, frozen = init_train_state(params, opt)
+    probe = make_train_probe(cfg)
+
+    def grads_of(rows):
+        _, g = probe(state, frozen, {k: torch.as_tensor(v[rows], device="cuda")
+                                     for k, v in batch.items()})
+        return dict(zip(_paths(state.trainable), (t.float().cpu().numpy() for t in g)))
+
+    want = grads_of(slice(0, 2))
+    one, two = grads_of(slice(0, 1)), grads_of(slice(1, 2))
+    plain_ddp = max(np.abs((one[k] + two[k]) / 2 - want[k]).max() / _group_max(want, k)
+                    for k in want)
+    state, m = make_train_step(cfg, opt)(
+        state, frozen, {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()})
+    errs = _check_dp_ranks(ranks, 2, m["loss"], m["grad_norm"], None, want,
+                           f"(d) two gloo ranks on the card, salmonn-7b widths, one layer a "
+                           f"stack ({wall:.1f} s)  [{smi}]", DP_CARD_LIMITS)
+    print(f"  (d) the mean of the two requests' own gradients (plain DDP) is "
+          f"{plain_ddp:.3e} of the group's max away (limit {DP_CARD_LIMITS['grads']})",
+          flush=True)
+    if plain_ddp <= DP_CARD_LIMITS["grads"]:
+        raise AssertionError("the card check cannot tell the global step from plain DDP")
+    del params, state, frozen
+    torch.cuda.empty_cache()
+    return {**errs, "plain_ddp": plain_ddp}
+
+
+def _util_retrieval(smi, n=6000, k=10):
+    """(e) ``topk_similar`` on the card over a 6000 × 512 hashed pool of
+    voxceleb-like texts (train→train, each text's own row excluded): the
+    CPU version's indices; its time (CUDA events, median of 10)."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.data.fewshot_retrieval import (
+        HashedNGramEmbedder,
+        topk_similar,
+    )
+
+    rng = np.random.RandomState(0)
+    words = ["positive", "negative", "neutral", "the", "speaker", "says", "that", "movie",
+             "was", "great", "terrible", "fine", "really", "not", "quite", "good", "bad"]
+    texts = [" ".join(rng.choice(words, rng.randint(3, 12))) for _ in range(n)]
+    t0 = time.perf_counter()
+    emb = HashedNGramEmbedder()(texts)
+    embed_s = time.perf_counter() - t0
+    exclude = np.arange(n)
+    cpu = topk_similar(emb, emb, k, exclude, device="cpu")
+    card = topk_similar(emb, emb, k, exclude, device="cuda")
+    ms = _time_ms(lambda: topk_similar(emb, emb, k, exclude, device="cuda"))
+    diff = int((cpu != card).any(axis=1).sum())
+    dup = n - len(set(texts))
+    print(f"  (e) topk_similar {n} × 512, k = {k}, own row excluded: {ms:.3f} ms on the "
+          f"card (host copies in and out included; embedding {embed_s:.2f} s on the host); "
+          f"{diff} rows differ from the CPU's indices; {dup} repeated texts  [{smi}]",
+          flush=True)
+    if diff:
+        raise AssertionError(f"topk_similar on the card differs from the CPU in {diff} rows")
+    return {"ms": ms, "rows": n}
+
+
+def _util_phase(out_dir, train_losses, smi):
+    """Phase util: the last single-card entry points and data parallelism,
+    (a)-(f) as the module docstring lists them."""
+    import torch
+
+    a, model, fn, make_args = _util_inference_search(smi)
+    f = _util_trace(out_dir, model, fn, make_args)
+    del model, fn, make_args
+    torch.cuda.empty_cache()
+    a["cli_batches"] = _util_inference_cli(out_dir, a["pick"])
+    b = _util_train_search(out_dir, smi)
+    c = _util_dp_one(out_dir, smi, train_losses)
+    d = _util_dp_two(out_dir, smi)
+    e = _util_retrieval(smi)
+    return {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f}
+
+
 def main():
     smi = _device_phase()
     import torch
@@ -3363,7 +4007,7 @@ def main():
     print("phase train:", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=here) as d:
-        counts = _train_phase(d)
+        counts, train_losses = _train_phase(d)
     print(f"  phase train: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase qwen:", flush=True)
     t0 = time.perf_counter()
@@ -3375,6 +4019,11 @@ def main():
     with tempfile.TemporaryDirectory(dir=here) as d:
         _symbol_phase(d)
     print(f"  phase symbol: {time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase util:", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        _util_phase(d, train_losses, smi)
+    print(f"  phase util: {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         if "counter" in row:  # a Qwen-shape row: the launches of its phase qwen run
             row["launches"] = qwen_counts[row["qwen_run"]][row["counter"]]
@@ -3396,4 +4045,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp_worker"]:
+        _dp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:8])
+    elif sys.argv[1:2] == ["--train_worker"]:
+        _train_worker(sys.argv[2], sys.argv[3:])
+    else:
+        main()

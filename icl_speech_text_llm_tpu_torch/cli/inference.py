@@ -16,9 +16,13 @@ with ``--do_sample``), ``--repetition_penalty``, ``--length_penalty`` and
 ``cli/convert.py``'s converted dirs in place of the random LLM / adapter (a
 dir quantized at another width than ``--quantize_int*`` asks is an error; one
 at that width is used as it is), and ``--peft_model_path`` a trainable-only
-checkpoint (``state.npy``) over them. ``--auto_batch`` is not ported yet: it
-is accepted and raises ``NotImplementedError`` when set. ``--compile_cache``
-(the XLA compilation cache) has no counterpart and is gone. The Qwen2-Audio
+checkpoint (``state.npy``) over them. ``--auto_batch`` (alias
+``--optimize_batch_size``) sets ``--batch_size`` to the largest size (up to
+``--auto_batch_max``) whose generation fits 0.9 × the card's memory: one
+request tiled to each size of JAX's doubling-then-bisect search is
+generated once and the peak allocation read (an out-of-memory probe counts
+as "does not fit"). ``--compile_cache`` (the XLA compilation cache) has no
+counterpart and is gone. The Qwen2-Audio
 model types (``qwen2-audio-7b``, ``qwen2-audio-tiny``, ...) build their
 prompts in Qwen's chat format and splice each clip's
 ``audio_output_length`` positions out of a 750-position slot: 6 clips of
@@ -31,12 +35,16 @@ import argparse
 import dataclasses
 import logging
 
+import torch
+
+from ..data.collate import collate_icl_batch
 from ..data.factory import create_dataset
-from ..inference.engine import GenerationConfig
+from ..inference.engine import GenerationConfig, generate_batch
 from ..inference.runner import InferenceSettings, run_inference, save_final_results
 from ..models.factory import create_model, get_model_from_checkpoint
 from ..ops.quant import quantize_decoder
 from ..registry import DatasetSplit, parse_dataset_types
+from ..utils.memory import BatchSizeOptimizer, tile_batch
 from ..utils.tokenization import get_tokenizer
 
 
@@ -81,17 +89,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fabricated schema-correct data instead of disk datasets")
     p.add_argument("--synthetic_size", type=int, default=32)
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--auto_batch", "--optimize_batch_size", action="store_true")
-    p.add_argument("--auto_batch_max", type=int, default=64)
+    p.add_argument("--auto_batch", "--optimize_batch_size", action="store_true",
+                   help="pick the largest batch size whose generation fits 0.9 × the "
+                        "card's memory (measured: one generation at each size)")
+    p.add_argument("--auto_batch_max", type=int, default=64,
+                   help="--auto_batch search ceiling")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the model: 'cuda' (kernels) or 'cpu' "
                         "(plain PyTorch versions)")
     return p
-
-
-def _check_ported(args) -> None:
-    if args.auto_batch:
-        raise NotImplementedError("not ported yet: --auto_batch")
 
 
 def _quantize(model, bits: int) -> None:
@@ -116,10 +122,40 @@ def _quantize(model, bits: int) -> None:
         quantize_decoder(llm, bits=bits)
 
 
+def generation_probe(model, sample, pack_cfg):
+    """``--auto_batch``'s probe: (fn, make_args) with ``fn(*make_args(bs))``
+    generating ``sample`` tiled to ``bs`` rows on the model's device."""
+    engine = model.engine
+    pb = collate_icl_batch([sample], engine.tokenizer, pack_cfg)
+    probe = {"text_tokens": pb.text_tokens, "gather_idx": pb.gather_idx,
+             "seq_lengths": pb.seq_lengths, **pb.audio}
+
+    def generate(params, batch):
+        return generate_batch(engine.cfg, engine.gen, params, batch, engine.sequence_fn)
+
+    def make_args(bs):
+        return (model.params, {k: torch.as_tensor(v, device=engine.device)
+                               for k, v in tile_batch(probe, bs).items()})
+
+    return generate, make_args
+
+
+def _auto_batch(model, dataset, pack_cfg, args) -> int:
+    """The largest batch size whose generation of ``dataset[0]`` tiled to it
+    fits the card's memory; ``args.batch_size`` where none fits."""
+    sizer = BatchSizeOptimizer(*generation_probe(model, dataset[0], pack_cfg),
+                               max_batch=args.auto_batch_max, device=model.engine.device)
+    picked = sizer.find_optimal_batch_size(start=1)
+    if picked and picked != args.batch_size:
+        logging.info("--auto_batch: batch_size %d → %d (largest whose generation fits "
+                     "the card's memory)", args.batch_size, picked)
+        return picked
+    return args.batch_size
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     dataset_types = parse_dataset_types(args.dataset_type)
     max_samples = args.max_samples or args.debug_samples
 
@@ -163,6 +199,8 @@ def main(argv=None):
         seed=args.seed,
         prompt_style="qwen" if args.model_type.lower().startswith("qwen") else "salmonn",
     )
+    if args.auto_batch:
+        args.batch_size = _auto_batch(model, dataset, pack_cfg, args)
     settings = InferenceSettings(
         batch_size=args.batch_size, max_new_tokens=args.max_new_tokens,
         results_dir=args.results_dir, run_name=args.run_name,

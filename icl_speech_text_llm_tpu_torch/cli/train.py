@@ -10,10 +10,26 @@ Hermetic example (CPU, plain PyTorch versions of the kernels):
 LoRA (and SALMONN's Q-Former) train as f32 master weights; the frozen
 encoders and LLM keep the preset's compute dtype (bf16 at salmonn-7b and
 qwen2-audio-7b). The Qwen2-Audio model types train their LoRA alone through
-``qwen_audio_train_loss`` (6 clips of 5 s need ``--seq_len 2048``). Flags
-for what is not ported yet (``--mesh``, ``--pp_microbatches`` > 1,
-``--auto_batch``) raise ``NotImplementedError``; ``--compile_cache`` (an
-XLA compilation cache) has no counterpart and is refused.
+``qwen_audio_train_loss`` (6 clips of 5 s need ``--seq_len 2048``).
+
+``--auto_batch`` picks the largest batch size (up to ``--auto_batch_max``)
+whose step fits 0.9 × the card's memory: the step's forward and backward
+run once at each size of JAX's doubling-then-bisect search (no optimizer
+update, so the state is left as it was; an out-of-memory probe counts as
+"does not fit"), and the state is rebuilt at the pick.
+
+``--mesh dp`` trains data-parallel over ``dp`` processes, one a card:
+
+    torchrun --nproc_per_node=N -m icl_speech_text_llm_tpu_torch.cli.train \
+        --mesh N --model_type salmonn-7b ...
+
+``--batch_size`` stays the global batch (each rank steps ``batch_size / N``
+of its rows; the loss is the global token mean, ``training/step.py``), and
+only rank 0 logs and writes checkpoints. ``--mesh 1`` runs the same
+reductions in a group of one. Sharded axes (fsdp, tp, pp > 1) and
+``--pp_microbatches`` > 1 raise ``NotImplementedError``, as does
+``--auto_batch`` with a mesh; ``--compile_cache`` (an XLA compilation
+cache) has no counterpart and is refused.
 """
 
 from __future__ import annotations
@@ -26,13 +42,29 @@ import re
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..data.collate import collate_icl_batch
 from ..data.factory import create_dataset
 from ..models.factory import create_model
+from ..parallel import (
+    initialize_distributed,
+    is_main_process,
+    make_mesh,
+    parse_mesh,
+    shutdown_distributed,
+)
 from ..registry import DatasetSplit, parse_dataset_types
-from ..training.loop import TrainSettings, train
+from ..training.loop import TrainSettings, batch_arrays, train
 from ..training.schedulers import get_schedule
-from ..training.step import AdamW, OptimizerSettings, init_train_state, make_train_step
+from ..training.step import (
+    AdamW,
+    OptimizerSettings,
+    init_train_state,
+    make_train_probe,
+    make_train_step,
+)
+from ..utils.memory import BatchSizeOptimizer, tile_batch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,7 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--interleave", action="store_true", default=True)
     p.add_argument("--no_interleave", dest="interleave", action="store_false")
     p.add_argument("--randomize_swap", action="store_true")
-    p.add_argument("--mesh", type=str, default=None)
+    p.add_argument("--mesh", type=str, default=None,
+                   help="process mesh 'dp,fsdp,tp[,pp]' (sizes multiply to the world "
+                        "size); only data parallelism (fsdp = tp = pp = 1) is ported")
     p.add_argument("--pp_microbatches", type=int, default=1)
     p.add_argument("--seq_len", type=int, default=2048)
     p.add_argument("--text_len", type=int, default=1024)
@@ -82,8 +116,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic_size", type=int, default=16)
     p.add_argument("--compile_cache", type=str, default=None)
-    p.add_argument("--auto_batch", action="store_true")
-    p.add_argument("--auto_batch_max", type=int, default=64)
+    p.add_argument("--auto_batch", action="store_true",
+                   help="pick the largest batch size whose step fits 0.9 × the card's "
+                        "memory (measured: one forward and backward at each size)")
+    p.add_argument("--auto_batch_max", type=int, default=64,
+                   help="--auto_batch search ceiling")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: 'cuda' (kernels) or 'cpu' (plain PyTorch versions)")
     return p
@@ -93,11 +130,12 @@ def _check_ported(args) -> None:
     if args.compile_cache:
         raise SystemExit("--compile_cache is the JAX package's XLA compilation cache "
                          "(TPU only); the PyTorch port has no counterpart")
-    unported = {"--mesh": args.mesh, "--pp_microbatches > 1": args.pp_microbatches > 1,
-                "--auto_batch": args.auto_batch}
+    unported = {"--pp_microbatches > 1": args.pp_microbatches > 1,
+                "--auto_batch with --mesh": args.auto_batch and args.mesh}
     asked = [flag for flag, on in unported.items() if on]
     if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)} (see ROADMAP.md)")
+        raise NotImplementedError(f"not ported yet: {', '.join(asked)} "
+                                  "(ROADMAP.md queue 1 item 3)")
 
 
 def _remat(args):
@@ -114,6 +152,23 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
     _check_ported(args)
+    mesh, owns_group = None, False
+    if args.mesh:
+        # before the model is built: a process on a card selects its own
+        owns_group = not dist.is_initialized()
+        initialize_distributed(device=args.device)
+        dp, fsdp, tp, pp = parse_mesh(args.mesh)
+        mesh = make_mesh(dp=dp, fsdp=fsdp, tp=tp, pp=pp, device=args.device)
+        if not is_main_process():
+            logging.getLogger().setLevel(logging.WARNING)
+    try:
+        return _train(args, mesh)
+    finally:
+        if owns_group:
+            shutdown_distributed()
+
+
+def _train(args, mesh):
     random.seed(args.seed)
     np.random.seed(args.seed)
     dataset_types = parse_dataset_types(args.dataset_type)
@@ -137,15 +192,34 @@ def main(argv=None):
     val_ds = create_dataset(ds_arg, split=DatasetSplit(args.val_split), is_training=False,
                             **common)
 
-    steps_per_epoch = max(1, len(train_ds) // args.batch_size)
-    schedule = get_schedule(args.scheduler, args.learning_rate, args.warmup_steps,
-                            steps_per_epoch * args.num_epochs, steps_per_epoch)
-    optimizer = AdamW(OptimizerSettings(
-        learning_rate=args.learning_rate, weight_decay=args.weight_decay,
-        max_grad_norm=args.max_grad_norm, grad_accum_steps=args.gradient_accumulation_steps,
-        schedule=schedule))
-    state, frozen = init_train_state(model.params, optimizer)
-    step_fn = make_train_step(model.cfg, optimizer, loss_fn=model.loss_fn, remat=_remat(args))
+    def _build(batch_size):
+        steps_per_epoch = max(1, len(train_ds) // batch_size)
+        schedule = get_schedule(args.scheduler, args.learning_rate, args.warmup_steps,
+                                steps_per_epoch * args.num_epochs, steps_per_epoch)
+        optimizer = AdamW(OptimizerSettings(
+            learning_rate=args.learning_rate, weight_decay=args.weight_decay,
+            max_grad_norm=args.max_grad_norm,
+            grad_accum_steps=args.gradient_accumulation_steps, schedule=schedule))
+        state, frozen = init_train_state(model.params, optimizer)
+        step_fn = make_train_step(model.cfg, optimizer, loss_fn=model.loss_fn,
+                                  remat=_remat(args), mesh=mesh)
+        return state, frozen, step_fn
+
+    state, frozen, step_fn = _build(args.batch_size)
+    if args.auto_batch:
+        probe = batch_arrays(collate_icl_batch([train_ds[0]], model.tokenizer, pack_cfg))
+        device = model.engine.device
+        sizer = BatchSizeOptimizer(
+            make_train_probe(model.cfg, model.loss_fn, _remat(args)),
+            lambda bs: (state, frozen, {k: torch.as_tensor(v, device=device)
+                                        for k, v in tile_batch(probe, bs).items()}),
+            max_batch=args.auto_batch_max, device=device)
+        picked = sizer.find_optimal_batch_size(start=1)
+        if picked and picked != args.batch_size:
+            logging.info("--auto_batch: batch_size %d → %d (largest whose step fits "
+                         "the card's memory)", args.batch_size, picked)
+            args.batch_size = picked
+            state, frozen, step_fn = _build(picked)
 
     settings = TrainSettings(num_epochs=args.num_epochs, batch_size=args.batch_size,
                              save_every=args.save_every, output_dir=args.output_dir,
@@ -156,11 +230,13 @@ def main(argv=None):
                 "input_mode": args.input_mode, "fewshot_mode": args.fewshot_mode,
                 "num_examples": args.num_examples}
     result = train(model, state, frozen, step_fn, train_ds, pack_cfg, settings,
-                   val_dataset=val_ds, dataset_types=dataset_types, metadata=metadata)
+                   val_dataset=val_ds, dataset_types=dataset_types, metadata=metadata,
+                   mesh=mesh)
     perf = result.perf
-    print(f"done: {result.state.step} steps, {result.skipped_batches} skipped batches; "
-          f"{perf['examples_per_sec']:.4f} examples/s, p50 step "
-          f"{perf['p50_step_seconds']:.4f} s")
+    if is_main_process():
+        print(f"done: {result.state.step} steps, {result.skipped_batches} skipped batches; "
+              f"{perf['examples_per_sec']:.4f} examples/s, p50 step "
+              f"{perf['p50_step_seconds']:.4f} s")
     return result
 
 

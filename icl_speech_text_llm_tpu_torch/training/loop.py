@@ -1,13 +1,20 @@
 """Training loop: epochs over packed batches, validation, checkpoints.
 
-Counterpart of ``icl_speech_text_llm_tpu/training/loop.py`` for one process:
-batches are reshuffled per epoch (``shard_indices``), prefetched on a host
-thread, moved to the model's device and stepped; each epoch ends with
-generation-based validation on the current trainable weights and a
-trainable-only checkpoint ``epoch_{n}_loss_{x:.4f}``. A batch whose step
-raises is skipped, as in the JAX package, and counted: ``train`` returns
-the count with the state. ``StepTimer`` records per-step seconds (the
-device synchronised on CUDA), examples/s and each step's kernel launches.
+Counterpart of ``icl_speech_text_llm_tpu/training/loop.py``: batches are
+reshuffled per epoch (``shard_indices``), prefetched on a host thread, moved
+to the model's device and stepped; each epoch ends with generation-based
+validation on the current trainable weights and a trainable-only checkpoint
+``epoch_{n}_loss_{x:.4f}``. A batch whose step raises is skipped, as in the
+JAX package, and counted: ``train`` returns the count with the state.
+``StepTimer`` records per-step seconds (the device synchronised on CUDA),
+examples/s and each step's kernel launches.
+
+With a ``mesh`` (data parallelism over its ``dp`` group) every rank draws
+the same per-epoch permutation and collates only its contiguous
+``batch_size / dp`` rows of each global batch, so ``batch_size`` stays the
+global batch; validation shards the samples (``shard_indices`` without
+shuffle), gathers the predictions on every rank and drops the duplicates
+the wrap-around padding made; only rank 0 logs steps and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -21,12 +28,15 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import kernels
 from ..data.collate import collate_icl_batch
 from ..data.packing import PackConfig
 from ..data.pipeline import PrefetchIterator
 from ..evaluation import evaluate_predictions
+from ..parallel.mesh import DP_AXIS
+from ..parallel.multihost import gather_predictions, shard_indices
 from ..registry import DatasetType
 from .checkpoint import copy_into, load_checkpoint, save_checkpoint
 from .step import TrainState, merge_params
@@ -46,48 +56,71 @@ class TrainSettings:
     seed: int = 42  # data-order seed (per-epoch reshuffle)
 
 
-def shard_indices(n: int, epoch: int = 0, seed: int = 0) -> np.ndarray:
-    """The dataset order of one epoch in a single process: the JAX package's
-    ``parallel.multihost.shard_indices`` with one process, i.e. the
-    ``RandomState(seed + epoch)`` permutation."""
-    return np.random.RandomState(seed + epoch).permutation(n)
+def local_rows(rows, rank: int = 0, world: int = 1):
+    """This rank's contiguous ``len(rows) / world`` rows of a global batch."""
+    if len(rows) % world:
+        raise ValueError(f"a global batch of {len(rows)} does not split over {world} ranks")
+    n = len(rows) // world
+    return rows[rank * n:(rank + 1) * n]
 
 
-def _device_batch(batch, device) -> Dict[str, torch.Tensor]:
+def batch_arrays(batch) -> Dict[str, np.ndarray]:
+    """A collated train batch → the step's inputs, as numpy arrays."""
     arrays = {"text_tokens": batch.text_tokens, "gather_idx": batch.gather_idx,
               "seq_mask": batch.seq_mask, "shifted_labels": batch.labels_shifted,
               **batch.audio}
-    return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in arrays.items()}
+    return {k: np.asarray(v) for k, v in arrays.items()}
 
 
-def iter_batches(dataset, batch_size: int, tokenizer, pack_cfg: PackConfig, order):
-    """Fixed-size batches in ``order``; the tail batch is padded by repeating
-    its last sample."""
+def _device_batch(batch, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch_arrays(batch).items()}
+
+
+def iter_batches(dataset, batch_size: int, tokenizer, pack_cfg: PackConfig, order,
+                 rank: int = 0, world: int = 1):
+    """Fixed-size global batches in ``order``, the tail batch padded by
+    repeating its last sample; each yields this rank's ``local_rows``."""
     order = list(order)
     for start in range(0, len(order), batch_size):
+        # every rank reads the whole global batch: a dataset may draw on each
+        # access (SQA's exemplars), and the draws must follow one process's
         samples = [dataset[int(i)] for i in order[start:start + batch_size]]
         while len(samples) < batch_size:
             samples.append(samples[-1])
-        yield collate_icl_batch(samples, tokenizer, pack_cfg)
+        yield collate_icl_batch(local_rows(samples, rank, world), tokenizer, pack_cfg)
 
 
 def validate(engine, val_dataset, pack_cfg: PackConfig, dataset_types: List[DatasetType],
-             settings: TrainSettings) -> Dict[str, Any]:
-    """Generation-based validation with per-dataset metrics."""
+             settings: TrainSettings, rank: int = 0, world: int = 1) -> Dict[str, Any]:
+    """Generation-based validation with per-dataset metrics; over ``world``
+    ranks each generates its shard and the predictions are gathered."""
     results = []
     n = min(len(val_dataset), settings.val_max_samples)
+    order = list(shard_indices(n, shuffle=False, process_id=rank, num_processes=world))
     bs = settings.val_batch_size
-    for start in range(0, n, bs):
-        samples = [val_dataset[i] for i in range(start, min(start + bs, n))]
+    for start in range(0, len(order), bs):
+        samples = [val_dataset[int(i)] for i in order[start:start + bs]]
         real = len(samples)
         while len(samples) < bs:
             samples.append(samples[-1])
         batch = collate_icl_batch(samples, engine.tokenizer, pack_cfg)
         preds = engine.generate(batch, batch.audio)[:real]
-        for s, p in zip(samples[:real], preds):
+        for s, p, gi in zip(samples[:real], preds, order[start:start + bs]):
+            # the global index: shard_indices pads by wrapping, so a sample
+            # can be generated on two ranks — deduplicated below
             results.append({"text": s.extras.get("text", ""), "true_label": s.completion,
                             "predicted_label": p,
-                            "dataset_type": s.extras.get("dataset_type", "")})
+                            "dataset_type": s.extras.get("dataset_type", ""),
+                            "_index": int(gi)})
+    if world > 1:
+        results = gather_predictions(results)
+    seen, deduped = set(), []
+    for r in results:
+        gi = r.pop("_index")
+        if gi not in seen:
+            seen.add(gi)
+            deduped.append(r)
+    results = deduped
     metrics = {}
     for dt in dataset_types:
         subset = [r for r in results if r["dataset_type"] == dt.value]
@@ -166,18 +199,28 @@ def _resume(state: TrainState, path: str) -> int:
 def train(model, state: TrainState, frozen: Dict[str, Any], step_fn: Callable,
           train_dataset, pack_cfg: PackConfig, settings: TrainSettings, val_dataset=None,
           dataset_types: Optional[List[DatasetType]] = None,
-          metadata: Optional[Dict[str, Any]] = None) -> TrainResult:
-    """Run the training schedule on the model's device."""
+          metadata: Optional[Dict[str, Any]] = None, mesh=None) -> TrainResult:
+    """Run the training schedule on the model's device; with a ``mesh`` this
+    rank's share of it (module docstring; ``step_fn`` built on the same
+    mesh)."""
     device = model.engine.device
+    rank, world = 0, 1
+    if mesh is not None:
+        group = mesh.get_group(DP_AXIS)
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+    main = rank == 0
     timer = StepTimer(device)
     result = TrainResult(state, model)
     start_epoch = _resume(state, settings.resume_from) if settings.resume_from else 0
     last_loss = float("nan")
     for epoch in range(start_epoch, settings.num_epochs):
-        order = shard_indices(len(train_dataset), epoch, seed=settings.seed)
+        # the same permutation on every rank: each steps its rows of a batch
+        order = shard_indices(len(train_dataset), epoch, seed=settings.seed,
+                              process_id=0, num_processes=1)
         batches = PrefetchIterator(
             lambda order=order: iter_batches(train_dataset, settings.batch_size,
-                                             model.tokenizer, pack_cfg, order=order), depth=2)
+                                             model.tokenizer, pack_cfg, order, rank, world),
+            depth=2)
         try:
             for batch in batches:
                 timer.start()
@@ -189,13 +232,14 @@ def train(model, state: TrainState, frozen: Dict[str, Any], step_fn: Callable,
                     result.skipped_batches += 1
                     logger.warning(f"skipping batch after error: {e!r}")
                     continue
-                timer.stop(batch.batch_size)
+                timer.stop(settings.batch_size)
                 last_loss = metrics["loss"]
                 result.losses.append(last_loss)
                 if metrics["skipped_nonfinite"]:
                     logger.warning("non-finite loss — batch became a no-op update")
-                logger.info(f"step {metrics['step']}: loss {last_loss:.4f} grad_norm "
-                            f"{metrics['grad_norm']:.4f} {timer.step_seconds[-1]:.3f} s")
+                if main:
+                    logger.info(f"step {metrics['step']}: loss {last_loss:.4f} grad_norm "
+                                f"{metrics['grad_norm']:.4f} {timer.step_seconds[-1]:.3f} s")
         except KeyboardInterrupt:
             logger.info("KeyboardInterrupt — stopping training early")
             break
@@ -206,11 +250,13 @@ def train(model, state: TrainState, frozen: Dict[str, Any], step_fn: Callable,
             # validation generates with the CURRENT trainable weights
             model.params = merge_params(frozen, state.trainable)
             model.engine.params = model.params
-            val_metrics = validate(model.engine, val_dataset, pack_cfg, dataset_types, settings)
-            logger.info(f"epoch {epoch} validation: " + ", ".join(
-                f"{k}={_headline(v):.4f}" for k, v in val_metrics.items()))
+            val_metrics = validate(model.engine, val_dataset, pack_cfg, dataset_types, settings,
+                                   rank, world)
+            if main:
+                logger.info(f"epoch {epoch} validation: " + ", ".join(
+                    f"{k}={_headline(v):.4f}" for k, v in val_metrics.items()))
 
-        if settings.save_every and (epoch + 1) % settings.save_every == 0:
+        if settings.save_every and (epoch + 1) % settings.save_every == 0 and main:
             path = os.path.join(settings.output_dir, f"epoch_{epoch}_loss_{last_loss:.4f}")
             result.checkpoints.append(save_checkpoint(
                 path, state.trainable, opt_state=state.opt_state, step=state.step,

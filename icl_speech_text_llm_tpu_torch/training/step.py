@@ -14,6 +14,18 @@ semantics of its optax chain ``MultiSteps(chain(clip_by_global_norm, adamw))``:
 - a non-finite loss makes the micro-step a no-op: parameters, moments and
   the accumulation buffer stay as they were, ``skipped_nonfinite`` = 1.
 
+Data parallelism (``mesh``, the ``dp`` axis of ``parallel/mesh.py``): each
+rank steps its rows of the global batch, and the step is the JAX package's
+step over the whole global batch, whose loss is the token mean
+``Σ nll·mask / max(Σ mask, 1)`` over every rank's rows. Averaging per-rank
+means (plain DDP) would be wrong wherever the ranks hold different counts
+of label tokens, so the step all-reduces the count of label tokens first,
+weights its rank's loss by its count over the global count, and sums the
+gradients of the weighted losses over the ranks (one all-reduce, which also
+carries the loss and a non-finite flag): every rank then takes the same
+skip decision and the same update, and reports the global loss and the
+norm of the summed gradients.
+
 PyTorch idiom: the trainable leaves are f32 tensors that require grad, the
 step updates them and the optimizer state in place (no second copy of the
 weights) and returns the same ``TrainState``.
@@ -26,8 +38,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..data.packing import IGNORE_INDEX
 from ..models.salmonn import TRAINABLE_KEYS, SalmonnConfig, salmonn_train_loss
+from ..parallel.mesh import DP_AXIS
 
 #: Subtrees that train by default (everything else is frozen), as in the JAX
 #: package: Whisper/BEATs/LLM frozen, Q-Former and LoRA train.
@@ -152,23 +167,67 @@ def init_train_state(params: Dict[str, Any], optimizer: AdamW,
     return TrainState(trainable, optimizer.init(trainable), 0), frozen
 
 
+def _loss_and_grads(cfg, loss_fn, remat, state: TrainState, frozen: Dict[str, Any],
+                    batch: Dict[str, torch.Tensor], weight=None):
+    """The loss (× ``weight``) and its gradients over the trainable leaves."""
+    leaves = tree_leaves(state.trainable)
+    loss = loss_fn(cfg, merge_params(frozen, state.trainable), batch, remat=remat)
+    if weight is not None:
+        loss = loss * weight
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), grads
+
+
+def make_train_probe(cfg: SalmonnConfig, loss_fn: Callable = salmonn_train_loss,
+                     remat=False) -> Callable:
+    """The step's forward and backward without its optimizer update:
+    (state, frozen, batch) → (loss, gradients), changing no state. What
+    ``--auto_batch`` runs at each candidate batch size."""
+
+    def probe(state: TrainState, frozen: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        return _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch)
+
+    return probe
+
+
+def _dp_loss_and_grads(cfg, loss_fn, remat, group, state, frozen, batch):
+    """This rank's share of the global token-mean loss and the gradients
+    summed over ``group``: (global loss, summed gradients, skip flag), the
+    same on every rank."""
+    count = (batch["shifted_labels"] != IGNORE_INDEX).sum().to(torch.float32)
+    total = count.clone()
+    dist.all_reduce(total, group=group)
+    loss, grads = _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch,
+                                  weight=count / total.clamp(min=1))
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [loss.reshape(1), (~torch.isfinite(loss)).to(torch.float32).reshape(1)])
+    dist.all_reduce(flat, group=group)
+    grads = [v.view_as(g) for v, g in zip(flat[:-2].split([g.numel() for g in grads]), grads)]
+    return flat[-2], grads, bool(flat[-1] > 0)
+
+
 def make_train_step(cfg: SalmonnConfig, optimizer: AdamW,
-                    loss_fn: Callable = salmonn_train_loss, remat=False) -> Callable:
+                    loss_fn: Callable = salmonn_train_loss, remat=False, mesh=None) -> Callable:
     """Build the step: (state, frozen, batch) → (state, metrics) with metrics
     ``loss``, ``grad_norm`` (of the micro-batch gradients, before clipping),
-    ``skipped_nonfinite`` and ``step`` (the micro-step it ran as)."""
+    ``skipped_nonfinite`` and ``step`` (the micro-step it ran as). With a
+    ``mesh`` the batch is this rank's rows of the global batch, and the
+    loss, gradients and skip are the global batch's (module docstring)."""
+    group = mesh.get_group(DP_AXIS) if mesh is not None else None
 
     def step(state: TrainState, frozen: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        leaves = tree_leaves(state.trainable)
-        loss = loss_fn(cfg, merge_params(frozen, state.trainable), batch, remat=remat)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        loss = loss.detach()
-        ok = bool(torch.isfinite(loss))
+        if group is None:
+            loss, grads = _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch)
+            nonfinite = False
+        else:
+            loss, grads, nonfinite = _dp_loss_and_grads(cfg, loss_fn, remat, group, state,
+                                                        frozen, batch)
+        ok = not nonfinite and bool(torch.isfinite(loss))
         metrics = {"loss": loss.item(), "grad_norm": global_norm(grads).item(),
                    "skipped_nonfinite": 0.0 if ok else 1.0, "step": state.step}
         if ok:
-            optimizer.update(grads, state.opt_state, leaves)
+            optimizer.update(grads, state.opt_state, tree_leaves(state.trainable))
         state.step += 1
         return state, metrics
 

@@ -1,18 +1,34 @@
-"""The rolling performance tracker of the symbol trainer.
+"""Performance tracking, timers and the profiler switch.
 
-``PerformanceTracker`` of ``icl_speech_text_llm_tpu/utils/perf.py`` (ref:
-utils/performance_utils.py:15-127), copied: step time, examples/s,
-tokens/s and the rolling loss, on the host clock. The symbol trainer reads
-its summary after every schedule step; the loss it is given is a Python
-float, so each update follows the device's step.
+Counterpart of ``icl_speech_text_llm_tpu/utils/perf.py`` (ref:
+utils/performance_utils.py:15-177, 336-375):
+
+- ``PerformanceTracker``, copied: step time, examples/s, tokens/s and the
+  rolling loss, on the host clock. The symbol trainer reads its summary
+  after every schedule step; the loss it is given is a Python float, so
+  each update follows the device's step.
+- ``timer`` / ``time_function``: host wall time of a block or a call,
+  logged (a CUDA caller synchronises inside the block to time the device).
+- ``torch_profile(outdir)``: a ``torch.profiler`` trace (CPU activity, and
+  CUDA activity where a card is present) written as a Chrome trace into
+  ``outdir``; the JAX package's ``jax_profile``.
+- ``log_system_info``: host memory, the torch and CUDA versions and the
+  cards' names, where the JAX package logs its backend.
+
+``enable_compilation_cache`` (the XLA cache, TPU only) has no counterpart.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
+import os
 import time
 from collections import deque
 from typing import Dict, Optional
+
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -66,3 +82,58 @@ class PerformanceTracker:
             f"{s['tokens_per_sec']:.0f} tok/s, avg step {s['avg_step_time']*1000:.1f} ms, "
             f"avg loss {s['avg_loss']:.4f}"
         )
+
+
+@contextlib.contextmanager
+def timer(name: str, log=True):
+    """(ref: utils/performance_utils.py:130-150)"""
+    t0 = time.perf_counter()
+    yield
+    dt = time.perf_counter() - t0
+    if log:
+        logger.info(f"{name} took {dt:.3f}s")
+
+
+def time_function(fn):
+    """(ref: utils/performance_utils.py:153-177)"""
+
+    @functools.wraps(fn)
+    def wrapped(*a, **kw):
+        with timer(fn.__name__):
+            return fn(*a, **kw)
+
+    return wrapped
+
+
+@contextlib.contextmanager
+def torch_profile(outdir: Optional[str] = None):
+    """Trace the block with ``torch.profiler`` and write a Chrome trace
+    (``trace_<pid>_<ns>.json``) into ``outdir``; yields the profiler, or
+    None and traces nothing when ``outdir`` is empty. Records CPU activity,
+    and CUDA activity (the kernels by name) where a card is present."""
+    if not outdir:
+        yield None
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    logger.info(f"profiler trace written to {path}")
+
+
+def log_system_info():
+    """(ref: utils/performance_utils.py:336-375)"""
+    try:
+        import psutil
+
+        vm = psutil.virtual_memory()
+        logger.info(f"Host memory: {vm.total/2**30:.1f} GiB total, {vm.percent}% used")
+    except ImportError:
+        pass
+    cards = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+    logger.info(f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
+                f"devices: {cards or 'no CUDA device'}")

@@ -25,7 +25,9 @@ REQUIRED = ("training.step", "training.loop", "training.schedulers", "training.c
             "symbol_adapter.symbol_manager", "symbol_adapter.mlp_adapter",
             "symbol_adapter.losses", "symbol_adapter.trainer", "symbol_adapter.validation",
             "symbol_adapter.orchestrator", "cli.symbol_train", "cli.symbol_inference",
-            "cli.interactive", "models.multi_task", "utils.perf")
+            "cli.interactive", "models.multi_task", "utils.perf", "utils.memory",
+            "utils.logging_utils", "config", "config.static_configs",
+            "data.fewshot_retrieval", "parallel", "parallel.multihost", "parallel.mesh")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys

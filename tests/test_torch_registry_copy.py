@@ -8,22 +8,32 @@ tests compare them with the originals: every dataset config field by field
 catalog's helpers, and the in-repo tokenizer on a set of strings.
 """
 
+import ast
 import dataclasses
 import enum
 import inspect
 
 import pytest
 
+from icl_speech_text_llm_tpu import config as jconfig
 from icl_speech_text_llm_tpu import registry as jregistry
+from icl_speech_text_llm_tpu.config import static_configs as jstatic
+from icl_speech_text_llm_tpu.utils import logging_utils as jlogging
 from icl_speech_text_llm_tpu.utils import tokenization as jtok
 from icl_speech_text_llm_tpu_torch import bridge
+from icl_speech_text_llm_tpu_torch import config as tconfig
 from icl_speech_text_llm_tpu_torch import registry as tregistry
 from icl_speech_text_llm_tpu_torch import symbol_adapter
 from icl_speech_text_llm_tpu_torch.cli import interactive, symbol_inference
+from icl_speech_text_llm_tpu_torch.config import static_configs as tstatic
+from icl_speech_text_llm_tpu_torch.data import fewshot_retrieval
 from icl_speech_text_llm_tpu_torch.inference.engine import SalmonnEngine
 from icl_speech_text_llm_tpu_torch.inference.serving import ContinuousBatchingEngine
 from icl_speech_text_llm_tpu_torch.models import factory
 from icl_speech_text_llm_tpu_torch.models.llama import init_kv_cache
+from icl_speech_text_llm_tpu_torch.parallel import mesh, multihost
+from icl_speech_text_llm_tpu_torch.utils import logging_utils as tlogging
+from icl_speech_text_llm_tpu_torch.utils import memory
 from icl_speech_text_llm_tpu_torch.utils import tokenization as ttok
 
 
@@ -105,7 +115,12 @@ def test_tiny_tokenizer_encodes_and_decodes_as_the_original():
     (factory.QwenAudioModel.__init__, "device"),
     (symbol_adapter.build_training_world, "device"),
     (symbol_adapter.InferenceOrchestrator.__init__, "device"),
-    (symbol_adapter.init_mlp_adapter, "device")])
+    (symbol_adapter.init_mlp_adapter, "device"),
+    (fewshot_retrieval.topk_similar, "device"),
+    (fewshot_retrieval.build_fewshot_dataset, "device"),
+    (memory.BatchSizeOptimizer.__init__, "device"), (memory.peak_bytes, "device"),
+    (memory.get_device_memory_stats, "device"),
+    (multihost.initialize_distributed, "device"), (mesh.make_mesh, "device")])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
 
@@ -117,3 +132,33 @@ def test_entry_points_default_to_the_card(fn, arg):
     ids=["symbol_train", "symbol_inference", "interactive"])
 def test_cli_entry_points_default_to_the_card(parse):
     assert parse().device == "cuda"
+
+
+def _code_lines(module):
+    """The module's source below its docstring."""
+    src = inspect.getsource(module)
+    doc = ast.parse(src).body[0]
+    return src.splitlines()[doc.end_lineno:]
+
+
+@pytest.mark.parametrize("jmod,tmod", [(jlogging, tlogging), (jstatic, tstatic),
+                                       (jconfig, tconfig)],
+                         ids=["logging_utils", "static_configs", "config"])
+def test_framework_free_copies_hold_the_original_code(jmod, tmod):
+    assert _code_lines(tmod) == _code_lines(jmod)
+
+
+@pytest.mark.parametrize("model_type", ["salmonn", "salmonn-7b", "qwen2", "salmonn-tiny",
+                                        "SALMONN-7B"])
+@pytest.mark.parametrize("dataset_type", [None, "voxceleb", "hvb"])
+def test_static_configs_equal_the_originals(model_type, dataset_type):
+    assert tconfig.get_training_config(model_type, dataset_type) == \
+        jconfig.get_training_config(model_type, dataset_type)
+    assert tconfig.get_inference_config(model_type, dataset_type) == \
+        jconfig.get_inference_config(model_type, dataset_type)
+
+
+def test_static_configs_refuse_an_unknown_model_as_the_originals():
+    for pkg in (jconfig, tconfig):
+        with pytest.raises(ValueError, match="Unknown model type"):
+            pkg.get_training_config("gpt-2")
