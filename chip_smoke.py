@@ -164,6 +164,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                generation under utils/perf.py:torch_profile, whose trace
                must name K1's kernel. No kernel's plain version is called
                in (b) and (c).
+  12. mesh    — FSDP and tensor parallelism, ranks as processes sharing
+               the card over gloo (``_dp_worker`` with a mesh, every
+               collective staged through pinned host memory): (a) tp = 2
+               static generation at salmonn-7b bf16 on phase main's
+               requests, K7 on each rank's 16 heads: the logits that picked
+               every token within 5% of max |logit| of one process
+               teacher-forced on them, tokens by ``_gap_rule``; (b) the
+               GENERIC decode in one process (K4 a layer; bf16 tokens
+               against FLASH's, the int8 step bit-equal to its plain
+               append); (c) tp = 2 serving at salmonn-13b's widths cut to
+               8 layers, int8 pool (K4 q8, K7 q8), a prefix and 2 beams:
+               half the pool a rank, tokens by ``_gap_rule``; (d) the train
+               CLI at --mesh 1,1,2 and 1,2,1, phase train's first 2 steps:
+               losses within 1e-3, the fsdp peak under phase train's; (e)
+               four ranks at --mesh 1,2,2, 2 layers a stack: one step
+               against one process's (``MESH_CARD_LIMITS``), collective
+               calls against ``mesh_step_counts``. No plain version runs.
 The line before the last is a JSON object of the fourteen kernels and the
 Qwen-shape rows (launch counts from the run of each kernel's own path: the
 salmonn-13b int4 run for the int4 and int8 matmuls and K4 q8, the
@@ -174,11 +191,12 @@ qwen run that launches it at that shape),
 after a line with K7 q8's launches × (ms − bound) at the 16-row shape; the
 last
 line is {"ok": true, "device": {...}} and is printed only when every phase
-passed. Takes ~5 minutes on one H100.
+passed. Takes ~10 minutes on one H100.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1392,11 +1410,16 @@ def _kernel_phase():
 
 def _one_layer(cfg):
     """A SALMONN config with one layer per stack at the same widths."""
+    return _n_layers(cfg, 1)
+
+
+def _n_layers(cfg, n):
+    """A SALMONN config with ``n`` layers per stack at the same widths."""
     return dataclasses.replace(
         cfg,
-        whisper=dataclasses.replace(cfg.whisper, n_layers=1),
-        beats=dataclasses.replace(cfg.beats, n_layers=1),
-        llm=dataclasses.replace(cfg.llm, n_layers=1),
+        whisper=dataclasses.replace(cfg.whisper, n_layers=n),
+        beats=dataclasses.replace(cfg.beats, n_layers=n),
+        llm=dataclasses.replace(cfg.llm, n_layers=n),
     )
 
 
@@ -3416,6 +3439,9 @@ def _dp_model(model, out_dir, device):
         with np.load(os.path.join(out_dir, "params.npz")) as f:
             return salmonn_tiny(), params_from_numpy(_unpaths(dict(f)), device=device)
     cfg = _one_layer(salmonn_7b())
+    if model != "salmonn-7b-1layer":  # "salmonn-7b" at full depth, or "salmonn-7b-Nlayer"
+        depth = int(model.split("-")[2][:-len("layer")]) if model.count("-") == 2 else None
+        cfg = salmonn_7b() if depth is None else _n_layers(salmonn_7b(), depth)
     gen = torch.Generator(device=device).manual_seed(2)
     params = init_salmonn(cfg, gen, torch.device(device), torch.bfloat16,
                           trainable_dtype=torch.float32)
@@ -3432,22 +3458,27 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _dp_spawn(out_dir, model, params, batch, device, world=2, timeout=50):
+def _dp_spawn(out_dir, model, params, batch, device, world=2, timeout=50, mesh=None,
+              tasks=()):
     """Run ``world`` ranks of ``_dp_worker`` (gloo, one process each) on the
     ``model`` of ``_dp_model`` (``params``: the numpy tree of ``"file"``)
-    and the global ``batch`` (``world`` × the rows of a rank); returns each
-    rank's (result dict, {"trainable.*" / "mu.*": array})."""
+    and the global ``batch`` (``world`` × the rows of a rank; None: the
+    inputs are in ``out_dir`` already); returns each rank's (result dict,
+    {"trainable.*" / "mu.*": array}). With ``mesh`` ('dp,fsdp,tp') each
+    rank runs ``tasks`` of ``MESH_TASKS`` on that mesh instead."""
     import numpy as np
 
     os.makedirs(out_dir, exist_ok=True)
     if params is not None:
         np.savez(os.path.join(out_dir, "params.npz"), **_paths(params))
-    np.savez(os.path.join(out_dir, "batch.npz"), **batch)
+    if batch is not None:
+        np.savez(os.path.join(out_dir, "batch.npz"), **batch)
     port = _free_port()
     here = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    extra = [mesh, ",".join(tasks)] if mesh else []
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp_worker",
-                               str(r), str(world), str(port), out_dir, device, model],
+                               str(r), str(world), str(port), out_dir, device, model, *extra],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for r in range(world)]
     outs = []
@@ -3471,9 +3502,10 @@ def _dp_spawn(out_dir, model, params, batch, device, world=2, timeout=50):
     return ranks
 
 
-def _dp_worker(rank, world, port, out_dir, device, model):
+def _dp_worker(rank, world, port, out_dir, device, model, mesh=None, tasks=""):
     """One rank of the data-parallel step (``python3 chip_smoke.py
-    --dp_worker RANK WORLD PORT DIR DEVICE MODEL``): ``_dp_model(MODEL)``,
+    --dp_worker RANK WORLD PORT DIR DEVICE MODEL [MESH TASKS]``; with a
+    MESH 'dp,fsdp,tp', ``_mesh_worker``'s TASKS instead): ``_dp_model(MODEL)``,
     its rows of ``DIR/batch.npz``, over gloo (two ranks may share one card). Steps once (``DP_OPT``), then once more with a
     label past the vocabulary on the last rank alone (every rank must skip),
     gathers prediction rows and broadcasts from rank 0; writes
@@ -3504,6 +3536,13 @@ def _dp_worker(rank, world, port, out_dir, device, model):
 
     torch.set_num_threads(1)
     initialize_distributed(f"localhost:{port}", world, rank, device=device, backend="gloo")
+    if mesh:
+        torch.backends.cuda.matmul.allow_tf32 = False  # as ``main`` sets it
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return _mesh_worker(rank, world, out_dir, device, model, mesh, tasks)
+        finally:
+            shutdown_distributed()
     try:
         mesh = make_mesh(dp=world, device=device)
         cfg, params = _dp_model(model, out_dir, device)
@@ -3617,6 +3656,452 @@ def _check_dp_ranks(ranks, world, want_loss, want_norm, want_leaves, want_grads,
         raise AssertionError(f"{label}: the data-parallel step is not the full batch's: "
                              f"{errs} against {limits}")
     return errs
+
+
+# ------------------------------------------------------------------ phase mesh
+#: the tasks a mesh rank of ``_dp_worker`` runs, by name (``_mesh_worker``)
+MESH_TASKS = {}
+
+
+def _mesh_task(fn):
+    MESH_TASKS[fn.__name__[len("_mt_"):]] = fn
+    return fn
+
+
+class _MeshRank:
+    """One rank of a ``--mesh`` spawn: its mesh and shard context, the
+    inputs the spawner wrote to ``out_dir`` and the outputs it returns
+    (``res`` to ``rank{r}.json``, ``arrays`` to ``rank{r}.npz``)."""
+
+    def __init__(self, rank, out_dir, device, model, mesh):
+        from icl_speech_text_llm_tpu_torch.parallel.sharding import context_of
+
+        self.rank, self.dir, self.model = rank, out_dir, model
+        self.device, self.mesh, self.ctx = device, mesh, context_of(mesh)
+        self.res, self.arrays, self._params = {}, {}, {}
+
+    def npz(self, name):
+        import numpy as np
+
+        with np.load(os.path.join(self.dir, f"{name}.npz")) as f:
+            return dict(f)
+
+    def json(self, name):
+        with open(os.path.join(self.dir, f"{name}.json")) as f:
+            return json.load(f)
+
+    def rows(self, arrays):
+        """This rank's rows over (dp, fsdp) of a global batch, on its device."""
+        import torch
+
+        from icl_speech_text_llm_tpu_torch.parallel.sharding import batch_rows
+
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch_rows(arrays, self.mesh).items()}
+
+    def params(self, bits=None):
+        """(cfg, this rank's blocks) of ``_dp_model(model)``; with ``bits``
+        the LLM quantized first (its leaves then stay whole)."""
+        from icl_speech_text_llm_tpu_torch.ops.quant import quantize_decoder
+        from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_params
+
+        if bits not in self._params:
+            cfg, params = _dp_model(self.model, self.dir, self.device)
+            if bits:
+                quantize_decoder(params["llm"], bits=bits)
+            self._params[bits] = (cfg, shard_params(params, self.mesh))
+        return self._params[bits]
+
+
+def _global_loss(r, cfg, params, batch, loss_fn=None):
+    """The token-mean loss of the global batch from this rank's rows under
+    the mesh (each (dp, fsdp) coordinate's mean weighted by its label
+    count), as ``training/step.py`` weighs them."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.data.packing import IGNORE_INDEX
+    from icl_speech_text_llm_tpu_torch.models.salmonn import salmonn_train_loss
+    from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_context
+    from icl_speech_text_llm_tpu_torch.training.step import _sum_over
+
+    with shard_context(r.ctx), torch.no_grad():
+        loss = (loss_fn or salmonn_train_loss)(cfg, params, batch).float()
+    count = (batch["shifted_labels"] != IGNORE_INDEX).sum().float()
+    axes = ("fsdp", "dp")
+    return (_sum_over(loss * count, r.ctx, *axes) / _sum_over(count, r.ctx, *axes)).item()
+
+
+@_mesh_task
+def _mt_loss(r):
+    """``salmonn_train_loss`` of the global batch (``batch.npz``)."""
+    cfg, params = r.params()
+    return {"loss": _global_loss(r, cfg, params, r.rows(r.npz("batch")))}
+
+
+@_mesh_task
+def _mt_step(r):
+    """One train step (``DP_OPT``) on ``batch.npz``: its metrics and
+    collective counts, the gathered trainable leaves and first moments
+    after it; then a step with a label past the vocabulary on the last
+    (dp, fsdp) coordinate's rows, which every rank must skip."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.data.packing import IGNORE_INDEX
+    from icl_speech_text_llm_tpu_torch.parallel import collectives
+    from icl_speech_text_llm_tpu_torch.parallel.sharding import batch_shard, gather_params
+    from icl_speech_text_llm_tpu_torch.training.step import (
+        AdamW,
+        OptimizerSettings,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg, params = r.params()
+    batch = r.rows(r.npz("batch"))
+    opt = AdamW(OptimizerSettings(**DP_OPT))
+    state, frozen = init_train_state(params, opt)
+    step = make_train_step(cfg, opt, mesh=r.mesh)
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    state, m1 = step(state, frozen, batch)
+    seconds = time.perf_counter() - t0
+    counts = collectives.counts()
+    leaves = {k: t.detach().float().cpu().numpy() for k, t in _paths(
+        {"trainable": gather_params(state.trainable, r.mesh),
+         "mu": gather_params(state.opt_state["mu"], r.mesh)}).items()}
+    r.arrays.update(leaves)
+    before = [t.detach().clone() for t in _paths(state.trainable).values()]
+    labels = batch["shifted_labels"].clone()
+    index, n = batch_shard(r.mesh)
+    if index == n - 1:
+        first = (labels != IGNORE_INDEX).nonzero()[0]
+        labels[first[0], first[1]] = cfg.llm.vocab_size
+    state, m2 = step(state, frozen, {**batch, "shifted_labels": labels})
+    kept = all(torch.equal(a, b) for a, b in zip(before, _paths(state.trainable).values()))
+    return {"loss": m1["loss"], "grad_norm": m1["grad_norm"], "skipped": m1["skipped_nonfinite"],
+            "nan_loss": m2["loss"], "nan_skipped": m2["skipped_nonfinite"],
+            "kept_after_nan": kept, "counts": counts, "seconds": seconds,
+            "label_count": int((batch["shifted_labels"] != IGNORE_INDEX).sum())}
+
+
+@contextlib.contextmanager
+def _recorded_logits(*modules):
+    """Every ``lm_logits`` call the ``modules`` make inside the block, its
+    output (rows, V) f32 on the host, appended to the yielded list in call
+    order (gathered over tp under a mesh)."""
+    seen, fn = [], modules[0].lm_logits
+
+    def recorded(*args, **kw):
+        out = fn(*args, **kw)
+        seen.append(out.float().reshape(out.shape[0], -1).cpu())
+        return out
+
+    for m in modules:
+        m.lm_logits = recorded
+    try:
+        yield seen
+    finally:
+        for m in modules:
+            m.lm_logits = fn
+
+
+@_mesh_task
+def _mt_generate(r, bits=None, name="generate"):
+    """Static generation of ``gen.npz``'s rows (``gen.json``: the
+    ``GenerationConfig`` keywords ``kw``), ``bits`` for a quantized LLM:
+    this rank's tokens (``{name}.tokens``), the logits that picked each of
+    them (``{name}.step_logits`` (T, B, V): the prefill's, then each
+    decode step's, gathered over tp), its prefill and decode-step ms (CUDA
+    events; not a claim) and peak GiB."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.inference import engine
+    from icl_speech_text_llm_tpu_torch.parallel.sharding import batch_shard, shard_context
+
+    spec = r.json("gen")
+    cfg, params = r.params(bits)
+    batch = r.rows(r.npz("gen"))
+    cuda = torch.device(r.device).type == "cuda"
+    events = engine.StepEvents() if cuda else None
+    with _recorded_logits(engine) as seen, shard_context(r.ctx):
+        toks = engine.generate_batch(cfg, engine.GenerationConfig(**spec["kw"]), params,
+                                     batch, engine.speech_sequence, events)
+    r.arrays[f"{name}.tokens"] = toks.cpu().numpy()
+    r.arrays[f"{name}.step_logits"] = torch.stack(seen).numpy()
+    out = {"rows": list(batch_shard(r.mesh))}
+    if cuda:
+        torch.cuda.synchronize()
+        ms = events.millis()
+        out.update(prefill_ms=ms[0], step_ms=statistics.median(ms[1:]),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+@_mesh_task
+def _mt_generate_int8(r):
+    """``_mt_generate`` with the LLM int8 (its quantized leaves whole on
+    every rank)."""
+    return _mt_generate(r, 8, "generate_int8")
+
+
+@_mesh_task
+def _mt_roundtrip(r):
+    """``gather_params(shard_params(params))`` against ``params``, leaf by
+    leaf, bit for bit; and each leaf's local shape."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.parallel.sharding import gather_params, tree_paths
+
+    _, full = _dp_model(r.model, r.dir, r.device)
+    _, local = r.params()
+    back = dict(tree_paths(gather_params(local, r.mesh)))
+    return {"exact": all(torch.equal(back[p], t) for p, t in tree_paths(full)),
+            "shapes": {p: list(t.shape) for p, t in tree_paths(local)}}
+
+
+@_mesh_task
+def _mt_decode(r):
+    """One decode step of a decoder (``decode.npz``: ``params.*``, x,
+    cur_len; ``decode.json``: its config's overrides of ``tiny`` and the
+    cache length) through each route, the XLA, FLASH and GENERIC
+    attention, from an empty cache: each route's final-normed hidden."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
+    from icl_speech_text_llm_tpu_torch.models.llama import (
+        DECODER_CONFIGS,
+        DecodeAttention,
+        decode_step,
+        init_kv_cache,
+    )
+    from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_context, shard_params
+
+    spec, arrays = r.json("decode"), r.npz("decode")
+    cfg = dataclasses.replace(DECODER_CONFIGS["tiny"], **spec["cfg"])
+    flat = {k[len("params."):]: v for k, v in arrays.items() if k.startswith("params.")}
+    params = shard_params({"llm": params_from_numpy(_unpaths(flat), device=r.device)},
+                          r.mesh)["llm"]
+    x = torch.as_tensor(arrays["x"], device=r.device)
+    pos = torch.as_tensor(arrays["cur_len"], device=r.device)
+    with shard_context(r.ctx), torch.no_grad():
+        for route in DecodeAttention:
+            cache = init_kv_cache(cfg, x.shape[0], spec["S"], dtype=torch.float32,
+                                  device=r.device)
+            out, cache = decode_step(cfg, params, x, cache, pos, attention=route)
+            r.arrays[f"decode.{route.value}"] = out.cpu().numpy()
+    return {"kv_heads": int(cache["k"].shape[2])}
+
+
+@_mesh_task
+def _mt_serve(r):
+    """The continuous-batching engine under the mesh (``serve.npz``:
+    ``params.*`` of a decoder, requests ``req.*``, ``prefix``;
+    ``serve.json``: the decoder config, ``ServingConfig``, the request
+    lengths, which request takes the prefix and which the beams): each
+    request's tokens, every logits row the engine decoded from
+    (``serve.logits`` (N, V): admissions, decode steps, the beam lane's
+    prefill and steps), the rank's pool bytes and peak GiB."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
+    from icl_speech_text_llm_tpu_torch.inference.serving import (
+        ContinuousBatchingEngine,
+        ServingConfig,
+    )
+    from icl_speech_text_llm_tpu_torch.models.llama import DECODER_CONFIGS
+    from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_params
+
+    spec, arrays = r.json("serve"), r.npz("serve")
+    cfg = dataclasses.replace(DECODER_CONFIGS[spec["decoder"]], **spec.get("cfg", {}))
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    if "params.tok_embed" in arrays:
+        flat = {k[len("params."):]: v for k, v in arrays.items() if k.startswith("params.")}
+        params = params_from_numpy(_unpaths(flat), device=r.device, dtype=dtype)
+    else:  # drawn from the spec's seed on the rank's device
+        from icl_speech_text_llm_tpu_torch.models.llama import init_decoder
+
+        params = init_decoder(cfg, torch.Generator(device=r.device).manual_seed(spec["seed"]),
+                              torch.device(r.device), dtype)
+    params = shard_params({"llm": params}, r.mesh)["llm"]
+    engine = ContinuousBatchingEngine(cfg, params, ServingConfig(**{
+        k: tuple(v) if isinstance(v, list) else v for k, v in spec["serving"].items()}),
+        dtype=dtype, device=r.device, mesh=r.mesh)
+    with _recorded_logits(*_serve_logits_modules()) as seen:
+        results = _serve_requests(engine, spec, arrays, r.device)
+    r.arrays["serve.logits"] = torch.cat(seen).numpy()
+    return {"results": results,
+            "pool_bytes": sum(t.numel() * t.element_size() for t in engine._cache.values()),
+            **_peak(r.device)}
+
+
+def _serve_logits_modules():
+    """The modules whose ``lm_logits`` the serving engine decodes through:
+    the slot pool's, the beam lane's steps and its prefill."""
+    from icl_speech_text_llm_tpu_torch.inference import beam, engine, serving
+
+    return serving, beam, engine
+
+
+def _serve_requests(engine, spec, arrays, device):
+    """``serve.json``'s requests through ``engine``: the prefix registered
+    first, request ``prefix_request`` on it, ``beam_request`` with 2 beams;
+    → each request's tokens in submission order. A request given as token
+    ids enters as their embeddings (the vocab-sharded lookup under a mesh)."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import embed_tokens
+    from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_context
+
+    def emb(name):
+        x = torch.as_tensor(arrays[name], device=device)
+        if x.is_floating_point():
+            return x
+        with shard_context(engine._shard), torch.no_grad():
+            return embed_tokens(engine.params, x[None], dtype=engine._dtype)[0]
+
+    pid = engine.register_prefix(emb("prefix"), len(arrays["prefix"]))
+    rids = [engine.submit(emb(f"req.{i}"), n, num_beams=2 if i == spec["beam_request"] else 1,
+                          prefix_id=pid if i == spec["prefix_request"] else None)
+            for i, n in enumerate(spec["lengths"])]
+    res = engine.run()
+    return [res[i] for i in rids]
+
+
+def _peak(device):
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return {}
+    torch.cuda.synchronize()
+    return {"peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+@_mesh_task
+def _mt_qwen(r):
+    """Qwen2-Audio's train loss (``qwen.npz``: the params, ``qbatch.npz``;
+    ``qwen.json``: the LLM config name and depth, the tower's widths) under
+    the mesh: the tower whole, the decoder sharded, tied vocab-sharded
+    logits."""
+    from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
+    from icl_speech_text_llm_tpu_torch.models import qwen_audio
+    from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_params
+
+    cfg = _qwen_mesh_cfg(r.json("qwen"))
+    params = shard_params(params_from_numpy(_unpaths(r.npz("qwen")), device=r.device), r.mesh)
+    return {"loss": _global_loss(r, cfg, params, r.rows(r.npz("qbatch")),
+                                 qwen_audio.qwen_audio_train_loss)}
+
+
+def _qwen_mesh_cfg(spec, family=None):
+    """The Qwen2-Audio config of ``qwen.json`` in the port's (or with
+    ``family``, that package's) qwen_audio module: ``llm`` at ``n_layers``,
+    a Whisper tower of ``tower`` widths."""
+    if family is None:
+        from icl_speech_text_llm_tpu_torch.models import qwen_audio as family
+    base = family.qwen2_audio_smoke()
+    llm = dataclasses.replace(base.llm, n_layers=spec["n_layers"])
+    tower = dataclasses.replace(base.encoder, **spec["tower"])
+    return dataclasses.replace(base, llm=llm, encoder=tower)
+
+
+@_mesh_task
+def _mt_train_cli(r):
+    """cli/train.py's ``main(cli.json argv + --mesh)`` in this rank (the
+    process group this worker started; ``batch.npz``, when given, is then
+    scored with the trained weights); ``auto_batch`` in ``cli.json`` stubs
+    the peak measure with ``(3 + 2 rank) GiB`` a row, so that the ranks'
+    own verdicts differ and only their agreement gives one pick."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch import kernels
+    from icl_speech_text_llm_tpu_torch.cli import train
+    from icl_speech_text_llm_tpu_torch.utils import memory
+
+    spec = r.json("cli")
+    picks = []
+    if spec.get("auto_batch"):
+        def stub(fn, make_args, device="cuda"):
+            args = make_args()
+            fn(*args)
+            return (3 + 2 * r.rank) * args[2]["text_tokens"].shape[0] << 30
+
+        memory.peak_bytes = stub
+        search = memory.BatchSizeOptimizer.find_optimal_batch_size
+
+        def recorded(self, start=1):
+            picks.append(search(self, start))
+            return picks[-1]
+
+        memory.BatchSizeOptimizer.find_optimal_batch_size = recorded
+    cuda = torch.device(r.device).type == "cuda"
+    built = {}
+    if spec.get("max_steps"):  # the run's first batches only, in its data order
+        import itertools
+
+        from icl_speech_text_llm_tpu_torch.training import loop
+
+        batches = loop.iter_batches
+
+        def first_batches(*a, **k):
+            for i, b in enumerate(itertools.islice(batches(*a, **k), spec["max_steps"])):
+                if i == 0 and cuda:  # the model is built: the steps' peak from here
+                    built.update(_peak(r.device))
+                    torch.cuda.reset_peak_memory_stats()
+                yield b
+
+        loop.iter_batches = first_batches
+    kernels.reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = train.main(spec["argv"])
+    params = {**result.model.params, **result.state.trainable}
+    held = sum(t.numel() * t.element_size() for t in _paths(params).values()
+               if isinstance(t, torch.Tensor))
+    out = {"losses": result.losses, "steps": result.state.step,
+           "skipped": result.skipped_batches, "checkpoints": result.checkpoints,
+           "picks": picks, "seconds": time.perf_counter() - t0,
+           "launches": kernels.launch_counts(), "held_gib": held / 2**30}
+    if cuda:  # the whole run's peak: the build's before the first batch
+        step = _peak(r.device)["peak_gib"]
+        out.update(step_peak_gib=step, peak_gib=max(step, built.get("peak_gib", step)))
+    if os.path.exists(os.path.join(r.dir, "batch.npz")):
+        out["loss_after"] = _global_loss(r, result.model.cfg, params, r.rows(r.npz("batch")),
+                                         result.model.loss_fn)
+    return out
+
+
+def _mesh_worker(rank, world, out_dir, device, model, mesh_spec, tasks):
+    """The ``--dp_worker`` rank of a ``--mesh`` spawn: the (dp, fsdp, tp)
+    mesh of ``mesh_spec`` over the gloo group, then each of ``tasks``
+    (``MESH_TASKS``) in order; writes ``rank{r}.json`` (each task's result,
+    the rank's coordinates and the collectives' transport) and
+    ``rank{r}.npz``."""
+    import numpy as np
+
+    from icl_speech_text_llm_tpu_torch.parallel import collectives, make_mesh, parse_mesh
+
+    from icl_speech_text_llm_tpu_torch import kernels
+
+    dp, fsdp, tp, pp = parse_mesh(mesh_spec)
+    mesh = make_mesh(dp=dp, fsdp=fsdp, tp=tp, pp=pp, device=device)
+    r = _MeshRank(rank, out_dir, device, model, mesh)
+    r.res.update(world=world, ranks=r.ctx.ranks,
+                 transport=collectives.transport(r.ctx.groups["tp"], device))
+    plain, undo = _count_plain_routes()
+    try:
+        for task in tasks.split(","):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            r.res[task] = MESH_TASKS[task](r)
+            r.res[task + "_seconds"] = time.perf_counter() - t0
+            r.res[task + "_launches"] = kernels.launch_counts()
+    finally:
+        undo()
+    r.res["plain"] = plain
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **r.arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(r.res, f)
 
 
 def _train_worker(out_json, argv):
@@ -3961,6 +4446,522 @@ def _util_phase(out_dir, train_losses, smi):
     return {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f}
 
 
+#: phase mesh's bf16 token tolerance: a sharded run's tokens must equal the
+#: one-process run's up to the first generated position whose top-1/top-2
+#: logit gap, read from one teacher-forced forward of the one-process model,
+#: is under it (a near tie that bf16 rounding may flip)
+MESH_TAU = 0.1
+#: phase mesh (e)'s limits against one process's step on the card: the loss
+#: to 1e-3 relative; the grad norm and the gradients to phase util (d)'s
+#: card limits (``DP_CARD_LIMITS``). Both runs compute in bf16, and the
+#: sharded one rounds other partial products (the Q-Former's gradient too:
+#: it flows back through every sharded layer). PERF.md (PR 17) has the
+#: readings the gradients' 5e-2 sits between: a sound step ~1.1e-2, one
+#: whose tp-replicated LoRA factors miss their sum over tp far above it
+MESH_CARD_LIMITS = {"loss": 1e-3, "grad_norm": DP_CARD_LIMITS["grad_norm"],
+                    "grads": DP_CARD_LIMITS["grads"]}
+#: and against the same step in f32 on the host: the sharded bf16 step's
+#: gradients no farther from it than this many times one process's
+MESH_ROUNDING = 2.0
+#: phase train's first run's peak on an H100 80GB HBM3 at 700 W (batch 4,
+#: no remat: its step's, the weights held whole). An fsdp = 2 rank holds
+#: half the weights and steps half the rows, so (d) holds its steps' peak
+#: under half of it plus ``FSDP_SLACK_GIB``: the layer in hand gathered
+#: whole (0.39 GiB at 7B), transient copies of a gather and the allocator's
+#: rounding. A rank that kept every gathered layer for the backward (13
+#: GiB more) or held the weights whole (7 GiB more) would not fit.
+TRAIN_PEAK_GIB = 34.245
+FSDP_SLACK_GIB = 2.0
+
+
+def mesh_step_counts(cfg, sizes):
+    """Collective calls of one SALMONN train step on mesh ``sizes`` (dp,
+    fsdp, tp) by family, from the layer code: under tp the forward sums the
+    embedding lookup, every row-parallel product (Whisper's and BEATs' 2 a
+    layer, the decoder's wo and w_down) and the vocab-parallel CE's max,
+    denominator and label logit; the backward sums the two column-block
+    inputs of every decoder layer, its tp-replicated LoRA factors (one a
+    target) and the LM head's input; the step sums the non-finite flag over
+    tp. The label count and the gradients are summed over dp (a group of
+    one too), and over fsdp where it is > 1: there FSDP gathers each
+    layer's 7 decoder matrices, its LoRA A's and the encoders' 6 matrices
+    a layer, gathers the 7 decoder matrices again in the backward (their
+    shards are what it keeps), reduce-scatters the LoRA A gradients, and
+    sums those over dp in a buffer of their own. The norm, taken once for
+    the metric and the clip, sums each cut group's squares over its axis.
+    No remat (a checkpointed layer gathers anew in its recompute)."""
+    _, fsdp, tp = sizes
+    Ll, Lw, Lb = cfg.llm.n_layers, cfg.whisper.n_layers, cfg.beats.n_layers
+    n_lora = len(cfg.lora.targets)
+    ar = 0
+    if tp > 1:
+        ar += 1 + 2 * Lw + 2 * Lb + 2 * Ll + 3  # forward
+        ar += Ll * (2 + n_lora) + 1  # backward
+        ar += 1  # the non-finite flag
+    ar += 2 * (fsdp > 1) + 2 + (fsdp > 1)  # count, gradients (over dp always)
+    ar += (fsdp > 1) + (tp > 1)  # the norm
+    ag = (fsdp > 1) * (Ll * (7 + n_lora + 7) + 6 * Lw + 6 * Lb)
+    rs = (fsdp > 1) * Ll * n_lora
+    return {"all_reduce": ar, "all_gather": ag, "reduce_scatter": rs}
+
+
+def _mesh_gen_batch(cfg, n=4):
+    """phase main's voxceleb requests (k = 5 speech exemplars, seed 42),
+    the first ``n``, packed to 1024 / 448."""
+    from icl_speech_text_llm_tpu_torch.data.collate import collate_icl_batch
+    from icl_speech_text_llm_tpu_torch.data.factory import create_dataset
+    from icl_speech_text_llm_tpu_torch.data.packing import PackConfig
+    from icl_speech_text_llm_tpu_torch.registry import DatasetSplit, DatasetType
+    from icl_speech_text_llm_tpu_torch.utils.tokenization import get_tokenizer
+
+    ds = create_dataset(DatasetType.VOXCELEB, split=DatasetSplit.TEST,
+                        input_mode="speech_only", fewshot_mode="speech", num_examples=5,
+                        is_training=False, max_samples=n, synthetic=True, synthetic_size=32,
+                        seed=42, prompt_style="salmonn")
+    pack = PackConfig(seq_len=1024, text_len=448, max_slots=6,
+                      audio_tokens_per_slot=cfg.audio_tokens_per_slot)
+    p = collate_icl_batch([ds[i] for i in range(n)], get_tokenizer(None), pack)
+    return {"text_tokens": p.text_tokens, "gather_idx": p.gather_idx,
+            "seq_lengths": p.seq_lengths, "wavs": p.audio["wavs"]}
+
+
+def _teacher_gaps(llm_cfg, llm, prompts, tokens, lora, scaling, dt):
+    """The top-1 − top-2 gap of ``_teacher_logits`` at every generated
+    position, (B, T) numpy."""
+    import numpy as np
+
+    top = _teacher_logits(llm_cfg, llm, prompts, tokens, lora, scaling, dt).topk(2, dim=-1)
+    return (top.values[..., 0] - top.values[..., 1]).numpy().astype(np.float64)
+
+
+def _teacher_logits(llm_cfg, llm, prompts, tokens, lora, scaling, dt):
+    """The one-process model fed each prompt (n_b, D) then the tokens (B, T)
+    (teacher forcing): the logits that pick each token, (B, T, V) f32 on
+    the host."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import decoder_forward, embed_tokens, lm_logits
+
+    B, T = tokens.shape
+    D = prompts[0].shape[-1]
+    lengths = [p.shape[0] for p in prompts]
+    L = -(-(max(lengths) + T) // 128) * 128
+    dev = prompts[0].device
+    full = torch.zeros((B, L, D), dtype=dt, device=dev)
+    emb = embed_tokens(llm, tokens.long().to(dev), dtype=dt)
+    for b, p in enumerate(prompts):
+        full[b, :lengths[b]] = p.to(dt)
+        full[b, lengths[b]:lengths[b] + T] = emb[b]
+    n = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        hidden, _ = decoder_forward(llm_cfg, llm, full, n + T, lora=lora, lora_scaling=scaling)
+        idx = n.long()[:, None] - 1 + torch.arange(T, device=dev)
+        logits = lm_logits(llm_cfg, llm, hidden[torch.arange(B, device=dev)[:, None], idx])
+    return logits.float().cpu()
+
+
+def _gap_rule(label, got, want, gaps, tau=MESH_TAU):
+    """Rows of ``got`` equal ``want`` up to the first position whose gap is
+    under ``tau``; prints and returns the positions each row was compared
+    over."""
+    import numpy as np
+
+    compared, equal = [], []
+    for b, (g, w) in enumerate(zip(got, want)):
+        low = np.nonzero(np.asarray(gaps[b][:len(w)]) < tau)[0]
+        n = int(low[0]) if len(low) else len(w)
+        if list(g[:n]) != list(w[:n]):
+            raise AssertionError(f"{label} row {b}: {list(g)} against one process's {list(w)} "
+                                 f"before its first gap under {tau} (position {n}; gaps "
+                                 f"{np.round(gaps[b], 4).tolist()})")
+        compared.append(n)
+        same = [int(x) == int(y) for x, y in zip(g, w)] + [False]
+        equal.append(same.index(False))
+    print(f"  {label}: tokens equal to one process's over {compared} positions of "
+          f"{[len(w) for w in want]} (up to each row's first top-1/top-2 gap under "
+          f"tau = {tau}; first gaps {[round(float(g[0]), 4) for g in gaps]}); equal in "
+          f"fact over the first {equal}", flush=True)
+    return compared
+
+
+def _need_launches(label, launches, need, plain):
+    """A rank's kernel launches at least ``need``; no plain version ran."""
+    short = {k: launches[k] for k, n in need.items() if launches[k] < n}
+    if short or sum(plain.values()):
+        raise AssertionError(f"{label}: launches {short} under {need}, or a kernel's plain "
+                             f"version ran on the card: { {k: v for k, v in plain.items() if v} }")
+
+
+def _mesh_static(d, smi):
+    """(a) tp = 2 static generation at salmonn-7b bf16 (K7 on 16 of the 32
+    heads a rank) against one process: the logits that picked each rank's
+    every token against the one-process model teacher-forced on those
+    tokens, and the tokens by ``_gap_rule``; (b) GENERIC in one process,
+    its bf16 tokens against FLASH's and its int8-cache step against the
+    plain version of its append."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.inference.engine import (
+        GenerationConfig,
+        generate_batch,
+        prefill,
+        speech_sequence,
+    )
+    from icl_speech_text_llm_tpu_torch.models import llama
+    from icl_speech_text_llm_tpu_torch.models.llama import DecodeAttention, embed_tokens
+    from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
+
+    model = "salmonn-7b"
+    cfg, params = _dp_model(model, d, "cuda")
+    arrays = _mesh_gen_batch(cfg)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()}
+    kw = dict(max_new_tokens=10, eos_token_id=2, pad_token_id=0, use_flash_decode=True)
+    llm, lora, scaling, dt = params["llm"], params["lora"], cfg.lora.scaling, cfg.compute_dtype
+    with torch.inference_mode():
+        want = generate_batch(cfg, GenerationConfig(**kw), params, batch, speech_sequence)
+        seq = speech_sequence(cfg, params, batch)
+    lengths = arrays["seq_lengths"]
+    prompts = [seq[b, :lengths[b]] for b in range(len(lengths))]
+    gaps = _teacher_gaps(cfg.llm, llm, prompts, want, lora, scaling, dt)
+    want = want.cpu().numpy()
+
+    # (b) GENERIC: every layer appends before it attends (K4 a layer)
+    generic = _checked_launches(
+        "(b) GENERIC bf16 cache, 9 decode steps", lambda: generate_batch(
+            cfg, GenerationConfig(**{**kw, "use_flash_decode": False}), params, batch,
+            speech_sequence), {"append_kv": 9 * cfg.llm.n_layers},
+        ("flash_decode_attention", "append_kv_q8"))
+    _gap_rule("(b) GENERIC against FLASH, one process", generic.cpu().numpy(), want, gaps)
+    with torch.inference_mode():
+        logits, cache = prefill(cfg.llm, llm, seq, batch["seq_lengths"].int(),
+                                seq.shape[1] + 128, lora, scaling, dt, kv_int8=True)
+        emb = embed_tokens(llm, logits.argmax(-1)[:, None], dtype=dt)
+        pos = batch["seq_lengths"].int()
+        kernel_cache = {k: v.clone() for k, v in cache.items()}
+        out = _checked_launches("(b) GENERIC int8 cache, one decode step", lambda: llama.decode_step(
+            cfg.llm, llm, emb, kernel_cache, pos, lora, scaling, DecodeAttention.GENERIC),
+            {"append_kv_q8": cfg.llm.n_layers}, ("append_kv",))[0]
+        llama.append_kv_q8 = fa.append_kv_q8_plain
+        try:
+            ref, ref_cache = llama.decode_step(cfg.llm, llm, emb, cache, pos, lora, scaling,
+                                               DecodeAttention.GENERIC)
+        finally:
+            llama.append_kv_q8 = fa.append_kv_q8
+    err = (out.float() - ref.float()).abs().max().item()
+    same = all(torch.equal(kernel_cache[k], ref_cache[k]) for k in cache)
+    print(f"  (b) GENERIC int8 step through K4 q8 against its plain version on the card: "
+          f"hidden max_abs_err {err:.3e} (tolerance 0: the append is bit for bit), caches "
+          f"{'identical' if same else 'DIFFER'}  [{smi}]", flush=True)
+    if err or not same:
+        raise AssertionError("(b) the GENERIC int8 step differs from its plain version")
+    del cache, kernel_cache, ref_cache, out, ref, batch
+    torch.cuda.empty_cache()
+
+    # (a) two tp ranks on the one card, the one-process model kept for the
+    # teacher-forced check
+    out_dir = os.path.join(d, "static")
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, "gen.npz"), **arrays)
+    with open(os.path.join(out_dir, "gen.json"), "w") as f:
+        json.dump({"kw": kw}, f)
+    t0 = time.perf_counter()
+    ranks = _dp_spawn(out_dir, model, None, None, "cuda", world=2, timeout=300, mesh="1,1,2",
+                      tasks=("generate",))
+    wall = time.perf_counter() - t0
+    for r, (res, got) in enumerate(ranks):
+        _need_launches(f"(a) rank {r}", res["generate_launches"],
+                       {"flash_decode_attention": 9 * cfg.llm.n_layers,
+                        "flash_attention_causal": cfg.llm.n_layers,
+                        "flash_attention_noncausal": cfg.whisper.n_layers,
+                        "gated_bias_attention": cfg.beats.n_layers}, res["plain"])
+        steps = torch.as_tensor(got["generate.step_logits"])  # (T, B, V)
+        ref = _teacher_logits(cfg.llm, llm, prompts, torch.as_tensor(got["generate.tokens"]),
+                              lora, scaling, dt).transpose(0, 1)
+        errs = (steps - ref).abs().amax(dim=(1, 2))
+        tols = 5e-2 * ref.abs().amax(dim=(1, 2))
+        g = res["generate"]
+        print(f"  (a) rank {r} of tp = 2 (16 of 32 heads, K7 on them): the logits that picked "
+              f"each token (prefill, then 9 decode steps) against one process teacher-forced "
+              f"on them: max_abs_err {[round(e, 4) for e in errs.tolist()]} (tolerance 5% of "
+              f"max |logit|: {[round(t, 4) for t in tols.tolist()]}); prefill "
+              f"{g['prefill_ms']:.1f} ms, decode step {g['step_ms']:.2f} ms (median; not a "
+              f"claim), peak {g['peak_gib']:.3f} GiB; transport {res['transport']}  [{smi}]",
+              flush=True)
+        if bool((errs > tols).any()):
+            raise AssertionError(f"(a) rank {r}: step logits off by {errs.tolist()}")
+        _gap_rule(f"(a) rank {r}, tp = 2", got["generate.tokens"], want, gaps)
+        if not np.array_equal(got["generate.tokens"], ranks[0][1]["generate.tokens"]):
+            raise AssertionError(f"(a) rank {r}'s tokens are not rank 0's")
+    print(f"  (a) two ranks, the same tokens on both: {wall:.1f} s with the process starts "
+          f"({ranks[0][0]['generate_seconds']:.1f} s of model build and generation)",
+          flush=True)
+    del params, llm, lora, seq, prompts
+    torch.cuda.empty_cache()
+
+
+def _mesh_serve(d, smi, depth=8):
+    """(c) the continuous-batching engine at tp = 2: salmonn-13b's decoder
+    (vicuna-13b widths, ``depth`` layers) in bf16, 4 slots, int8 KV pool on
+    20 of 40 KV heads a rank (K4 q8, K7 q8), a registered prefix and a
+    2-beam request, against the one-process engine (run first): every
+    token's logits against the one-process decoder teacher-forced on the
+    rank's tokens (``_matched_logits``), then the tokens by ``_gap_rule``."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.inference.serving import (
+        ContinuousBatchingEngine,
+        ServingConfig,
+    )
+    from icl_speech_text_llm_tpu_torch.models.llama import (
+        DECODER_CONFIGS,
+        embed_tokens,
+        init_decoder,
+    )
+
+    rng = np.random.RandomState(7)
+    lengths = [int(n) for n in rng.randint(96, 256, size=6)]
+    spec = {"decoder": "vicuna-13b", "cfg": {"n_layers": depth}, "dtype": "bfloat16",
+            "seed": 3, "lengths": lengths, "prefix_request": 0, "beam_request": 5,
+            "serving": dict(num_slots=4, max_new_tokens=10, prompt_buckets=[256],
+                            prefix_buckets=[128], kv_int8=True, eos_token_id=2)}
+    arrays = {f"req.{i}": rng.randint(3, 32000, size=n).astype(np.int64)
+              for i, n in enumerate(lengths)}
+    arrays["prefix"] = rng.randint(3, 32000, size=100).astype(np.int64)
+    cfg = dataclasses.replace(DECODER_CONFIGS["vicuna-13b"], n_layers=depth)
+    params = init_decoder(cfg, torch.Generator(device="cuda").manual_seed(spec["seed"]),
+                          torch.device("cuda"), torch.bfloat16)
+    scfg = ServingConfig(**{k: tuple(v) if isinstance(v, list) else v
+                            for k, v in spec["serving"].items()})
+    engine = ContinuousBatchingEngine(cfg, params, scfg, dtype=torch.bfloat16, device="cuda")
+    with _recorded_logits(*_serve_logits_modules()) as seen:
+        want = _serve_requests(engine, spec, arrays, "cuda")
+    one_rows = torch.cat(seen)
+    one_pool = sum(t.numel() * t.element_size() for t in engine._cache.values())
+    del engine
+    with torch.inference_mode():
+        prompts = []
+        for i in range(len(lengths)):
+            ids = arrays[f"req.{i}"]
+            if i == spec["prefix_request"]:
+                ids = np.concatenate([arrays["prefix"], ids])
+            prompts.append(embed_tokens(params, torch.as_tensor(ids, device="cuda"),
+                                        dtype=torch.bfloat16))
+    T = scfg.max_new_tokens
+
+    def teacher(results):  # the one-process decoder teacher-forced on ``results``
+        toks = torch.tensor([g + [2] * (T - len(g)) for g in results], device="cuda")
+        return _teacher_logits(cfg, params, prompts, toks, None, 1.0, torch.bfloat16)
+
+    ref = teacher(want)
+    top = ref.topk(2, dim=-1).values
+    gaps = (top[..., 0] - top[..., 1]).numpy().astype(np.float64)
+    one_err = _matched_logits(ref, one_rows, want)
+    del one_rows, ref
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(d, "serve")
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, "serve.npz"), **arrays)
+    with open(os.path.join(out_dir, "serve.json"), "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    ranks = _dp_spawn(out_dir, "file", None, None, "cuda", world=2, timeout=240, mesh="1,1,2",
+                      tasks=("serve",))
+    wall = time.perf_counter() - t0
+    for r, (res, got) in enumerate(ranks):
+        _need_launches(f"(c) rank {r}", res["serve_launches"],
+                       {"flash_decode_attention_q8": depth, "append_kv_q8": depth,
+                        "flash_attention_causal": depth}, res["plain"])
+        s = res["serve"]
+        print(f"  (c) rank {r} of tp = 2: pool {s['pool_bytes']} bytes (one process "
+              f"{one_pool}), peak {s['peak_gib']:.3f} GiB; launches K7 q8 "
+              f"{res['serve_launches']['flash_decode_attention_q8']}, K4 q8 "
+              f"{res['serve_launches']['append_kv_q8']}  [{smi}]", flush=True)
+        if 2 * s["pool_bytes"] != one_pool:
+            raise AssertionError(f"(c) rank {r}: the pool is not half of one process's")
+        err = _matched_logits(teacher(s["results"]), torch.as_tensor(got["serve.logits"]),
+                              s["results"])
+        print(f"  (c) rank {r}: every generated token's logits (the 5 slot requests' "
+              f"admission and decode steps through K7 q8, the beam request's best beam) "
+              f"against one process teacher-forced on the rank's tokens: worst "
+              f"max_abs_err {err['err']:.4f}, {err['ratio']:.3f} of its tolerance (5% of "
+              f"the row's max |logit|) over {err['rows']} rows; the one-process engine's "
+              f"own: {one_err['err']:.4f}, {one_err['ratio']:.3f}  [{smi}]", flush=True)
+        if err["ratio"] > 1.0:
+            raise AssertionError(f"(c) rank {r}: a token's logits are off: {err}")
+        padded = [g + [2] * (T - len(g)) for g in s["results"]]
+        _gap_rule(f"(c) rank {r}, tp = 2, 6 requests (prefix, 2 beams)", padded,
+                  [w + [2] * (T - len(w)) for w in want], gaps)
+        if s["results"] != ranks[0][0]["serve"]["results"]:
+            raise AssertionError(f"(c) rank {r}'s tokens are not rank 0's")
+    print(f"  (c) two ranks, the same tokens on both: {wall:.1f} s with the process starts",
+          flush=True)
+    del params, prompts
+    torch.cuda.empty_cache()
+
+
+def _matched_logits(ref, rows, results, rel=5e-2):
+    """Each generated token's teacher-forced logits ``ref[b, t]`` (t <
+    len(results[b])) against the nearest of the logits rows an engine
+    decoded from (``rows`` (N, V), every request's, in no known order; a
+    beam request's best beam was in the beam at every step): the worst
+    max |·| distance, and its ratio to ``rel`` × the row's max |logit|."""
+    worst = {"err": 0.0, "ratio": 0.0, "rows": 0}
+    rows = rows.float()
+    for b, g in enumerate(results):
+        for t in range(len(g)):
+            want = ref[b, t].float()
+            err = float((rows - want).abs().amax(dim=-1).min())
+            worst["err"] = max(worst["err"], err)
+            worst["ratio"] = max(worst["ratio"], err / (rel * float(want.abs().max())))
+            worst["rows"] += 1
+    return worst
+
+
+def _mesh_train(d, smi, train_losses):
+    """(d) cli/train.py at --mesh 1,1,2 and 1,2,1: salmonn-7b at phase
+    train's 1024 / 448, batch 4, its first 2 steps, on two gloo ranks each:
+    the losses of phase train's first two steps within 1e-3 relative; the
+    fsdp ranks' steps peaking under half of phase train's peak plus
+    ``FSDP_SLACK_GIB``."""
+    out = {}
+    for mesh in ("1,1,2", "1,2,1"):
+        out_dir = os.path.join(d, "train" + mesh.replace(",", ""))
+        os.makedirs(out_dir, exist_ok=True)
+        argv = _train_argv(os.path.join(out_dir, "ckpt"), 4,
+                           ["--mesh", mesh, "--val_max_samples", "0", "--save_every", "0"])
+        with open(os.path.join(out_dir, "cli.json"), "w") as f:
+            json.dump({"argv": argv, "max_steps": 2}, f)
+        t0 = time.perf_counter()
+        ranks = _dp_spawn(out_dir, "file", None, None, "cuda", world=2, timeout=300, mesh=mesh,
+                          tasks=("train_cli",))
+        wall = time.perf_counter() - t0
+        for r, (res, _) in enumerate(ranks):
+            t = res["train_cli"]
+            _need_launches(f"(d) {mesh} rank {r}", res["train_cli_launches"],
+                           {k: 2 * n for k, n in SALMONN_7B_STEP.items()}, res["plain"])
+            errs = [abs(a - b) / abs(b) for a, b in zip(t["losses"], train_losses[:2])]
+            print(f"  (d) --mesh {mesh} rank {r}: {t['steps']} steps, losses {t['losses']} "
+                  f"against phase train's {train_losses[:2]} (relative {errs}, bound 1e-3); "
+                  f"weights held {t['held_gib']:.3f} GiB, the steps' peak "
+                  f"{t['step_peak_gib']:.3f} GiB, the run's {t['peak_gib']:.3f} (the build "
+                  f"included); run {t['seconds']:.1f} s  [{smi}]", flush=True)
+            if t["steps"] != 2 or t["skipped"] or len(errs) != 2 or max(errs) > 1e-3:
+                raise AssertionError(f"(d) --mesh {mesh}: not phase train's losses")
+            bound = TRAIN_PEAK_GIB / 2 + FSDP_SLACK_GIB
+            if mesh == "1,2,1" and t["step_peak_gib"] >= bound:
+                raise AssertionError(f"(d) fsdp = 2 steps peak at {t['step_peak_gib']:.3f} GiB, "
+                                     f"not under half phase train's {TRAIN_PEAK_GIB} + "
+                                     f"{FSDP_SLACK_GIB} = {bound}")
+        print(f"  (d) --mesh {mesh}: {wall:.1f} s with the process starts", flush=True)
+        out[mesh] = [res["train_cli"] for res, _ in ranks]
+    return out
+
+
+def _mesh_four(d, smi):
+    """(e) four gloo ranks at --mesh 1,2,2 on salmonn-7b's widths, 2 layers
+    a stack: one step against one process's step on the same weights on
+    the card (``MESH_CARD_LIMITS``) and against the f32 step on the host
+    (``MESH_ROUNDING``), and each family's collective calls against
+    ``mesh_step_counts``."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.training.step import (
+        AdamW,
+        OptimizerSettings,
+        init_train_state,
+        make_train_probe,
+        make_train_step,
+        tree_map,
+    )
+
+    model = "salmonn-7b-2layer"
+    cfg, params = _dp_model(model, d, "cuda")
+    batch = _dp_batch(cfg)
+    opt = AdamW(OptimizerSettings(**DP_OPT))
+    state, frozen = init_train_state(params, opt)
+    dev = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    _, g = make_train_probe(cfg)(state, frozen, dev)
+    want = dict(zip(_paths(state.trainable), (t.float().cpu().numpy() for t in g)))
+    _, m = make_train_step(cfg, opt)(state, frozen, dev)
+    # the same gradients in f32 on the host (the kernels' plain versions, f32
+    # math on the same weights): how far one process's bf16 step is from it
+    host = tree_map(lambda t: t.detach().float().cpu(), params)
+    del params, state, frozen, g
+    torch.cuda.empty_cache()
+    state, frozen = init_train_state(host, opt)
+    _, g = make_train_probe(dataclasses.replace(cfg, compute_dtype=torch.float32))(
+        state, frozen, {k: torch.as_tensor(v) for k, v in batch.items()})
+    exact = dict(zip(_paths(state.trainable), (t.numpy() for t in g)))
+    del host, state, frozen, g
+    floor = max(np.abs(want[k] - v).max() / _group_max(exact, k) for k, v in exact.items())
+    out_dir = os.path.join(d, "four")
+    t0 = time.perf_counter()
+    ranks = _dp_spawn(out_dir, model, None, batch, "cuda", world=4, timeout=240, mesh="1,2,2",
+                      tasks=("step",))
+    wall = time.perf_counter() - t0
+    counts = mesh_step_counts(cfg, (1, 2, 2))
+    errs = {k: 0.0 for k in MESH_CARD_LIMITS}
+    groups, off_exact, faults = {}, 0.0, []
+    for r, (res, arrays) in enumerate(ranks):
+        s = res["step"]
+        _need_launches(f"(e) rank {r}", res["step_launches"],
+                       {"flash_attention_causal": cfg.llm.n_layers,
+                        "flash_attention_bwd_dq": cfg.llm.n_layers,
+                        "flash_attention_bwd_dkv": cfg.llm.n_layers}, res["plain"])
+        errs["loss"] = max(errs["loss"], abs(s["loss"] - m["loss"]) / abs(m["loss"]))
+        errs["grad_norm"] = max(errs["grad_norm"],
+                                abs(s["grad_norm"] - m["grad_norm"]) / m["grad_norm"])
+        grads = _dp_grads({k[len("mu."):]: v for k, v in arrays.items() if k.startswith("mu.")},
+                          s["grad_norm"])
+        for name, w in want.items():
+            e = np.abs(grads[name] - w).max() / _group_max(want, name)
+            errs["grads"] = max(errs["grads"], e)
+            group = "qformer" if name.startswith("qformer") else f"lora.*.{name[-1]}"
+            groups[group] = max(groups.get(group, 0.0), float(e))
+            off_exact = max(off_exact, np.abs(grads[name] - exact[name]).max()
+                            / _group_max(exact, name))
+        if any(not np.array_equal(v, ranks[0][1][k]) for k, v in arrays.items()):
+            faults.append(f"rank {r}: the gathered leaves differ from rank 0's")
+        if s["skipped"] or not (s["nan_skipped"] == 1.0 and s["kept_after_nan"]):
+            faults.append(f"rank {r}: a step was wrongly taken or skipped: {s}")
+        if s["counts"] != counts:
+            faults.append(f"rank {r}: collectives {s['counts']} against {counts}")
+    held = "; ".join(faults) or "replicas equal, the NaN step skipped on every rank"
+    print(f"  (e) four gloo ranks, --mesh 1,2,2, salmonn-7b widths, 2 layers a stack: loss "
+          f"{ranks[0][0]['step']['loss']:.8f} (one process {m['loss']:.8f}); relative errors "
+          f"loss {errs['loss']:.3e}, grad norm {errs['grad_norm']:.3e}, gradients "
+          f"{errs['grads']:.3e} of their group's max ({ {k: f'{v:.3e}' for k, v in groups.items()} }; "
+          f"limits {MESH_CARD_LIMITS}); {held}; collectives a step "
+          f"{ranks[0][0]['step']['counts']} "
+          f"(formula {counts}); transport {ranks[0][0]['transport']}; step "
+          f"{ranks[0][0]['step']['seconds']:.2f} s; {wall:.1f} s with the process starts  "
+          f"[{smi}]", flush=True)
+    print(f"  (e) against the f32 step on the host: one process's bf16 gradients "
+          f"{floor:.3e} of their group's max away, the sharded step's {off_exact:.3e} "
+          f"(limit {MESH_ROUNDING} × one process's)", flush=True)
+    if (faults or any(errs[k] > MESH_CARD_LIMITS[k] for k in errs)
+            or off_exact > MESH_ROUNDING * floor):
+        raise AssertionError(f"(e) the sharded step is not one process's: {faults}, {errs}, "
+                             f"{off_exact:.3e} from f32 against one process's {floor:.3e}")
+    return errs
+
+
+def _mesh_phase(out_dir, train_losses, smi):
+    """FSDP and tensor parallelism on the one card: ranks are processes
+    sharing it over gloo (NCCL refuses a card twice in a group), so this
+    shows the sharded paths correct and running their kernels on local
+    shards, not NCCL's speed. (a)-(e): ``_mesh_static``, ``_mesh_serve``,
+    ``_mesh_train``, ``_mesh_four``."""
+    _mesh_static(out_dir, smi)
+    _mesh_serve(out_dir, smi)
+    _mesh_train(out_dir, smi, train_losses)
+    _mesh_four(out_dir, smi)
+
+
 def main():
     smi = _device_phase()
     import torch
@@ -4024,6 +5025,11 @@ def main():
     with tempfile.TemporaryDirectory(dir=here) as d:
         _util_phase(d, train_losses, smi)
     print(f"  phase util: {time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase mesh:", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        _mesh_phase(d, train_losses, smi)
+    print(f"  phase mesh: {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         if "counter" in row:  # a Qwen-shape row: the launches of its phase qwen run
             row["launches"] = qwen_counts[row["qwen_run"]][row["counter"]]
@@ -4046,7 +5052,7 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp_worker"]:
-        _dp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:8])
+        _dp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:10])
     elif sys.argv[1:2] == ["--train_worker"]:
         _train_worker(sys.argv[2], sys.argv[3:])
     else:

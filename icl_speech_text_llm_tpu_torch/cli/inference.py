@@ -168,7 +168,6 @@ def main(argv=None):
         length_penalty=args.length_penalty, min_new_tokens=args.min_new_tokens,
         kv_int8=args.kv_int8,
     )
-    gen.check_supported()
     n_slots = {"speech": args.num_examples + 1, "text": 1, "none": 1}[args.fewshot_mode]
     if any(dt.value == "sqa" for dt in dataset_types):
         n_slots = 2 * (args.num_examples if args.fewshot_mode == "speech" else 0) + 2

@@ -17,7 +17,16 @@ The engine runs in the model's compute dtype (JAX's CLI leaves its engine
 at f32; on the card the port's K1 and K4 take bf16). ``--shared_prefix``
 registers the first sample's exemplar header once and submits only each
 request's query suffix; ``--lora_bank`` stacks checkpoints' LoRAs into a
-bank and cycles requests over it. ``--mesh`` is not ported yet
+bank and cycles requests over it. ``--mesh dp,fsdp,tp`` serves from
+dp × fsdp × tp processes (tp must divide the KV heads):
+
+    torchrun --nproc_per_node=N -m icl_speech_text_llm_tpu_torch.cli.serve \
+        --mesh dp,fsdp,tp --model_type salmonn-13b ...
+
+each rank holds its blocks of the weights (quantized ones whole) and its
+KV heads of the pool, every rank runs the same schedule, and only rank 0
+prints; ``pool_bytes`` are a rank's. Ranks sharing one card need gloo.
+``--lora_bank`` under a sharded mesh is not ported
 (``NotImplementedError``); ``--compile_cache`` (the XLA compilation cache)
 has no counterpart and is refused. Qwen2-Audio splices up to 750
 positions a clip: 6 clips take ``--seq_len 2048 --prompt_buckets 2048``.
@@ -46,6 +55,8 @@ from ..inference.serving import (
     salmonn_prompt_embeddings,
 )
 from ..models.factory import create_model
+from ..parallel import initialize_distributed, is_main_process, make_mesh, shutdown_distributed
+from ..parallel.sharding import context_of, is_sharded, shard_context, shard_params
 from ..registry import DatasetSplit, parse_dataset_types
 from ..utils.tokenization import get_tokenizer
 from .inference import _quantize
@@ -89,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated trainable-checkpoint dirs: their 'lora' "
                         "subtrees stack into a bank and requests cycle adapter_id "
                         "over them")
-    p.add_argument("--mesh", type=str, default=None, help="not ported yet")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="serving mesh 'dp,fsdp,tp' (sizes multiply to the world size)")
     p.add_argument("--chunk_len", type=int, default=0,
                    help="chunked admission (divides every prompt bucket; 0 = off)")
     p.add_argument("--shared_prefix", action="store_true",
@@ -111,8 +123,6 @@ def _check_ported(args) -> None:
     if args.compile_cache:
         raise SystemExit("--compile_cache is the JAX package's XLA compilation cache "
                          "(TPU only); the PyTorch port has no counterpart")
-    if args.mesh:
-        raise NotImplementedError("not ported yet: --mesh (see ROADMAP.md)")
     if args.shared_prefix and args.num_beams > 1:
         raise SystemExit("--shared_prefix is slot-pool only (the beam lane prefills its "
                          "full prompt); drop --num_beams")
@@ -122,10 +132,33 @@ def _check_ported(args) -> None:
                          "the engine API instead")
 
 
+def _mesh_sizes(args, model):
+    sizes = [int(x) for x in args.mesh.split(",")]
+    if len(sizes) != 3:
+        raise SystemExit(f"--mesh wants exactly 'dp,fsdp,tp' (got {args.mesh!r})")
+    if model.cfg.llm.n_kv_heads % sizes[2]:
+        raise SystemExit(f"tp={sizes[2]} must divide n_kv_heads={model.cfg.llm.n_kv_heads} "
+                         "for the KV-head-sharded pool")
+    return sizes
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
     _check_ported(args)
+    owns_group = bool(args.mesh) and not torch.distributed.is_initialized()
+    if args.mesh:  # before the model is built: a process on a card selects its own
+        initialize_distributed(device=args.device)
+        if not is_main_process():
+            logging.getLogger().setLevel(logging.WARNING)
+    try:
+        return _serve(args)
+    finally:
+        if owns_group:
+            shutdown_distributed()
+
+
+def _serve(args):
     is_qwen = args.model_type.lower().startswith("qwen")
 
     tok = get_tokenizer(None)
@@ -156,6 +189,13 @@ def main(argv=None):
         chunk_len=args.chunk_len)
     if args.quantize_int8 or args.quantize_int4:
         _quantize(model, 4 if args.quantize_int4 else 8)
+    mesh = None
+    if args.mesh:
+        dp, fsdp, tp = _mesh_sizes(args, model)
+        mesh = make_mesh(dp=dp, fsdp=fsdp, tp=tp, device=args.device)
+        if is_sharded(mesh):  # quantized leaves match no rule: they stay whole
+            model.params = model.engine.params = shard_params(model.params, mesh)
+    shard = context_of(mesh) if is_sharded(mesh) else None
     lora = model.params.get("lora")
     n_adapters = 0
     if args.lora_bank:
@@ -171,7 +211,7 @@ def main(argv=None):
     engine = ContinuousBatchingEngine(
         model.cfg.llm, model.params["llm"], scfg, lora=lora,
         lora_scaling=model.cfg.lora.scaling if model.cfg.lora is not None else 1.0,
-        dtype=model.cfg.compute_dtype, device=dev)
+        dtype=model.cfg.compute_dtype, device=dev, mesh=mesh)
     prompt_embeddings = qwen_prompt_embeddings if is_qwen else salmonn_prompt_embeddings
 
     def embed(samples, cfg_pack):
@@ -179,7 +219,7 @@ def main(argv=None):
         arrays = {"text_tokens": packed.text_tokens, "gather_idx": packed.gather_idx,
                   "seq_lengths": packed.seq_lengths, **packed.audio}
         batch = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in arrays.items()}
-        with torch.no_grad():
+        with torch.no_grad(), shard_context(shard):
             seq, _ = prompt_embeddings(model.cfg, model.params, batch)
         # lengths from the host-side batch: reading the device's would sync
         return seq, np.asarray(packed.seq_lengths)
@@ -241,6 +281,8 @@ def main(argv=None):
     results = engine.run()
     elapsed = time.perf_counter() - t0
 
+    if not is_main_process():
+        return results
     for rid in sorted(results):
         text = tok.decode(results[rid], skip_special_tokens=True)
         print(f"[req {rid}] label={rid_to_sample[rid].completion!r} -> {text!r}")

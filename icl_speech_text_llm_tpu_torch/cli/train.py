@@ -18,18 +18,26 @@ run once at each size of JAX's doubling-then-bisect search (no optimizer
 update, so the state is left as it was; an out-of-memory probe counts as
 "does not fit"), and the state is rebuilt at the pick.
 
-``--mesh dp`` trains data-parallel over ``dp`` processes, one a card:
+``--mesh dp,fsdp,tp`` trains over dp × fsdp × tp processes, one a card:
 
     torchrun --nproc_per_node=N -m icl_speech_text_llm_tpu_torch.cli.train \
-        --mesh N --model_type salmonn-7b ...
+        --mesh dp,fsdp,tp --model_type salmonn-7b ...
 
-``--batch_size`` stays the global batch (each rank steps ``batch_size / N``
-of its rows; the loss is the global token mean, ``training/step.py``), and
-only rank 0 logs and writes checkpoints. ``--mesh 1`` runs the same
-reductions in a group of one. Sharded axes (fsdp, tp, pp > 1) and
-``--pp_microbatches`` > 1 raise ``NotImplementedError``, as does
-``--auto_batch`` with a mesh; ``--compile_cache`` (an XLA compilation
-cache) has no counterpart and is refused.
+dp replicates the model, fsdp shards the big matrices' other dim (gathered
+a layer at a time), tp the heads, MLP columns and vocabulary by the rule
+table (``parallel/sharding.py``); quantized leaves stay replicated.
+``--batch_size`` stays the global batch (each (dp, fsdp) coordinate steps
+``batch_size / (dp · fsdp)`` of its rows, the tp ranks of one coordinate
+the same rows; the loss is the global token mean, ``training/step.py``),
+and only rank 0 logs and writes checkpoints (gathered leaves, the
+one-process format). ``--mesh 1`` runs the same reductions in a group of
+one. Ranks sharing one card need gloo (``initialize_distributed(...,
+backend="gloo")``): NCCL refuses a card twice in a group. With
+``--auto_batch`` each rank probes its own rows, every size's verdict is
+agreed over the ranks, and the pick is a rank's rows × dp · fsdp. The
+pipeline (pp > 1) and ``--pp_microbatches`` > 1 raise
+``NotImplementedError`` (the next slice); ``--compile_cache`` (an XLA
+compilation cache) has no counterpart and is refused.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from ..parallel import (
     parse_mesh,
     shutdown_distributed,
 )
+from ..parallel.sharding import batch_shard, is_sharded, shard_params
 from ..registry import DatasetSplit, parse_dataset_types
 from ..training.loop import TrainSettings, batch_arrays, train
 from ..training.schedulers import get_schedule
@@ -108,7 +117,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--randomize_swap", action="store_true")
     p.add_argument("--mesh", type=str, default=None,
                    help="process mesh 'dp,fsdp,tp[,pp]' (sizes multiply to the world "
-                        "size); only data parallelism (fsdp = tp = pp = 1) is ported")
+                        "size); pp > 1 is not ported")
     p.add_argument("--pp_microbatches", type=int, default=1)
     p.add_argument("--seq_len", type=int, default=2048)
     p.add_argument("--text_len", type=int, default=1024)
@@ -130,8 +139,7 @@ def _check_ported(args) -> None:
     if args.compile_cache:
         raise SystemExit("--compile_cache is the JAX package's XLA compilation cache "
                          "(TPU only); the PyTorch port has no counterpart")
-    unported = {"--pp_microbatches > 1": args.pp_microbatches > 1,
-                "--auto_batch with --mesh": args.auto_batch and args.mesh}
+    unported = {"--pp_microbatches > 1": args.pp_microbatches > 1}
     asked = [flag for flag, on in unported.items() if on]
     if asked:
         raise NotImplementedError(f"not ported yet: {', '.join(asked)} "
@@ -177,6 +185,8 @@ def _train(args, mesh):
     is_qwen = args.model_type.lower().startswith("qwen")
     model = create_model(args.model_type, tokenizer=args.tokenizer, seed=args.seed,
                          device=args.device, trainable_dtype=torch.float32)
+    if is_sharded(mesh):  # every rank drew the same weights: keep its blocks
+        model.params = model.engine.params = shard_params(model.params, mesh)
     n_slots = args.num_examples + 1 if args.fewshot_mode == "speech" else 1
     pack_cfg = dataclasses.replace(model.pack_cfg, seq_len=args.seq_len,
                                    text_len=args.text_len, max_slots=n_slots)
@@ -209,12 +219,13 @@ def _train(args, mesh):
     if args.auto_batch:
         probe = batch_arrays(collate_icl_batch([train_ds[0]], model.tokenizer, pack_cfg))
         device = model.engine.device
+        shards = batch_shard(mesh)[1]  # the search runs over a rank's rows
         sizer = BatchSizeOptimizer(
-            make_train_probe(model.cfg, model.loss_fn, _remat(args)),
+            make_train_probe(model.cfg, model.loss_fn, _remat(args), mesh=mesh),
             lambda bs: (state, frozen, {k: torch.as_tensor(v, device=device)
                                         for k, v in tile_batch(probe, bs).items()}),
             max_batch=args.auto_batch_max, device=device)
-        picked = sizer.find_optimal_batch_size(start=1)
+        picked = sizer.find_optimal_batch_size(start=1) * shards
         if picked and picked != args.batch_size:
             logging.info("--auto_batch: batch_size %d → %d (largest whose step fits "
                          "the card's memory)", args.batch_size, picked)

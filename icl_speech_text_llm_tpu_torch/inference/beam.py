@@ -67,7 +67,6 @@ def beam_decode_from_sequence(llm_cfg, llm_params: Dict[str, Any], seq: torch.Te
     ``events`` (CUDA) marks the prefill and each decode step. Stochastic
     beams draw from ``generator`` where given (the serving engine's), else
     from a new one seeded with ``gen.seed``."""
-    gen.check_supported()
     mark = events.mark if events is not None else (lambda: None)
     mark()
     B, L, _ = seq.shape

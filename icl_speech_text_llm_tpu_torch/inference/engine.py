@@ -14,10 +14,19 @@ The first token comes from the prefill's logits and each decode step
 yields the next, so ``max_new_tokens`` tokens take ``max_new_tokens − 1``
 decode steps (the JAX scan computes one more token and discards it).
 Decode attention follows ``use_flash_decode``: ``"xla"`` (the default, the
-JAX package's fused-slice math in plain torch) or ``True`` (the K7
-flash-decode kernel); ``False`` (JAX's GSPMD path) raises
-``NotImplementedError``. ``kv_int8`` keeps the cache in int8 with
-per-position f32 scales. Sampling draws from a ``torch.Generator`` seeded
+JAX package's fused-slice math in plain torch), ``True`` (the K7
+flash-decode kernel) or ``False`` (JAX's scanned-layer path: each layer's
+row appended first, then the plain masked attention over the cache).
+``kv_int8`` keeps the cache in int8 with per-position f32 scales.
+
+Under a mesh (any call inside ``parallel/sharding.py:shard_context``;
+``SalmonnEngine.shard``) the parameters are the rank's
+blocks and the batch its rows over (dp, fsdp): the encoders and the
+decoder run on the rank's heads (K7 per rank on its KV heads with
+``True``, JAX's ``shard_map`` route), and every decoder here works on the
+logits gathered over tp (B × V), so greedy, sampling (the same generator
+seed on every rank), the processors and beams pick the same tokens on
+every tp rank, an argmax tie keeping the lowest global index. Sampling draws from a ``torch.Generator`` seeded
 with ``seed`` for each call, as the JAX engine uses ``PRNGKey(0)``; the two
 give different numbers.
 """
@@ -40,6 +49,7 @@ from ..models.llama import (
     lm_logits,
 )
 from ..ops.mel import log_mel_spectrogram, pad_or_trim, wavs_to_float
+from ..parallel.sharding import shard_context
 from ..utils.tokenization import Tokenizer
 
 
@@ -56,8 +66,8 @@ class GenerationConfig:
     length_penalty: float = 1.0
     min_new_tokens: int = 0
     kv_int8: bool = False
-    #: JAX's values "xla" (default), True (K7) or False (GSPMD, not ported),
-    #: stored as a ``DecodeAttention``
+    #: JAX's values "xla" (default), True (K7) or False (the scanned-layer
+    #: route), stored as a ``DecodeAttention``
     use_flash_decode: Any = "xla"
     seed: int = 0  # of the sampling generator, made anew for each call
 
@@ -67,11 +77,6 @@ class GenerationConfig:
     @property
     def needs_history(self) -> bool:
         return self.repetition_penalty != 1.0 or self.min_new_tokens > 0
-
-    def check_supported(self) -> None:
-        if self.use_flash_decode is DecodeAttention.GENERIC:
-            raise NotImplementedError(
-                "not ported yet: use_flash_decode=False (the GSPMD scanned-cache decode)")
 
 
 class StepEvents:
@@ -176,7 +181,6 @@ def decode_from_sequence(llm_cfg, llm_params: Dict[str, Any], seq: torch.Tensor,
     """Prefill + cached decode (greedy or sampled, with the history
     processors) → (B, max_new_tokens) int32 token ids; ``events`` (CUDA)
     marks the prefill and each decode step."""
-    gen.check_supported()
     mark = events.mark if events is not None else (lambda: None)
     mark()
     B, L, _ = seq.shape
@@ -277,17 +281,20 @@ class SalmonnEngine:
     decodes rows to strings (API of the JAX package's SalmonnEngine). On a
     CUDA device ``timings`` collects each batch's [prefill ms, decode step
     ms, …] (CUDA events). ``sequence_fn`` builds the family's prompt
-    embeddings (``generate_batch``)."""
+    embeddings (``generate_batch``). ``shard``: a sharded mesh's shard
+    context (the params then the rank's blocks, as a sharded training loop
+    sets them), under which every batch runs; every tp rank returns the
+    same tokens."""
 
     def __init__(self, cfg, params, tokenizer: Tokenizer, gen: Optional[GenerationConfig] = None,
                  device="cuda", sequence_fn=speech_sequence):
         self.cfg = cfg
+        self.shard = None
         self.sequence_fn = sequence_fn
         self.params = params
         self.tokenizer = tokenizer
         self.gen = gen or GenerationConfig(eos_token_id=tokenizer.eos_token_id,
                                            pad_token_id=tokenizer.pad_token_id)
-        self.gen.check_supported()
         self.device = torch.device(device)
         self.timings: List[List[float]] = []
 
@@ -298,8 +305,9 @@ class SalmonnEngine:
         }
         batch = {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
         events = StepEvents() if self.device.type == "cuda" else None
-        toks = generate_batch(self.cfg, self.gen, self.params, batch, self.sequence_fn,
-                              events).cpu().numpy()
+        with shard_context(self.shard):
+            toks = generate_batch(self.cfg, self.gen, self.params, batch, self.sequence_fn,
+                                  events).cpu().numpy()
         if events is not None:
             self.timings.append(events.millis())
         return toks

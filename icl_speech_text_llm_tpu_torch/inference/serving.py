@@ -40,7 +40,18 @@ flash on one chip: K1 attends the unquantized current k/v, as the static
 engines do, so under ``kv_int8`` the port's admission does not equal JAX
 serving's, which attends the int8 rows it just wrote. The suffix and chunk
 prefills attend the (dequantized) cache in both. Prompt embeddings are cast
-to the engine's ``dtype``. A sharded ``mesh`` is not ported.
+to the engine's ``dtype``.
+
+``mesh`` (JAX's tp-sharded serving): the params are the rank's blocks
+(``parallel/sharding.py:shard_params``) and every model call runs under
+the mesh's shard context. The pool and the prefix store hold the rank's KV
+heads, admission goes through K1 on them, decode blocks take K7 (K7 q8 for
+the int8 pool) per rank on its KV heads (``DecodeAttention.FLASH``, as the
+JAX engine sets ``(mesh, tp)``), and the beam lane runs the same sharded
+decoder. Tokens come from logits gathered over tp, so every rank samples
+the same ones; dp and fsdp ranks run the same schedule (JAX replicates the
+pool over them), and ``pool_bytes`` are a rank's. A LoRA bank under a
+sharded mesh raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from ..models.llama import (
     init_kv_cache,
     lm_logits,
 )
+from ..parallel.sharding import context_of, is_sharded, shard_context
 from ..training.step import tree_leaves, tree_map
 
 
@@ -211,7 +223,8 @@ def _chunk_step_kernel(llm_cfg, params, local, chunk, starts, abs_lengths, tok_s
 
 
 def _decode_kernel(llm_cfg, scfg, n_inner, dtype, params, cache, tok, cur_len, done, temps,
-                   generator, lora, lora_scaling, lora_ids=None):
+                   generator, lora, lora_scaling, lora_ids=None,
+                   attention=DecodeAttention.XLA):
     """``n_inner`` decode steps for every pool row, the cache in place.
     Done rows emit pad and keep their length. → (tok, cur_len, done, the
     emitted block (n_inner, S + 1))."""
@@ -219,7 +232,7 @@ def _decode_kernel(llm_cfg, scfg, n_inner, dtype, params, cache, tok, cur_len, d
     for _ in range(n_inner):
         emb = embed_tokens(params, tok[:, None], dtype=dtype)
         hidden, cache = decode_step(llm_cfg, params, emb, cache, cur_len, lora, lora_scaling,
-                                    DecodeAttention.XLA, lora_ids)
+                                    attention, lora_ids)
         nxt = _sample_next(lm_logits(llm_cfg, params, hidden)[:, 0], temps, generator)
         nxt = nxt.masked_fill(done, scfg.pad_token_id)
         done = done | (nxt == scfg.eos_token_id)
@@ -241,9 +254,6 @@ class ContinuousBatchingEngine:
                  cfg: ServingConfig = ServingConfig(), lora: Optional[Dict[str, Any]] = None,
                  lora_scaling: float = 1.0, dtype=torch.float32, seed: int = 0, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "not ported yet: mesh= (tp-sharded serving, ROADMAP.md queue 1 item 8)")
         if cfg.chunk_len:
             bad = [b for b in cfg.prompt_buckets if b % cfg.chunk_len]
             if bad:
@@ -256,12 +266,18 @@ class ContinuousBatchingEngine:
         # a stack_lora_bank tree has leaves (n_layers, n_adapters, ·, ·)
         leaves = tree_leaves(lora) if lora is not None else []
         self._n_adapters = leaves[0].shape[1] if leaves and leaves[0].dim() == 4 else 0
+        self._shard = context_of(mesh) if is_sharded(mesh) else None
+        if self._shard is not None and self._n_adapters:
+            raise NotImplementedError("a LoRA bank under a sharded mesh is not ported "
+                                      "(ROADMAP.md queue 1 item 3)")
+        self._attention = DecodeAttention.FLASH if self._shard else DecodeAttention.XLA
         self._scratch = S
         self._dtype = dtype
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         dev = self.device
-        self._cache = init_kv_cache(llm_cfg, S + 1, cfg.cache_len, dtype=dtype, device=dev,
-                                    quant=cfg.kv_int8)
+        with shard_context(self._shard):
+            self._cache = init_kv_cache(llm_cfg, S + 1, cfg.cache_len, dtype=dtype, device=dev,
+                                        quant=cfg.kv_int8)
         self._adapter_ids = torch.zeros((S + 1,), dtype=torch.int32, device=dev)
         self._temps = torch.zeros((S + 1,), dtype=torch.float32, device=dev)
         self._tok = torch.zeros((S + 1,), dtype=torch.int32, device=dev)
@@ -326,10 +342,11 @@ class ContinuousBatchingEngine:
         if adapter_id and not 0 <= adapter_id < self._n_adapters:
             raise ValueError(f"adapter_id {adapter_id} out of range ({self._n_adapters})")
         Pb = _bucket_for(int(length), self.cfg.prefix_buckets)
-        tree = _prefix_register_kernel(
-            self.llm_cfg, self.cfg, self._dtype, self.params, self._block([seq_emb], Pb, 1),
-            self._h2d([int(length)], torch.int32), self._adapter(adapter_id),
-            self.lora_scaling)
+        with shard_context(self._shard):
+            tree = _prefix_register_kernel(
+                self.llm_cfg, self.cfg, self._dtype, self.params, self._block([seq_emb], Pb, 1),
+                self._h2d([int(length)], torch.int32), self._adapter(adapter_id),
+                self.lora_scaling)
         self._prefix_store.append((tree, int(length), Pb, int(adapter_id)))
         return len(self._prefix_store) - 1
 
@@ -399,9 +416,10 @@ class ContinuousBatchingEngine:
         """Admit waiting requests into free slots, dispatch waiting beam
         waves, and run one decode block; nothing here waits for the card.
         Flushes once ``max_pending_blocks`` blocks and waves are pending."""
-        self._admit()
-        self._dispatch_beams()
-        self._decode_once()
+        with shard_context(self._shard):
+            self._admit()
+            self._dispatch_beams()
+            self._decode_once()
         if len(self._pending_meta) + len(self._pending_beams) >= self.cfg.max_pending_blocks:
             self._flush()
 
@@ -419,7 +437,8 @@ class ContinuousBatchingEngine:
         self._tok, self._cur_len, self._done, toks = _decode_kernel(
             self.llm_cfg, self.cfg, self._n_inner, self._dtype, self.params, self._cache,
             self._tok, self._cur_len, self._done, self._temps, self._gen, self.lora,
-            self.lora_scaling, self._adapter_ids if self._n_adapters else None)
+            self.lora_scaling, self._adapter_ids if self._n_adapters else None,
+            self._attention)
         self._pending_rows.append(toks)
         self.stats["decode_blocks"] += 1
         self._pending_meta.append(("decode", (self._n_inner, riders)))

@@ -9,6 +9,15 @@ tokens: the kernels mask ragged tiles themselves, so there is no 1496→1536
 padding of tokens or bias table. ``lean_bias_flash`` (the JAX package's
 option) precomputes the gate rows once per layer and takes K9 where
 ``flash_bias_rows_usable`` allows, else K3, the default.
+
+Under a mesh (``parallel/sharding.py``) the layers' wq/wk/wv/w1 are
+column-parallel and wo/w2 row-parallel over tp, FSDP-sharded leaves are
+gathered at each layer's start, and K3/K9 run on the rank's heads. The
+leaves no rule matches stay whole and are sliced to the rank's heads and
+columns: the biases bq/bk/bv/b1, ``grep_a`` (L, H) before the gate rows,
+``rel_bias`` (buckets, H) before the bias table (else K3 would add head
+h's bias to another head); bo and b2 are added once, by tp rank 0 before
+the sum over tp.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from ..ops.flash_attention import (
     gated_bias_attention_rows,
 )
 from ..ops.mel import framed_dft
+from ..parallel.sharding import ONE, current_shard
 from .common import dense_init, full_f32, gelu, layer_at, layer_norm, linear, normal_init
 
 FBANK_MEAN = 15.41663
@@ -197,33 +207,45 @@ def _conv_pos_embed(cfg: BeatsConfig, p, x: torch.Tensor) -> torch.Tensor:
     return gelu(out)
 
 
-def _gate_scale_rows(cfg: BeatsConfig, a, x: torch.Tensor) -> torch.Tensor:
+def _gate_scale_rows(cfg: BeatsConfig, a, x: torch.Tensor, heads: slice = slice(None)
+                     ) -> torch.Tensor:
     """Per-query-row gate scale (B, H, T) f32 — the plain gate of the WavLM
-    gru_rel_pos bias, from the raw layer input split into heads."""
+    gru_rel_pos bias, from the raw layer input split into heads (those of
+    ``heads``)."""
     B, T, _ = x.shape
-    xh = x.view(B, T, cfg.n_heads, cfg.head_dim).transpose(1, 2)
-    return gate_rows(xh, a["grep_w"], a["grep_b"], a["grep_a"])
+    xh = x.view(B, T, cfg.n_heads, cfg.head_dim)[:, :, heads].transpose(1, 2)
+    return gate_rows(xh, a["grep_w"], a["grep_b"], a["grep_a"][heads])
 
 
 def _layer_forward(cfg: BeatsConfig, layer, x: torch.Tensor,
                    bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """One post-LN (DeepNorm) layer; under a mesh on this tp rank's heads
+    and MLP columns, ``bias`` then the rank's heads of the table
+    (``beats_bias_table``). With one process every slice is whole and
+    every sum the identity."""
+    sh = current_shard() or ONE
+    layer = sh.gather_fsdp(layer, "beats/layers")
     B, T, d = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
+    H, hd = sh.local_heads(cfg.n_heads, "BEATs heads"), cfg.head_dim
+    cols, heads = sh.cols(d), sh.cols(cfg.n_heads)
     a = layer["attn"]
-    q = linear(x, a["wq"], a["bq"]).view(B, T, H, hd).transpose(1, 2)
-    k = linear(x, a["wk"], a["bk"]).view(B, T, H, hd).transpose(1, 2)
-    v = linear(x, a["wv"], a["bv"]).view(B, T, H, hd).transpose(1, 2)
+    q = linear(x, a["wq"], a["bq"][cols]).view(B, T, H, hd).transpose(1, 2)
+    k = linear(x, a["wk"], a["bk"][cols]).view(B, T, H, hd).transpose(1, 2)
+    v = linear(x, a["wv"], a["bv"][cols]).view(B, T, H, hd).transpose(1, 2)
     if bias is not None and cfg.lean_bias_flash and flash_bias_rows_usable(B, H, T, hd):
-        out = gated_bias_attention_rows(q, k, v, _gate_scale_rows(cfg, a, x), bias)
+        out = gated_bias_attention_rows(q, k, v, _gate_scale_rows(cfg, a, x, heads), bias)
     elif bias is not None:
-        xh = x.view(B, T, H, hd).transpose(1, 2)
-        out = gated_bias_attention(q, k, v, xh, bias, a["grep_w"], a["grep_b"], a["grep_a"])
+        xh = x.view(B, T, cfg.n_heads, hd)[:, :, heads].transpose(1, 2)
+        out = gated_bias_attention(q, k, v, xh, bias, a["grep_w"], a["grep_b"],
+                                   a["grep_a"][heads])
     else:
         out = flash_attention(q, k, v, None, causal=False)
-    out = linear(out.transpose(1, 2).reshape(B, T, d), a["wo"], a["bo"])
+    out = sh.reduce_from_tp(linear(out.transpose(1, 2).reshape(B, T, H * hd), a["wo"],
+                                   sh.row_bias(a["bo"])))
     x = layer_norm(x * cfg.deep_norm_alpha + out, layer["ln_attn"]["w"], layer["ln_attn"]["b"])
     m = layer["mlp"]
-    h = linear(gelu(linear(x, m["w1"], m["b1"])), m["w2"], m["b2"])
+    h = sh.reduce_from_tp(linear(gelu(linear(x, m["w1"], m["b1"][sh.cols(m["b1"].shape[-1])])),
+                                 m["w2"], sh.row_bias(m["b2"])))
     return layer_norm(x * cfg.deep_norm_alpha + h, layer["ln_mlp"]["w"], layer["ln_mlp"]["b"])
 
 
@@ -235,10 +257,11 @@ def beats_num_tokens(cfg: BeatsConfig, n_samples: int) -> int:
 
 def beats_bias_table(cfg: BeatsConfig, params: Dict[str, Any], n_tokens: int) -> torch.Tensor:
     """The shared gated-rel-pos bias table (H, T, T) f32 for a T-token clip —
-    a function of the frozen rel_bias weights and T, built once per encode."""
+    a function of the frozen rel_bias weights and T, built once per encode.
+    Under a mesh, the rank's heads of it (``rel_bias`` is whole)."""
     buckets = torch.from_numpy(relative_position_buckets(
         n_tokens, cfg.rel_pos_buckets, cfg.rel_pos_max_distance)).long()
-    rel = params["rel_bias"]
+    rel = params["rel_bias"][:, (current_shard() or ONE).cols(cfg.n_heads)]
     return rel.float()[buckets.to(rel.device)].permute(2, 0, 1).contiguous()
 
 

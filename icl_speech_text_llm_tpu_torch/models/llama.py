@@ -33,6 +33,31 @@ LoRA added inside the q/v projections, and a KV cache updated in place.
   ``q8_cache_layout_ok`` admits its layout, else the ``XLA`` math does. The
   current token is attended unquantized, the cache through its scales.
 
+- ``DecodeAttention.GENERIC`` (JAX's ``use_flash_decode=False``) is the
+  scanned-layer decode: each layer first writes its new k/v row into the
+  cache (K4, or K4 q8 quantizing it, on that layer's slice), then attends
+  the (dequantized) cache under the decode mask with the plain
+  ``dot_product_attention``, so under an int8 cache the current token is
+  attended quantized, unlike the ``XLA`` route.
+
+Under a mesh (``parallel/sharding.py:current_shard()``; None on one
+process, where nothing below changes) every rank holds its local blocks
+by the rule table and the layer code calls explicit collectives: wq, wk,
+wv, w_gate, w_up (and Qwen's bq/bk/bv) are column-parallel over the rank's
+heads and columns, wo and w_down row-parallel followed by an all-reduce in
+f32 (Megatron's pair: the column blocks' inputs sum their gradient over
+tp), LoRA A/B cut to match, a tp-replicated trainable factor summing its
+gradient over tp. A quantized weight matches no rule and stays replicated:
+its rank computes the full product and keeps its columns, or all-gathers
+the heads before a row-side one. The vocabulary is tp-sharded: a masked
+lookup plus an all-reduce, vocab-sharded logits (gathered for decoding),
+and a vocab-parallel cross entropy. FSDP-sharded leaves are gathered at
+their layer's start, and the backward keeps only the frozen ones' shards
+(``ShardContext.keep_shards``: gathered again when it needs them; a
+checkpointed layer's recompute gathers anew). K1, K5/K6, K7 and K4 see
+only the rank's heads, and
+the KV cache holds the rank's KV heads.
+
 Matmul weights may be plain tensors or the JAX package's quantized dicts
 (int8 ``{"q", "s"}``, int4 ``{"q4", "s"}``): every product goes through
 ``ops/quant.py:dequant_matmul``. ``lora`` is one adapter (leaves (L, d_in,
@@ -42,6 +67,8 @@ several (leaves (L, n_adapters, ...)), each sample applying its own.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import enum
 import functools
 import logging
@@ -65,8 +92,14 @@ from ..ops.flash_attention import (
     flash_decode_usable,
     q8_cache_layout_ok,
 )
-from ..ops.attention import dot_product_attention, make_chunk_mask, repeat_kv
+from ..ops.attention import (
+    dot_product_attention,
+    make_chunk_mask,
+    make_decode_mask,
+    repeat_kv,
+)
 from ..ops.quant import dequant_matmul, quantize_kv
+from ..parallel.sharding import current_shard
 from .common import (
     apply_rope,
     dense_init,
@@ -271,11 +304,16 @@ def stack_lora_bank(adapters) -> Dict[str, Any]:
     return stack(*adapters)
 
 
-def _proj(x, w, lora_layer, name: str, scaling: float, bias=None, lora_ids=None):
+def _proj(x, w, lora_layer, name: str, scaling: float, bias=None, lora_ids=None,
+          row: bool = False):
     """x @ w (+ bias) with the optional additive LoRA delta ((x·A)·B)·scaling;
     ``w`` a tensor or a quantized dict (``dequant_matmul``). With
     ``lora_ids`` (B,) the layer's LoRA is a bank (n_adapters, d_in, r) and
-    each sample gathers its own rank-r factors."""
+    each sample gathers its own rank-r factors. ``row``: a row-parallel
+    target (wo, w_down), which matters under tensor parallelism only."""
+    sh = current_shard()
+    if sh is not None and sh.tp > 1:
+        return _proj_tp(sh, x, w, lora_layer, name, scaling, bias, lora_ids, row)
     y = dequant_matmul(x, w)
     if lora_layer is not None and name in lora_layer:
         a = lora_layer[name]["a"].to(x.dtype)
@@ -290,6 +328,68 @@ def _proj(x, w, lora_layer, name: str, scaling: float, bias=None, lora_ids=None)
     return y
 
 
+def _proj_tp(sh, x, w, lora_layer, name, scaling, bias, lora_ids, row):
+    """``_proj`` on this tp rank. Column (``row`` False): x whole, the
+    rank's output columns. Row: x the rank's input columns (heads), the
+    partial products summed over tp in f32. A quantized ``w`` is whole on
+    every rank: the full product, then the rank's columns (column), or the
+    heads gathered first and no sum (row)."""
+    if lora_ids is not None:
+        raise NotImplementedError("a LoRA bank under a tensor-parallel mesh is not ported "
+                                  "(ROADMAP.md queue 1 item 3)")
+    whole = isinstance(w, dict)
+    if row:
+        y = dequant_matmul(sh.gather_tp(x, -1) if whole else x, w)
+    else:
+        y = dequant_matmul(x, w)
+        if whole:
+            y = y[..., sh.cols(y.shape[-1])]
+    delta = None
+    if lora_layer is not None and name in lora_layer:
+        a, b = lora_layer[name]["a"], lora_layer[name]["b"]
+        # the factor whole on every tp rank multiplies a tp-sharded one: its
+        # gradient is a partial sum over tp, summed in the factor's own
+        # dtype (before the cast, so f32 master weights sum f32 gradients)
+        a, b = (a, sh.copy_to_tp(b)) if row else (sh.copy_to_tp(a), b)
+        delta = torch.matmul(torch.matmul(x, a.to(x.dtype)), b.to(x.dtype)) * scaling
+    if row:
+        if whole:
+            y = y if delta is None else y + sh.reduce_from_tp(delta)
+        else:
+            y = sh.reduce_from_tp(y if delta is None else y + delta)
+    elif delta is not None:
+        y = y + delta
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
+
+
+def _local_cfg(cfg: DecoderConfig) -> DecoderConfig:
+    """``cfg`` with this tp rank's heads and KV heads (head_dim kept), or
+    ``cfg`` itself outside tensor parallelism."""
+    sh = current_shard()
+    if sh is None or sh.tp == 1:
+        return cfg
+    return dataclasses.replace(cfg, n_heads=sh.local_heads(cfg.n_heads),
+                               n_kv_heads=sh.local_heads(cfg.n_kv_heads, "KV heads"),
+                               head_dim=cfg.hd)
+
+
+def _gathered(layer, lo):
+    """A layer's weights and LoRA with their FSDP shards gathered (as they
+    are without a mesh)."""
+    sh = current_shard()
+    if sh is None:
+        return layer, lo
+    return sh.gather_fsdp(layer, "llm/layers"), sh.gather_fsdp(lo, "lora")
+
+
+def _tp_input(h):
+    """The input of a column-parallel block: its gradient summed over tp."""
+    sh = current_shard()
+    return h if sh is None else sh.copy_to_tp(h)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -301,7 +401,7 @@ def _qkv_heads(cfg, layer, lora_layer, lora_scaling, x, positions, inv_freq, lor
     hd = cfg.hd
     attn = layer["attn"]
     pj = functools.partial(_proj, lora_ids=lora_ids)
-    h = rms_norm(x, layer["ln_attn"], cfg.rms_eps)
+    h = _tp_input(rms_norm(x, layer["ln_attn"], cfg.rms_eps))
     q = pj(h, attn["wq"], lora_layer, "wq", lora_scaling, attn.get("bq"))
     k = pj(h, attn["wk"], lora_layer, "wk", lora_scaling, attn.get("bk"))
     v = pj(h, attn["wv"], lora_layer, "wv", lora_scaling, attn.get("bv"))
@@ -315,11 +415,12 @@ def _attn_out_mlp(cfg, layer, lora_layer, lora_scaling, x, out, lora_ids=None):
     """Attention output projection + residual + SwiGLU MLP block."""
     attn, mlp = layer["attn"], layer["mlp"]
     pj = functools.partial(_proj, lora_ids=lora_ids)
-    x = x + pj(out, attn["wo"], lora_layer, "wo", lora_scaling)
-    h = rms_norm(x, layer["ln_mlp"], cfg.rms_eps)
+    x = x + pj(out, attn["wo"], lora_layer, "wo", lora_scaling, row=True)
+    h = _tp_input(rms_norm(x, layer["ln_mlp"], cfg.rms_eps))
     gate = pj(h, mlp["w_gate"], lora_layer, "w_gate", lora_scaling)
     up = pj(h, mlp["w_up"], lora_layer, "w_up", lora_scaling)
-    return x + pj(F.silu(gate) * up, mlp["w_down"], lora_layer, "w_down", lora_scaling)
+    return x + pj(F.silu(gate) * up, mlp["w_down"], lora_layer, "w_down", lora_scaling,
+                  row=True)
 
 
 def _inv_freq(cfg: DecoderConfig, device) -> torch.Tensor:
@@ -329,7 +430,9 @@ def _inv_freq(cfg: DecoderConfig, device) -> torch.Tensor:
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                   device="cuda", quant: bool = False) -> Dict[str, torch.Tensor]:
     """Stacked KV cache {"k", "v"}: (L, B, Hkv, max_len, hd). ``quant``: int8
-    k/v and f32 per-position scales {"k_s", "v_s"} (L, B, Hkv, max_len)."""
+    k/v and f32 per-position scales {"k_s", "v_s"} (L, B, Hkv, max_len).
+    Under tensor parallelism Hkv is the rank's KV heads."""
+    cfg = _local_cfg(cfg)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
     if quant:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -409,6 +512,7 @@ def _cache_prefill_attn(cfg, q, k, v, cache, l, starts):
 def _layer_forward(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lengths,
                    cache=None, l=0, starts=None, lora_ids=None):
     B, T, _ = x.shape
+    layer, lo = _gathered(layer, lo)
     q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lora_ids)
     if starts is not None:
         out = _cache_prefill_attn(cfg, q, k, v, cache, l, starts)
@@ -448,6 +552,7 @@ def decoder_forward(cfg: DecoderConfig, params: Dict[str, Any], inputs_embeds: t
     checkpoints K−1 of every K layers and runs the K-th plain (a K that does
     not divide ``n_layers`` degrades to full remat, with a warning)."""
     B, T, _ = inputs_embeds.shape
+    cfg = _local_cfg(cfg)
     inv_freq = _inv_freq(cfg, inputs_embeds.device)
     positions = torch.arange(T, device=inputs_embeds.device)[None].expand(B, T)
     if cache_positions is not None:
@@ -459,14 +564,20 @@ def decoder_forward(cfg: DecoderConfig, params: Dict[str, Any], inputs_embeds: t
         _warn_remat_degraded(remat, cfg.n_layers, "n_layers not divisible by K")
         g, remat = 0, True
     plain = functools.partial(_layer_forward, cfg)
-    ckpt = _checkpointed(True if g else remat, plain) if remat else plain
+    ckpt = _checkpointed(True if g else remat, plain) if remat else None
+    sh = current_shard()
+    keep = sh.keep_shards if sh is not None else contextlib.nullcontext
     x = inputs_embeds
     for l in range(cfg.n_layers):
         layer = layer_at(params["layers"], l)
         lo = layer_at(lora, l) if lora is not None else None
-        fn = plain if (g and l % g == g - 1) else ckpt
-        x = fn(layer, lo, lora_scaling, x, positions, inv_freq, lengths, cache, l,
-               cache_positions, lora_ids)
+        args = (layer, lo, lora_scaling, x, positions, inv_freq, lengths, cache, l,
+                cache_positions, lora_ids)
+        if ckpt is not None and not (g and l % g == g - 1):
+            x = ckpt(*args)
+        else:  # the backward keeps the FSDP shards of the layer's weights only
+            with keep():
+                x = plain(*args)
     return rms_norm(x, params["final_norm"], cfg.rms_eps), cache
 
 
@@ -505,8 +616,9 @@ class DecodeAttention(enum.Enum):
     """The decode step's attention, the JAX package's tri-state
     ``use_flash_decode`` as an enum: ``XLA`` is ``_xla_decode_attn`` (JAX's
     ``"xla"``, the default), ``FLASH`` the K7 flash-decode kernel (JAX's
-    ``True``), ``GENERIC`` the scanned-cache path JAX needs under GSPMD
-    (``False``), which waits for the port's parallelism."""
+    ``True``), ``GENERIC`` JAX's scanned-layer path (``False``): each layer
+    writes its row into the cache first, then attends the cache with the
+    plain masked math."""
 
     XLA = "xla"
     FLASH = "flash"
@@ -543,13 +655,13 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
     one, which quantizes the rows and writes their scales in the same launch
     (the JAX package quantizes in its scan and writes the scales with a
     per-sample DUS). ``lora_ids`` (B,): ``lora`` is a bank, as in
-    ``decoder_forward``."""
-    if attention is DecodeAttention.GENERIC:
-        raise NotImplementedError(
-            "use_flash_decode=False (the GSPMD scanned-cache decode) is not ported")
+    ``decoder_forward``. ``GENERIC`` appends each layer's rows before its
+    attention instead (``_generic_decode_attn``)."""
+    cfg = _local_cfg(cfg)
     B = x.shape[0]
     L, hd = cfg.n_layers, cfg.hd
     quant = "k_s" in cache
+    generic = attention is DecodeAttention.GENERIC
     flash = attention is DecodeAttention.FLASH and flash_decode_usable(
         (B, cfg.n_heads, 1, hd), (B, cfg.n_kv_heads) + tuple(cache["k"].shape[-2:])) and (
         not quant or q8_cache_layout_ok(cache["k"], cache["v"], cache["k_s"], cache["v_s"]))
@@ -562,10 +674,12 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
     new_v = torch.empty_like(new_k)
     scales = (cache["k_s"], cache["v_s"]) if quant else ()
     for l in range(L):
-        layer = layer_at(params["layers"], l)
-        lo = layer_at(lora, l) if lora is not None else None
+        layer, lo = _gathered(layer_at(params["layers"], l),
+                              layer_at(lora, l) if lora is not None else None)
         q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lora_ids)
-        if flash and quant:
+        if generic:
+            out = _generic_decode_attn(cfg, q, k, v, cache, l, cache_positions)
+        elif flash and quant:
             out = flash_decode_attention_q8(q, cache["k"], cache["v"], *scales, cache_positions,
                                             self_kv=(k, v), layer=l)
         elif flash:
@@ -579,6 +693,8 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
         x = _attn_out_mlp(cfg, layer, lo, lora_scaling, x,
                           out.transpose(1, 2).reshape(B, 1, cfg.n_heads * hd), lora_ids)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    if generic:  # every layer appended its own rows
+        return x, cache
     if quant:
         append_kv_q8(cache["k"], cache["v"], *scales, new_k, new_v, cache_positions)
     else:
@@ -586,18 +702,97 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
     return x, cache
 
 
+def _generic_decode_attn(cfg: DecoderConfig, q, k, v, cache, l: int, positions):
+    """JAX's scanned-layer decode attention for layer l: the new rows k/v
+    (B, Hkv, 1, hd) written into the cache at ``positions`` first (K4 on the
+    layer's slice, or K4 q8, which quantizes them with their scales), then
+    q attends the (dequantized) cache up to and including its own position
+    under ``make_decode_mask`` with the plain masked attention."""
+    one = slice(l, l + 1)
+    if "k_s" in cache:
+        append_kv_q8(cache["k"][one], cache["v"][one], cache["k_s"][one], cache["v_s"][one],
+                     k[None].contiguous(), v[None].contiguous(), positions)
+        ck = cache["k"][l].to(q.dtype) * cache["k_s"][l][..., None].to(q.dtype)
+        cv = cache["v"][l].to(q.dtype) * cache["v_s"][l][..., None].to(q.dtype)
+    else:
+        dt = cache["k"].dtype
+        append_kv(cache["k"][one], cache["v"][one], k.to(dt)[None].contiguous(),
+                  v.to(dt)[None].contiguous(), positions)
+        ck, cv = cache["k"][l].to(q.dtype), cache["v"][l].to(q.dtype)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    mask = make_decode_mask(positions + 1, ck.shape[2])
+    return dot_product_attention(q, repeat_kv(ck, n_rep), repeat_kv(cv, n_rep), mask)
+
+
 def embed_tokens(params: Dict[str, Any], token_ids: torch.Tensor,
                  dtype=torch.float32) -> torch.Tensor:
     """Token ids → embeddings. Ids past the table clamp to its last row, as
     the JAX package's gather does (the in-repo tokenizer's vocabulary is
-    larger than Vicuna's 32000)."""
+    larger than Vicuna's 32000). Under tensor parallelism the table is the
+    rank's block of rows: ids clamp to the whole table's last row first,
+    each rank looks up the ids it holds (zeros elsewhere) and the blocks
+    are summed over tp."""
     table = params["tok_embed"]
-    return table[token_ids.clamp(max=table.shape[0] - 1)].to(dtype)
+    sh = current_shard()
+    if sh is None or sh.tp == 1:
+        return table[token_ids.clamp(max=table.shape[0] - 1)].to(dtype)
+    n = table.shape[0]
+    local = token_ids.long().clamp(max=n * sh.tp - 1) - sh.tp_rank * n
+    held = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(dtype) * held[..., None].to(dtype)
+    return sh.reduce_from_tp(rows)
 
 
-def lm_logits(cfg: DecoderConfig, params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor:
+def lm_logits(cfg: DecoderConfig, params: Dict[str, Any], hidden: torch.Tensor,
+              gather: bool = True) -> torch.Tensor:
+    """hidden (…, dim) → logits (…, V). Under tensor parallelism each rank
+    computes its vocabulary block (the tied ``tok_embed.T`` or
+    ``lm_head``'s columns), gathered whole unless ``gather`` is False (the
+    vocab-parallel loss); a quantized lm_head is whole on every rank."""
     w = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return dequant_matmul(hidden, w)
+    sh = current_shard()
+    if sh is None or sh.tp == 1:
+        return dequant_matmul(hidden, w)
+    if isinstance(w, dict):
+        logits = dequant_matmul(hidden, w)
+        return logits if gather else logits[..., sh.cols(logits.shape[-1])]
+    local = dequant_matmul(sh.copy_to_tp(hidden), w)
+    return sh.gather_tp(local, -1) if gather else local
+
+
+def decoder_loss(cfg: DecoderConfig, params: Dict[str, Any], hidden: torch.Tensor,
+                 labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
+    """The LM head and ``cross_entropy_loss``; under tensor parallelism over
+    vocab-sharded logits (``vocab_parallel_cross_entropy``)."""
+    sh = current_shard()
+    if sh is None or sh.tp == 1:
+        return cross_entropy_loss(lm_logits(cfg, params, hidden), labels, ignore_index)
+    return vocab_parallel_cross_entropy(lm_logits(cfg, params, hidden, gather=False), labels,
+                                        sh, ignore_index)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, sh,
+                                 ignore_index: int = -100) -> torch.Tensor:
+    """``cross_entropy_loss`` over this tp rank's vocabulary block of the
+    logits (…, V/tp): the max over tp, the softmax denominator and the
+    label's logit summed over tp, all in f32. The rank holding no label
+    contributes 0; a label past the whole vocabulary still gives a NaN loss
+    (the train step then skips the batch everywhere), and the denominator
+    is max(count, 1), as ``cross_entropy_loss``."""
+    mask = labels != ignore_index
+    n = logits.shape[-1]
+    V = n * sh.tp
+    lf = logits.float()
+    m = sh.max_over_tp(lf.detach().amax(dim=-1))
+    sumexp = sh.reduce_from_tp(torch.exp(lf - m[..., None]).sum(dim=-1))
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long().clamp(0, V - 1)
+    local = safe - sh.tp_rank * n
+    held = (local >= 0) & (local < n)
+    picked = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    target = sh.reduce_from_tp(torch.where(held, picked, torch.zeros_like(picked)))
+    nll = torch.log(sumexp) + m - target
+    nll = torch.where(mask & (labels >= V), torch.full_like(nll, float("nan")), nll)
+    return (nll * mask).sum() / mask.sum().clamp(min=1)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

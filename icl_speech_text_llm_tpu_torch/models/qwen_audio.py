@@ -24,12 +24,12 @@ from .llama import (
     DECODER_CONFIGS,
     DecoderConfig,
     LoraConfig,
-    cross_entropy_loss,
     decoder_forward,
+    decoder_loss,
     init_decoder,
     init_lora,
-    lm_logits,
 )
+from ..parallel.sharding import shard_context
 from .salmonn import assemble_sequence
 from .whisper import WHISPER_CONFIGS, WhisperEncoderConfig, init_whisper_encoder, whisper_encode
 
@@ -115,11 +115,14 @@ def encode_audio(cfg: QwenAudioConfig, params: Dict[str, Any], mels: torch.Tenso
     then the projector. ``sample_lengths`` (N,) valid raw samples a clip:
     the tower's keys past ``audio_feat_lengths(n)`` are masked, and only
     positions below ``audio_output_length(n)`` carry meaning (the packed
-    gather splices that many)."""
+    gather splices that many). The tower (``encoder/…``) matches no
+    sharding rule: under a mesh it stays whole and runs unsharded, as in
+    JAX."""
     dt = cfg.compute_dtype
     frames = None if sample_lengths is None else audio_feat_lengths(sample_lengths.long())
-    feats = whisper_encode(cfg.encoder, params["encoder"], mels, dtype=dt, apply_ln_post=False,
-                           frame_lengths=frames)
+    with shard_context(None):
+        feats = whisper_encode(cfg.encoder, params["encoder"], mels, dtype=dt,
+                               apply_ln_post=False, frame_lengths=frames)
     N, T, D = feats.shape
     s = cfg.pool_stride
     pooled = feats[:, :(T // s) * s].reshape(N, T // s, s, D).mean(dim=2)
@@ -163,7 +166,7 @@ def qwen_audio_train_loss(cfg: QwenAudioConfig, params: Dict[str, Any],
     scaling = cfg.lora.scaling if cfg.lora is not None else 1.0
     hidden, _ = decoder_forward(cfg.llm, params["llm"], seq, lengths, lora=params.get("lora"),
                                 lora_scaling=scaling, remat=remat)
-    return cross_entropy_loss(lm_logits(cfg.llm, params["llm"], hidden), batch["shifted_labels"])
+    return decoder_loss(cfg.llm, params["llm"], hidden, batch["shifted_labels"])
 
 
 def qwen_audio_generate(cfg: QwenAudioConfig, gen, params: Dict[str, Any],

@@ -22,12 +22,11 @@ from .llama import (
     DECODER_CONFIGS,
     DecoderConfig,
     LoraConfig,
-    cross_entropy_loss,
     decoder_forward,
+    decoder_loss,
     embed_tokens,
     init_decoder,
     init_lora,
-    lm_logits,
 )
 from .qformer import QFORMER_CONFIGS, QFormerConfig, init_qformer, qformer_windows
 from .whisper import WHISPER_CONFIGS, WhisperEncoderConfig, init_whisper_encoder, whisper_encode
@@ -206,8 +205,11 @@ def salmonn_train_loss(cfg: SalmonnConfig, params: Dict[str, Any], batch: Dict[s
     (their activations would cost tens of GB at 24 clips × 1500 frames and
     nothing trains there); the Q-Former, the assembly, the decoder (LoRA
     inside, ``remat`` as ``decoder_forward``), the logits and the CE run with
-    grad. ``pipeline`` and ``sp`` (the JAX package's multi-chip decoders)
-    are not ported."""
+    grad. Under a mesh (``parallel/sharding.py``) the batch is the rank's
+    rows, the encoders and the decoder run on their shards and the
+    Q-Former replicated, and the loss is the vocab-parallel one. ``pipeline``
+    and ``sp`` (the JAX package's pipeline and sequence-parallel decoders)
+    are the next slice of the port."""
     if pipeline is not None or sp is not None:
         raise NotImplementedError("pipeline / sequence-parallel decoders are not ported yet "
                                   "(ROADMAP, parallel slice)")
@@ -225,4 +227,4 @@ def salmonn_train_loss(cfg: SalmonnConfig, params: Dict[str, Any], batch: Dict[s
     scaling = cfg.lora.scaling if cfg.lora is not None else 1.0
     hidden, _ = decoder_forward(cfg.llm, params["llm"], seq, lengths, lora=params.get("lora"),
                                 lora_scaling=scaling, remat=remat)
-    return cross_entropy_loss(lm_logits(cfg.llm, params["llm"], hidden), batch["shifted_labels"])
+    return decoder_loss(cfg.llm, params["llm"], hidden, batch["shifted_labels"])

@@ -8,6 +8,13 @@ frames: the kernel masks the ragged last tile itself, so the 1500→1536
 padding of the Pallas path is gone. Qwen2-Audio's tower passes each clip's
 valid frame count (K2's key lengths) and takes the states before the final
 LN.
+
+Under a mesh (``parallel/sharding.py``) the blocks' wq/wk/wv/w1 are
+column-parallel and wo/w2 row-parallel over tp, FSDP-sharded leaves are
+gathered at each block's start, and K2 runs on the rank's heads; the
+biases match no rule and are whole: bq/bv/b1 are sliced to the rank's
+columns, and the row-parallel products' bo/b2 are added once, by tp rank
+0 before the sum over tp.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
+from ..parallel.sharding import ONE, current_shard
 from .common import (
     dense_init,
     full_f32,
@@ -90,20 +98,27 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int) -> to
 
 def _block_forward(cfg: WhisperEncoderConfig, blk, x: torch.Tensor,
                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One pre-LN block; under a mesh on this tp rank's heads and MLP
+    columns (with one process every slice is whole and every sum the
+    identity)."""
+    sh = current_shard() or ONE
+    blk = sh.gather_fsdp(blk, "whisper/blocks")
     B, T, d = x.shape
-    hd = d // cfg.n_heads
+    H, hd = sh.local_heads(cfg.n_heads, "Whisper heads"), d // cfg.n_heads
+    cols = sh.cols(d)
     a = blk["attn"]
     h = layer_norm(x, blk["ln1"]["w"], blk["ln1"]["b"])
-    q = linear(h, a["wq"], a["bq"]).view(B, T, cfg.n_heads, hd).transpose(1, 2)
-    k = linear(h, a["wk"]).view(B, T, cfg.n_heads, hd).transpose(1, 2)
-    v = linear(h, a["wv"], a["bv"]).view(B, T, cfg.n_heads, hd).transpose(1, 2)
+    q = linear(h, a["wq"], a["bq"][cols]).view(B, T, H, hd).transpose(1, 2)
+    k = linear(h, a["wk"]).view(B, T, H, hd).transpose(1, 2)
+    v = linear(h, a["wv"], a["bv"][cols]).view(B, T, H, hd).transpose(1, 2)
     # keys past lengths[b] masked; rows past it are garbage the caller drops
     out = flash_attention(q, k, v, lengths, causal=False)
-    out = out.transpose(1, 2).reshape(B, T, d)
-    x = x + linear(out, a["wo"], a["bo"])
+    out = out.transpose(1, 2).reshape(B, T, H * hd)
+    x = x + sh.reduce_from_tp(linear(out, a["wo"], sh.row_bias(a["bo"])))
     h = layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"])
     m = blk["mlp"]
-    return x + linear(gelu(linear(h, m["w1"], m["b1"])), m["w2"], m["b2"])
+    up = gelu(linear(h, m["w1"], m["b1"][sh.cols(m["b1"].shape[-1])]))
+    return x + sh.reduce_from_tp(linear(up, m["w2"], sh.row_bias(m["b2"])))
 
 
 def whisper_encode(cfg: WhisperEncoderConfig, params: Dict[str, Any], mel: torch.Tensor,

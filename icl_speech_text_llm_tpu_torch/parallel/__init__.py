@@ -1,16 +1,31 @@
 """Parallelism layer of the port (the JAX package's ``parallel/``):
 
-- mesh.py      — the (dp, pp, fsdp, tp) DeviceMesh; data parallelism only
-- multihost.py — process-group init, rank gating, cross-process gathers
+- mesh.py        — the (dp, pp, fsdp, tp) DeviceMesh, each axis's group
+- multihost.py   — process-group init, rank gating, cross-process gathers
+- sharding.py    — the rule table, ``shard_params`` / ``gather_params`` /
+                   ``batch_rows``, and the shard context the layers read
+- collectives.py — the autograd-aware collectives of FSDP and tensor
+                   parallelism, counted per family
 
 Data parallelism runs in ``training/step.py`` (the gradient all-reduce over
 the mesh's ``dp`` group) and ``training/loop.py`` (each rank's rows of the
-global batch, sharded validation). The JAX package's sharding rules,
-pipeline, ring attention and sequence parallelism are not ported yet
-(ROADMAP.md queue 1 item 3).
+global batch, sharded validation); FSDP and tensor parallelism in the
+model code under ``sharding.shard_context``. The JAX package's pipeline,
+ring attention and sequence parallelism are the next slice (ROADMAP.md
+queue 1 item 3).
 """
 
-from .mesh import AXES, DP_AXIS, FSDP_AXIS, PP_AXIS, TP_AXIS, make_mesh, parse_mesh
+from .mesh import (
+    AXES,
+    DP_AXIS,
+    FSDP_AXIS,
+    PP_AXIS,
+    TP_AXIS,
+    auto_mesh,
+    make_mesh,
+    parse_mesh,
+    single_device_mesh,
+)
 from .multihost import (
     broadcast_from_main,
     gather_predictions,
@@ -23,7 +38,8 @@ from .multihost import (
 )
 
 __all__ = [
-    "AXES", "DP_AXIS", "FSDP_AXIS", "PP_AXIS", "TP_AXIS", "make_mesh", "parse_mesh",
+    "AXES", "DP_AXIS", "FSDP_AXIS", "PP_AXIS", "TP_AXIS", "auto_mesh", "make_mesh",
+    "parse_mesh", "single_device_mesh",
     "broadcast_from_main", "gather_predictions", "initialize_distributed",
     "is_main_process", "process_count", "shard_indices", "shutdown_distributed",
     "sync_hosts",

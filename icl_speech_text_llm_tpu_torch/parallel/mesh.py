@@ -6,11 +6,13 @@ package's ``(dp, pp, fsdp, tp)`` mesh, here a
 process per card, or per CPU process under gloo), with JAX's axis names.
 Data parallelism is the ``dp`` axis: each rank steps its rows of the global
 batch and the gradients are summed over the axis's group
-(``training/step.py``).
+(``training/step.py``); ``fsdp`` shards the big matrices' other dim and
+the batch too, ``tp`` the heads, columns and vocabulary
+(``parallel/sharding.py``). Each axis has its sub-group and this rank's
+coordinate on it (``axis_group``, ``axis_rank``, ``axis_size``).
 
-Only ``fsdp = tp = pp = 1`` is ported: the sharding rules (FSDP, tensor
-parallelism) and the pipeline raise ``NotImplementedError`` (ROADMAP.md
-queue 1 item 3).
+The pipeline (pp > 1) raises ``NotImplementedError``: it is the next slice
+of the port (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -45,11 +47,10 @@ def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, pp: int = 1,
     mesh of one starts a group of one (its store in this process), so the
     data-parallel step runs its reductions even alone.
     """
-    if fsdp != 1 or tp != 1 or pp != 1:
+    if pp != 1:
         raise NotImplementedError(
-            f"mesh dp{dp}xpp{pp}xfsdp{fsdp}xtp{tp}: only data parallelism (fsdp = tp = pp "
-            "= 1) is ported; FSDP, tensor and pipeline parallelism are ROADMAP.md queue 1 "
-            "item 3")
+            f"mesh dp{dp}xpp{pp}xfsdp{fsdp}xtp{tp}: pipeline parallelism (pp > 1) is not "
+            "ported yet; it is the next slice of the port (ROADMAP.md queue 1 item 3)")
     want = dp * fsdp * tp * pp
     if not dist.is_initialized() and want == 1:
         initialize_distributed(num_processes=1, process_id=0, device=device)
@@ -59,3 +60,30 @@ def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, pp: int = 1,
             f"mesh dp{dp}xpp{pp}xfsdp{fsdp}xtp{tp} = {want} != {world} processes")
     return init_device_mesh(torch.device(device).type, (dp, pp, fsdp, tp),
                             mesh_dim_names=AXES)
+
+
+def single_device_mesh(device="cuda") -> DeviceMesh:
+    """A mesh of one (a group of one when none is running)."""
+    return make_mesh(1, 1, 1, device=device)
+
+
+def auto_mesh(n_devices=None, prefer_tp: int = 1, device="cuda") -> DeviceMesh:
+    """Every process on dp unless a tp degree that divides them is asked."""
+    n = n_devices or (dist.get_world_size() if dist.is_initialized() else 1)
+    tp = prefer_tp if n % prefer_tp == 0 else 1
+    return make_mesh(dp=n // tp, fsdp=1, tp=tp, device=device)
+
+
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    return mesh.size(AXES.index(axis))
+
+
+def axis_rank(mesh: DeviceMesh, axis: str) -> int:
+    """This process's coordinate on ``axis``."""
+    return mesh.get_local_rank(axis)
+
+
+def axis_group(mesh: DeviceMesh, axis: str):
+    """The process group of the ranks that differ from this one only on
+    ``axis``."""
+    return mesh.get_group(axis)

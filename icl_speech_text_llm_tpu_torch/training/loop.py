@@ -11,10 +11,15 @@ examples/s and each step's kernel launches.
 
 With a ``mesh`` (data parallelism over its ``dp`` group) every rank draws
 the same per-epoch permutation and collates only its contiguous
-``batch_size / dp`` rows of each global batch, so ``batch_size`` stays the
-global batch; validation shards the samples (``shard_indices`` without
-shuffle), gathers the predictions on every rank and drops the duplicates
-the wrap-around padding made; only rank 0 logs steps and writes checkpoints.
+``batch_size / (dp · fsdp)`` rows of each global batch (the ranks of one
+tp group collate the same rows), so ``batch_size`` stays the global batch;
+validation shards the samples the same way (``shard_indices`` without
+shuffle), generates under the mesh's shard context, gathers the
+predictions on every rank and drops the duplicates the wrap-around padding
+and the tp ranks made; only rank 0 logs steps and writes checkpoints. A
+sharded mesh's checkpoint holds the gathered leaves (every rank takes part
+in the gather, rank 0 writes), in the one-process format, and a resume
+cuts the loaded leaves to the rank's blocks.
 """
 
 from __future__ import annotations
@@ -28,15 +33,20 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from .. import kernels
 from ..data.collate import collate_icl_batch
 from ..data.packing import PackConfig
 from ..data.pipeline import PrefetchIterator
 from ..evaluation import evaluate_predictions
-from ..parallel.mesh import DP_AXIS
-from ..parallel.multihost import gather_predictions, shard_indices
+from ..parallel.multihost import gather_predictions, process_index, shard_indices
+from ..parallel.sharding import (
+    batch_shard,
+    context_of,
+    gather_params,
+    is_sharded,
+    shard_params,
+)
 from ..registry import DatasetType
 from .checkpoint import copy_into, load_checkpoint, save_checkpoint
 from .step import TrainState, merge_params
@@ -177,16 +187,29 @@ class TrainResult:
     perf: Dict[str, Any] = field(default_factory=dict)
 
 
-def _resume(state: TrainState, path: str) -> int:
+def _blocks(tree, mesh):
+    """A loaded numpy tree cut to this rank's blocks under a sharded mesh."""
+    if not is_sharded(mesh):
+        return tree
+    return shard_params(_tensors(tree), mesh)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.as_tensor(np.asarray(tree))
+
+
+def _resume(state: TrainState, path: str, mesh=None) -> int:
     ck = load_checkpoint(path)
-    copy_into(state.trainable, ck["trainable"])
+    copy_into(state.trainable, _blocks(ck["trainable"], mesh))
     state.step = int(ck.get("step", 0))
     saved = ck.get("opt_state")
     if saved is not None:
         try:
             for key in ("mu", "nu", "acc"):
                 if key in state.opt_state:
-                    copy_into(state.opt_state[key], saved[key])
+                    copy_into(state.opt_state[key], _blocks(saved[key], mesh))
             state.opt_state["count"] = int(saved["count"])
             state.opt_state["mini_step"] = int(saved["mini_step"])
         except (KeyError, RuntimeError) as e:
@@ -204,14 +227,14 @@ def train(model, state: TrainState, frozen: Dict[str, Any], step_fn: Callable,
     rank's share of it (module docstring; ``step_fn`` built on the same
     mesh)."""
     device = model.engine.device
-    rank, world = 0, 1
-    if mesh is not None:
-        group = mesh.get_group(DP_AXIS)
-        rank, world = dist.get_rank(group), dist.get_world_size(group)
-    main = rank == 0
+    rank, world = batch_shard(mesh)
+    main = process_index() == 0
+    sharded = is_sharded(mesh)
+    if sharded:
+        model.engine.shard = context_of(mesh)
     timer = StepTimer(device)
     result = TrainResult(state, model)
-    start_epoch = _resume(state, settings.resume_from) if settings.resume_from else 0
+    start_epoch = _resume(state, settings.resume_from, mesh) if settings.resume_from else 0
     last_loss = float("nan")
     for epoch in range(start_epoch, settings.num_epochs):
         # the same permutation on every rank: each steps its rows of a batch
@@ -256,11 +279,18 @@ def train(model, state: TrainState, frozen: Dict[str, Any], step_fn: Callable,
                 logger.info(f"epoch {epoch} validation: " + ", ".join(
                     f"{k}={_headline(v):.4f}" for k, v in val_metrics.items()))
 
-        if settings.save_every and (epoch + 1) % settings.save_every == 0 and main:
-            path = os.path.join(settings.output_dir, f"epoch_{epoch}_loss_{last_loss:.4f}")
-            result.checkpoints.append(save_checkpoint(
-                path, state.trainable, opt_state=state.opt_state, step=state.step,
-                epoch=epoch + 1, loss=last_loss, metadata=metadata))
+        if settings.save_every and (epoch + 1) % settings.save_every == 0:
+            trainable, opt_state = state.trainable, state.opt_state
+            if sharded:  # every rank gathers; rank 0 writes
+                trainable = gather_params(trainable, mesh)
+                opt_state = {k: gather_params(v, mesh) if isinstance(v, dict) else v
+                             for k, v in opt_state.items()}
+            if main:
+                path = os.path.join(settings.output_dir,
+                                    f"epoch_{epoch}_loss_{last_loss:.4f}")
+                result.checkpoints.append(save_checkpoint(
+                    path, trainable, opt_state=opt_state, step=state.step, epoch=epoch + 1,
+                    loss=last_loss, metadata=metadata))
     result.state = state
     result.perf = timer.summary()
     if result.skipped_batches:

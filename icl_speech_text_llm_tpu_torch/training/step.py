@@ -26,6 +26,22 @@ carries the loss and a non-finite flag): every rank then takes the same
 skip decision and the same update, and reports the global loss and the
 norm of the summed gradients.
 
+FSDP and tensor parallelism (a mesh with fsdp or tp > 1,
+``parallel/sharding.py``): the batch is the rank's rows over (dp, fsdp),
+the trainable leaves are the rank's blocks by the rule table, and the
+loss runs under the mesh's shard context. The label count and the
+gradients are summed over the batch axes (fsdp, then dp; the dp-only
+sums above are this with fsdp = 1): an FSDP-sharded leaf's gradient
+arrives reduce-scattered over fsdp (its gather's backward) and is summed
+over dp in a buffer of its own, every other leaf's over fsdp and dp. A tp-replicated trainable leaf (a LoRA factor whole on every tp
+rank) gets its sum over tp from its copy into the tp region in the layer
+code, and the Q-Former's gradient is already whole there (the decoder
+input's gradient is complete on every tp rank), so each comes out equal on
+the tp ranks. ``grad_norm`` counts every element once: a leaf's squares
+are summed over the axes it is cut over, a replicated leaf's taken once.
+Clipping uses that norm, AdamW steps the local blocks, and the non-finite
+flag is summed over the whole world.
+
 PyTorch idiom: the trainable leaves are f32 tensors that require grad, the
 step updates them and the optimizer state in place (no second copy of the
 weights) and returns the same ``TrainState``.
@@ -42,7 +58,9 @@ import torch.distributed as dist
 
 from ..data.packing import IGNORE_INDEX
 from ..models.salmonn import TRAINABLE_KEYS, SalmonnConfig, salmonn_train_loss
-from ..parallel.mesh import DP_AXIS
+from ..parallel.mesh import DP_AXIS, FSDP_AXIS, TP_AXIS
+from ..parallel.sharding import context_of, is_sharded, leaf_axes, shard_context, tree_paths
+from ..parallel import collectives
 
 #: Subtrees that train by default (everything else is frozen), as in the JAX
 #: package: Whisper/BEATs/LLM frozen, Q-Former and LoRA train.
@@ -116,7 +134,19 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
                params: List[torch.Tensor]) -> None:
-        s, k = self.s, self.s.grad_accum_steps
+        """One micro-step: ``accumulate``, then ``apply`` on the gradients
+        it gives, clipped by their global norm."""
+        grads = self.accumulate(grads, state)
+        if grads is not None:
+            self.apply(grads, state, params, global_norm(grads))
+
+    @torch.no_grad()
+    def accumulate(self, grads: List[torch.Tensor], state: Dict[str, Any]
+                   ) -> Optional[List[torch.Tensor]]:
+        """The gradients to apply after this micro-step (f32): ``grads``
+        without accumulation, the running mean every k-th micro-step, else
+        None."""
+        k = self.s.grad_accum_steps
         if k > 1:
             acc = tree_leaves(state["acc"])
             n = state["mini_step"]
@@ -124,10 +154,15 @@ class AdamW:
                 a.add_((g.float() - a) / (n + 1))
             if n < k - 1:
                 state["mini_step"] = n + 1
-                return
+                return None
             grads = acc
-        grads = [g.float() for g in grads]
-        norm = global_norm(grads)
+        return [g.float() for g in grads]
+
+    @torch.no_grad()
+    def apply(self, grads: List[torch.Tensor], state: Dict[str, Any],
+              params: List[torch.Tensor], norm: torch.Tensor) -> None:
+        """Clip ``grads`` by their global ``norm``, then one AdamW update."""
+        s, k = self.s, self.s.grad_accum_steps
         if not bool(norm < s.max_grad_norm):
             grads = [(g / norm) * s.max_grad_norm for g in grads]
         lr = (self.s.learning_rate if self.s.schedule is None
@@ -180,31 +215,71 @@ def _loss_and_grads(cfg, loss_fn, remat, state: TrainState, frozen: Dict[str, An
 
 
 def make_train_probe(cfg: SalmonnConfig, loss_fn: Callable = salmonn_train_loss,
-                     remat=False) -> Callable:
+                     remat=False, mesh=None) -> Callable:
     """The step's forward and backward without its optimizer update:
     (state, frozen, batch) → (loss, gradients), changing no state. What
-    ``--auto_batch`` runs at each candidate batch size."""
+    ``--auto_batch`` runs at each candidate batch size; under a sharded
+    ``mesh`` on the rank's blocks and rows (no gradient reduction)."""
+    ctx = context_of(mesh) if is_sharded(mesh) else None
 
     def probe(state: TrainState, frozen: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        return _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch)
+        with shard_context(ctx):
+            return _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch)
 
     return probe
 
 
-def _dp_loss_and_grads(cfg, loss_fn, remat, group, state, frozen, batch):
-    """This rank's share of the global token-mean loss and the gradients
-    summed over ``group``: (global loss, summed gradients, skip flag), the
-    same on every rank."""
+def _sum_over(t: torch.Tensor, ctx, *axes) -> torch.Tensor:
+    """``t`` summed over each axis in turn: dp always (a dp group of one
+    reduces too, as the data-parallel step always has), fsdp and tp where
+    their size is > 1."""
+    for axis in axes:
+        if ctx.sizes[axis] > 1 or axis == DP_AXIS:
+            t = collectives.all_reduce(t, ctx.groups[axis])
+    return t
+
+
+def sharded_norm_fn(trainable: Dict[str, Any], ctx) -> Callable:
+    """The global norm of a tree of local blocks cut by the rule table:
+    each leaf's squares summed over the axes it is cut over, a replicated
+    leaf's taken once (one all-reduce an axis combination)."""
+    axes = [leaf_axes(path, leaf) for path, leaf in tree_paths(trainable)]
+
+    def norm(grads):
+        groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for a, g in zip(axes, grads):
+            sq = torch.sum(g.float() * g.float())
+            groups[a] = groups[a] + sq if a in groups else sq
+        total = sum(_sum_over(sq, ctx, *a) for a, sq in groups.items())
+        return torch.sqrt(total)
+
+    return norm
+
+
+def _mesh_loss_and_grads(cfg, loss_fn, remat, ctx, state, frozen, batch):
+    """This rank's share of the global token-mean loss and its gradients
+    reduced over the batch axes: (global loss, reduced local gradients,
+    skip flag), the same on every rank (module docstring)."""
     count = (batch["shifted_labels"] != IGNORE_INDEX).sum().to(torch.float32)
-    total = count.clone()
-    dist.all_reduce(total, group=group)
-    loss, grads = _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch,
-                                  weight=count / total.clamp(min=1))
-    flat = torch.cat([g.reshape(-1) for g in grads]
+    total = _sum_over(count, ctx, FSDP_AXIS, DP_AXIS)
+    with shard_context(ctx if ctx.fsdp > 1 or ctx.tp > 1 else None):
+        loss, grads = _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch,
+                                      weight=count / total.clamp(min=1))
+    fsdp_cut = [ctx.fsdp > 1 and FSDP_AXIS in leaf_axes(path, leaf)
+                for path, leaf in tree_paths(state.trainable)]
+    whole = [g for g, cut in zip(grads, fsdp_cut) if not cut]
+    flat = torch.cat([g.reshape(-1) for g in whole]
                      + [loss.reshape(1), (~torch.isfinite(loss)).to(torch.float32).reshape(1)])
-    dist.all_reduce(flat, group=group)
-    grads = [v.view_as(g) for v, g in zip(flat[:-2].split([g.numel() for g in grads]), grads)]
-    return flat[-2], grads, bool(flat[-1] > 0)
+    flat = _sum_over(flat, ctx, FSDP_AXIS, DP_AXIS)
+    flag = _sum_over(flat[-1:], ctx, TP_AXIS)
+    cut = [g for g, c in zip(grads, fsdp_cut) if c]
+    if cut:
+        flat_cut = _sum_over(torch.cat([g.reshape(-1) for g in cut]), ctx, DP_AXIS)
+        cut = iter(v.view_as(g) for v, g in zip(flat_cut.split([g.numel() for g in cut]), cut))
+    whole = iter(v.view_as(g) for v, g in zip(flat[:-2].split([g.numel() for g in whole]),
+                                               whole))
+    grads = [next(cut) if c else next(whole) for c in fsdp_cut]
+    return flat[-2], grads, bool(flag[0] > 0)
 
 
 def make_train_step(cfg: SalmonnConfig, optimizer: AdamW,
@@ -213,21 +288,28 @@ def make_train_step(cfg: SalmonnConfig, optimizer: AdamW,
     ``loss``, ``grad_norm`` (of the micro-batch gradients, before clipping),
     ``skipped_nonfinite`` and ``step`` (the micro-step it ran as). With a
     ``mesh`` the batch is this rank's rows of the global batch, and the
-    loss, gradients and skip are the global batch's (module docstring)."""
-    group = mesh.get_group(DP_AXIS) if mesh is not None else None
+    loss, gradients and skip are the global batch's (module docstring); a
+    mesh with fsdp or tp > 1 takes ``state`` and ``frozen`` as the rank's
+    blocks (``shard_params``)."""
+    ctx = context_of(mesh)
 
     def step(state: TrainState, frozen: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        if group is None:
+        norm_fn = sharded_norm_fn(state.trainable, ctx) if is_sharded(mesh) else global_norm
+        if ctx is None:
             loss, grads = _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch)
             nonfinite = False
         else:
-            loss, grads, nonfinite = _dp_loss_and_grads(cfg, loss_fn, remat, group, state,
-                                                        frozen, batch)
+            loss, grads, nonfinite = _mesh_loss_and_grads(cfg, loss_fn, remat, ctx, state,
+                                                          frozen, batch)
         ok = not nonfinite and bool(torch.isfinite(loss))
-        metrics = {"loss": loss.item(), "grad_norm": global_norm(grads).item(),
+        norm = norm_fn(grads)
+        metrics = {"loss": loss.item(), "grad_norm": norm.item(),
                    "skipped_nonfinite": 0.0 if ok else 1.0, "step": state.step}
         if ok:
-            optimizer.update(grads, state.opt_state, tree_leaves(state.trainable))
+            applied = optimizer.accumulate(grads, state.opt_state)
+            if applied is not None:  # the micro-step's norm clips unless it was accumulated
+                optimizer.apply(applied, state.opt_state, tree_leaves(state.trainable),
+                                norm if optimizer.s.grad_accum_steps == 1 else norm_fn(applied))
         state.step += 1
         return state, metrics
 

@@ -14,7 +14,10 @@ utils/performance_utils.py:180-306, 452-584; utils/training_utils.py:103-137):
   other live tensor included, as the compiled program's arguments are);
   an out-of-memory error counts as "does not fit". A probe that runs must
   change no state: the CLIs probe generation (inference mode) and the
-  train step's forward and backward without its optimizer update.
+  train step's forward and backward without its optimizer update. Under a
+  process group of several ranks, each rank measures its own probe and
+  ``fits(bs)`` is agreed over every rank (an all-reduce of the flags, the
+  least wins), so every rank walks the same search and picks the same size.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
@@ -138,13 +142,23 @@ class BatchSizeOptimizer:
         need = self.measure(batch_size)
         if need is None:
             logger.info(f"batch {batch_size}: out of memory → OOM")
-            return False
+            return self._agreed(False)
         fits = need <= self.budget
         logger.info(
             f"batch {batch_size}: {need/2**30:.2f} GiB needed, "
             f"budget {self.budget/2**30:.2f} → {'fits' if fits else 'OOM'}"
         )
-        return fits
+        return self._agreed(fits)
+
+    def _agreed(self, fits: bool) -> bool:
+        """``fits`` on every rank of the process group (one all-reduce)."""
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return fits
+        from ..parallel import collectives
+        from ..parallel.multihost import _collective_device
+
+        flag = torch.tensor([int(fits)], dtype=torch.int32, device=_collective_device())
+        return bool(collectives.all_reduce(flag, None, op=dist.ReduceOp.MIN)[0])
 
     def find_optimal_batch_size(self, start: int = 1) -> int:
         """(ref: performance_utils.py:534-584)"""

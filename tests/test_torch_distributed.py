@@ -131,6 +131,9 @@ def test_mesh_spec_parses_as_jax():
     assert tmesh.parse_mesh("4,2,1") == (4, 2, 1, 1)
     assert tmesh.parse_mesh("2,1,1,2") == (2, 1, 1, 2)
     assert tmesh.AXES == ("dp", "pp", "fsdp", "tp")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    # FSDP and tensor parallelism are ported: a tp mesh needs its processes
+    with pytest.raises(ValueError, match="2 != 1 processes"):
         tmesh.make_mesh(dp=1, tp=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        tmesh.make_mesh(dp=1, pp=2, device="cpu")
     assert not torch.distributed.is_initialized()

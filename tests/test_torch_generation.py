@@ -233,9 +233,36 @@ def test_decode_flag_is_an_enum():
     assert tengine.GenerationConfig(use_flash_decode=False).use_flash_decode is D.GENERIC
     with pytest.raises(ValueError):
         tengine.GenerationConfig(use_flash_decode="pallas")
-    with pytest.raises(NotImplementedError):
-        tllama.decode_step(None, None, torch.zeros(1, 1, 4), {}, torch.zeros(1),
-                           attention=D.GENERIC)
+    # GENERIC decodes: one step's hidden state as the XLA route's, and the
+    # same rows appended (written per layer before the attention there)
+    cfg = tllama.DECODER_CONFIGS["tiny"]
+    params = tllama.init_decoder(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 1, cfg.dim).astype(np.float32))
+    pos = torch.tensor([5, 9], dtype=torch.int32)
+    start = tllama.init_kv_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    for leaf in start.values():
+        leaf.copy_(torch.from_numpy(rng.randn(*leaf.shape).astype(np.float32)))
+    out = {route: tllama.decode_step(cfg, params, x, {k: v.clone() for k, v in start.items()},
+                                     pos, attention=route)
+           for route in (D.XLA, D.GENERIC)}
+    (hx, cx), (hg, cg) = out[D.XLA], out[D.GENERIC]
+    np.testing.assert_allclose(hg.numpy(), hx.numpy(), rtol=1e-5, atol=1e-5)
+    for name in cx:
+        np.testing.assert_allclose(cg[name].numpy(), cx[name].numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["f32 cache", "int8 cache"])
+def test_generic_decode_tokens_identical_to_jax(jax_flash_prefill, decoder, kv_int8):
+    """``use_flash_decode=False`` in one process: JAX's scanned-layer decode
+    (each layer's row written first, the cache then attended under the
+    decode mask; under int8 the current token quantized) and the port's
+    GENERIC route give the same tokens."""
+    kw = dict(max_new_tokens=T, eos_token_id=-1, pad_token_id=0, use_flash_decode=False,
+              kv_int8=kv_int8)
+    want = _jax_tokens(jengine.decode_from_sequence, decoder, **kw)
+    got = _port_tokens(tengine.decode_from_sequence, decoder, **kw)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("flags", [

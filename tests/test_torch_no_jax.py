@@ -27,7 +27,8 @@ REQUIRED = ("training.step", "training.loop", "training.schedulers", "training.c
             "symbol_adapter.orchestrator", "cli.symbol_train", "cli.symbol_inference",
             "cli.interactive", "models.multi_task", "utils.perf", "utils.memory",
             "utils.logging_utils", "config", "config.static_configs",
-            "data.fewshot_retrieval", "parallel", "parallel.multihost", "parallel.mesh")
+            "data.fewshot_retrieval", "parallel", "parallel.multihost", "parallel.mesh",
+            "parallel.sharding", "parallel.collectives")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys

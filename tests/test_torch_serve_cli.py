@@ -108,8 +108,11 @@ def test_serve_cli_lora_bank_chunked_kv_int8(capsys, bridged, tmp_path, jax_para
 def test_serve_cli_refuses_what_is_not_ported():
     with pytest.raises(SystemExit):
         tserve.main(PLAIN + ["--compile_cache", "/nonexistent", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        tserve.main(PLAIN + ["--mesh", "1,1,1", "--device", "cpu"])
+    # --mesh is ported: a mesh of one serves (a group of one, gone after)
+    assert len(tserve.main(PLAIN + ["--mesh", "1,1,1", "--device", "cpu"])) > 0
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(SystemExit):
+        tserve.main(PLAIN + ["--mesh", "1,1", "--device", "cpu"])
     with pytest.raises(SystemExit):
         tserve.main(PREFIX + ["--num_beams", "2", "--device", "cpu"])
     with pytest.raises(SystemExit):

@@ -81,9 +81,9 @@ def tiny_world(packed):
     return jparams, tparams, batch
 
 
-def _generate_both(world, eos):
+def _generate_both(world, eos=2, **kw):
     jparams, tparams, batch = world
-    gen_kw = dict(max_new_tokens=10, eos_token_id=eos, pad_token_id=0)
+    gen_kw = dict(max_new_tokens=10, eos_token_id=eos, pad_token_id=0, **kw)
     want = np.asarray(jax.jit(functools.partial(
         jengine.salmonn_generate, salmonn_tiny(), jengine.GenerationConfig(**gen_kw)))(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()}))
@@ -114,14 +114,19 @@ def test_tokens_after_eos_are_pad_as_in_jax(tiny_world, default_tokens):
     assert stop <= 3 and np.all(got[0, stop + 1:] == 0)
 
 
-def test_generation_config_refuses_unported_options():
-    """Only JAX's GSPMD decode (``use_flash_decode=False``) stays unported;
-    the generation options and the flash-decode kernel are accepted."""
-    with pytest.raises(NotImplementedError):
-        tengine.GenerationConfig(use_flash_decode=False).check_supported()
+def test_generation_config_refuses_unported_options(tiny_world):
+    """Every generation option of the JAX package is ported: JAX's
+    scanned-layer decode (``use_flash_decode=False``) is accepted and
+    decodes, as do the other options; only a value JAX has no meaning for
+    is refused."""
+    with pytest.raises(ValueError):
+        tengine.GenerationConfig(use_flash_decode="pallas")
     for kw in ({"do_sample": True}, {"num_beams": 2}, {"repetition_penalty": 1.2},
-               {"min_new_tokens": 1}, {"kv_int8": True}, {"use_flash_decode": True}):
-        tengine.GenerationConfig(**kw).check_supported()
+               {"min_new_tokens": 1}, {"kv_int8": True}, {"use_flash_decode": True},
+               {"use_flash_decode": False}):
+        tengine.GenerationConfig(**kw)
+    got, want = _generate_both(tiny_world, use_flash_decode=False)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_cli_runs_the_slice_on_cpu(tmp_path):

@@ -371,13 +371,14 @@ def test_train_cli_runs_two_steps_on_cpu(tmp_path, capsys):
     assert resumed.state.step == 4 and resumed.state.opt_state["count"] == 4
     assert saved["opt_state"]["count"] == 2 and saved["meta"]["epoch"] == 1
     assert len(glob.glob(os.path.join(out, "epoch_1_loss_*"))) == 1
-    # sharded mesh axes, the pipeline, and --auto_batch under a mesh are not
-    # ported; a dp mesh larger than the process group is an error
-    for argv in (["--mesh", "1,2,1"], ["--mesh", "1,1,2"], ["--mesh", "1,1,1,2"],
-                 ["--mesh", "1", "--auto_batch"], ["--pp_microbatches", "2"]):
+    # only the pipeline stays unported; FSDP and tp meshes (and --auto_batch
+    # with them) need their processes: one process is the world-size error
+    for argv in (["--mesh", "1,1,1,2"], ["--pp_microbatches", "2"]):
         with pytest.raises(NotImplementedError):
             train.main(argv + ["--device", "cpu", "--output_dir", str(out)])
-    with pytest.raises(ValueError, match="2 != 1 processes"):
-        train.main(["--mesh", "2,1,1", "--device", "cpu", "--output_dir", str(out)])
+    for argv in (["--mesh", "2,1,1"], ["--mesh", "1,2,1"], ["--mesh", "1,1,2"],
+                 ["--mesh", "1,1,2", "--auto_batch"]):
+        with pytest.raises(ValueError, match="2 != 1 processes"):
+            train.main(argv + ["--device", "cpu", "--output_dir", str(out)])
     with pytest.raises(SystemExit):
         train.main(["--compile_cache", str(tmp_path), "--device", "cpu"])
