@@ -164,7 +164,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                generation under utils/perf.py:torch_profile, whose trace
                must name K1's kernel. No kernel's plain version is called
                in (b) and (c).
-  12. mesh    — FSDP and tensor parallelism, ranks as processes sharing
+  12. mesh    — FSDP, tensor, pipeline and sequence parallelism, ranks as
+               processes sharing
                the card over gloo (``_dp_worker`` with a mesh, every
                collective staged through pinned host memory): (a) tp = 2
                static generation at salmonn-7b bf16 on phase main's
@@ -180,7 +181,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                losses within 1e-3, the fsdp peak under phase train's; (e)
                four ranks at --mesh 1,2,2, 2 layers a stack: one step
                against one process's (``MESH_CARD_LIMITS``), collective
-               calls against ``mesh_step_counts``. No plain version runs.
+               calls against ``mesh_step_counts``; (f) pp = 2 at 7B
+               widths, 4 layers, batch 4 at 1024 in 2 microbatches, 2
+               steps: losses within 1e-3 of one process's, K1/K5/K6 on
+               each stage its layers × microbatches × steps, half the
+               layer bytes a stage; (g) sp = 2 at 7B widths, 2 layers,
+               2048 positions: the ring's hidden within 2e-2 of K1's
+               route, one step's loss within 1e-3 of one process's; (h)
+               (c) with a 2-adapter LoRA bank whole on each rank. Each
+               sub-phase prints its seconds. No plain version runs.
 The line before the last is a JSON object of the fourteen kernels and the
 Qwen-shape rows (launch counts from the run of each kernel's own path: the
 salmonn-13b int4 run for the int4 and int8 matmuls and K4 q8, the
@@ -3661,6 +3670,8 @@ def _check_dp_ranks(ranks, world, want_loss, want_norm, want_leaves, want_grads,
 # ------------------------------------------------------------------ phase mesh
 #: the tasks a mesh rank of ``_dp_worker`` runs, by name (``_mesh_worker``)
 MESH_TASKS = {}
+#: the microbatches of a mesh task's pipeline (the train CLI's default, JAX's)
+PP_MICRO = 2
 
 
 def _mesh_task(fn):
@@ -3700,23 +3711,30 @@ class _MeshRank:
                 for k, v in batch_rows(arrays, self.mesh).items()}
 
     def params(self, bits=None):
-        """(cfg, this rank's blocks) of ``_dp_model(model)``; with ``bits``
-        the LLM quantized first (its leaves then stay whole)."""
+        """(cfg, this rank's blocks and pipeline stage) of
+        ``_dp_model(model)``; with ``bits`` the LLM quantized first (its
+        leaves then stay whole)."""
         from icl_speech_text_llm_tpu_torch.ops.quant import quantize_decoder
-        from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_params
+        from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_params, stage_params
 
         if bits not in self._params:
             cfg, params = _dp_model(self.model, self.dir, self.device)
             if bits:
                 quantize_decoder(params["llm"], bits=bits)
-            self._params[bits] = (cfg, shard_params(params, self.mesh))
+            self._params[bits] = (cfg, stage_params(shard_params(params, self.mesh), self.mesh))
         return self._params[bits]
+
+    @property
+    def pipeline(self):
+        """The train loss's ``pipeline`` on this mesh (None where pp is 1)."""
+        return (self.mesh, PP_MICRO) if self.ctx.pp > 1 else None
 
 
 def _global_loss(r, cfg, params, batch, loss_fn=None):
     """The token-mean loss of the global batch from this rank's rows under
     the mesh (each (dp, fsdp) coordinate's mean weighted by its label
-    count), as ``training/step.py`` weighs them."""
+    count), as ``training/step.py`` weighs them; through the pipeline
+    where pp > 1."""
     import torch
 
     from icl_speech_text_llm_tpu_torch.data.packing import IGNORE_INDEX
@@ -3724,8 +3742,9 @@ def _global_loss(r, cfg, params, batch, loss_fn=None):
     from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_context
     from icl_speech_text_llm_tpu_torch.training.step import _sum_over
 
+    kw = {} if r.pipeline is None else {"pipeline": r.pipeline}
     with shard_context(r.ctx), torch.no_grad():
-        loss = (loss_fn or salmonn_train_loss)(cfg, params, batch).float()
+        loss = (loss_fn or salmonn_train_loss)(cfg, params, batch, **kw).float()
     count = (batch["shifted_labels"] != IGNORE_INDEX).sum().float()
     axes = ("fsdp", "dp")
     return (_sum_over(loss * count, r.ctx, *axes) / _sum_over(count, r.ctx, *axes)).item()
@@ -3739,11 +3758,14 @@ def _mt_loss(r):
 
 
 @_mesh_task
-def _mt_step(r):
+def _mt_step(r, sp=False):
     """One train step (``DP_OPT``) on ``batch.npz``: its metrics and
     collective counts, the gathered trainable leaves and first moments
     after it; then a step with a label past the vocabulary on the last
-    (dp, fsdp) coordinate's rows, which every rank must skip."""
+    (dp, fsdp) coordinate's rows, which every rank must skip. Where pp > 1
+    the decoder is the GPipe pipeline over ``PP_MICRO`` microbatches;
+    ``sp``: the decoder sequence-parallel over the mesh's tp axis, the
+    weights whole on every rank."""
     import torch
 
     from icl_speech_text_llm_tpu_torch.data.packing import IGNORE_INDEX
@@ -3756,19 +3778,22 @@ def _mt_step(r):
         make_train_step,
     )
 
-    cfg, params = r.params()
+    cfg, params = _dp_model(r.model, r.dir, r.device) if sp else r.params()
     batch = r.rows(r.npz("batch"))
     opt = AdamW(OptimizerSettings(**DP_OPT))
     state, frozen = init_train_state(params, opt)
-    step = make_train_step(cfg, opt, mesh=r.mesh)
+    if sp:
+        step = make_train_step(cfg, opt, sp=(r.mesh, "tp"))
+    else:
+        step = make_train_step(cfg, opt, mesh=r.mesh, pipeline=r.pipeline)
     collectives.reset_counts()
     t0 = time.perf_counter()
     state, m1 = step(state, frozen, batch)
     seconds = time.perf_counter() - t0
     counts = collectives.counts()
+    gather = (lambda t: t) if sp else (lambda t: gather_params(t, r.mesh))
     leaves = {k: t.detach().float().cpu().numpy() for k, t in _paths(
-        {"trainable": gather_params(state.trainable, r.mesh),
-         "mu": gather_params(state.opt_state["mu"], r.mesh)}).items()}
+        {"trainable": gather(state.trainable), "mu": gather(state.opt_state["mu"])}).items()}
     r.arrays.update(leaves)
     before = [t.detach().clone() for t in _paths(state.trainable).values()]
     labels = batch["shifted_labels"].clone()
@@ -3782,6 +3807,206 @@ def _mt_step(r):
             "nan_loss": m2["loss"], "nan_skipped": m2["skipped_nonfinite"],
             "kept_after_nan": kept, "counts": counts, "seconds": seconds,
             "label_count": int((batch["shifted_labels"] != IGNORE_INDEX).sum())}
+
+
+#: the optimizer of phase mesh (f) and (g): AdamW at the train CLI's
+#: learning rate without its warmup, so a second step's loss reads the first
+#: update
+MESH_STEP_OPT = dict(learning_rate=1e-5)
+
+
+def _layer_bytes(params):
+    """Bytes of the decoder's stacked layers and of the LoRA in ``params``."""
+    return sum(t.numel() * t.element_size() for p, t in _paths(params).items()
+               if p.startswith(("llm.layers.", "lora.")))
+
+
+def _train_steps(cfg, params, batch, n, **step_kw):
+    """``n`` steps of ``make_train_step(**step_kw)`` (``MESH_STEP_OPT``) from
+    a fresh state on ``batch``: each step's loss (none may be skipped), the
+    steps' peak GiB on the card above what was allocated before them (so a
+    rank and a process holding other phases' tensors compare), the layer
+    and LoRA bytes held, seconds."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.training.step import (
+        AdamW,
+        OptimizerSettings,
+        init_train_state,
+        make_train_step,
+    )
+
+    opt = AdamW(OptimizerSettings(**MESH_STEP_OPT))
+    state, frozen = init_train_state(params, opt)
+    step = make_train_step(cfg, opt, **step_kw)
+    held = _layer_bytes({**frozen, **state.trainable})
+    cuda = batch["text_tokens"].device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(n):
+        state, m = step(state, frozen, batch)
+        if m["skipped_nonfinite"]:
+            raise AssertionError(f"a step was skipped: {m}")
+        losses.append(m["loss"])
+    out = {"losses": losses, "seconds": time.perf_counter() - t0, "layer_bytes": held}
+    if cuda:
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+    return out
+
+
+@_mesh_task
+def _mt_train_steps(r):
+    """``_train_steps`` of ``_dp_model(model)`` on ``batch.npz`` under the
+    mesh (``steps.json``: the count ``n``; ``sp``: the decoder
+    sequence-parallel over tp, the weights whole on every rank, and the
+    hidden of ``decoder_forward(ring=)`` on the batch's sequence before the
+    steps, ``steps.ring_hidden``; else the GPipe pipeline where pp > 1)."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import decoder_forward
+    from icl_speech_text_llm_tpu_torch.models.salmonn import _train_sequence
+
+    spec = r.json("steps")
+    batch = r.rows(r.npz("batch"))
+    if not spec.get("sp"):
+        cfg, params = r.params()
+        return _train_steps(cfg, params, batch, spec["n"], mesh=r.mesh, pipeline=r.pipeline)
+    cfg, params = _dp_model(r.model, r.dir, r.device)
+    with torch.no_grad():
+        seq = _train_sequence(cfg, params, batch)
+        lengths = batch["seq_mask"].sum(dim=1).to(torch.int32)
+        hidden = decoder_forward(cfg.llm, params["llm"], seq, lengths, lora=params["lora"],
+                                 lora_scaling=cfg.lora.scaling, ring=(r.mesh, "tp"))[0]
+    r.arrays["steps.ring_hidden"] = hidden.float().cpu().numpy()
+    del seq, hidden
+    return _train_steps(cfg, params, batch, spec["n"], sp=(r.mesh, "tp"))
+
+
+@_mesh_task
+def _mt_sp_step(r):
+    """``_mt_step`` with the decoder sequence-parallel over tp."""
+    return _mt_step(r, sp=True)
+
+
+def _decoder_inputs(r, name):
+    """(config, params, lora) of a tiny decoder in ``{name}.npz``
+    (``params.*``, ``lora.*``; ``{name}.json``: the config's overrides of
+    ``tiny``), on the rank's device, and the npz's other arrays."""
+    from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
+    from icl_speech_text_llm_tpu_torch.models.llama import DECODER_CONFIGS
+
+    spec, arrays = r.json(name), r.npz(name)
+    cfg = dataclasses.replace(DECODER_CONFIGS["tiny"], **spec["cfg"])
+    params = params_from_numpy(_unpaths(_prefixed(arrays, "params.")), device=r.device)
+    lora = params_from_numpy(_unpaths(_prefixed(arrays, "lora.")), device=r.device)
+    return cfg, params, lora, spec, arrays
+
+
+def _guard(fn):
+    """The message of the ValueError ``fn`` raises, or None."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+@_mesh_task
+def _mt_pipeline(r):
+    """``pipeline_decoder_forward`` on a (dp, fsdp, tp, pp) mesh of its own
+    (``pipe.json``: its sizes, the decoder's overrides of ``tiny``, the LoRA
+    scaling; ``pipe.npz``: ``params.*``, ``lora.*`` whole, and x, lengths
+    and w of the global batch), on the rank's rows: the hidden without
+    LoRA, with it, with it under remat; the gradients of Σ hidden · w with
+    respect to the rows' input and every LoRA leaf, without and with remat
+    (the rank's own: the input's on stage 0, a leaf's on the stage that
+    holds its layers); the layer and batch guards' messages; the
+    point-to-point transfers of a forward, and of a forward and backward."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.parallel import collectives, make_mesh
+    from icl_speech_text_llm_tpu_torch.parallel.pipeline import pipeline_decoder_forward
+    from icl_speech_text_llm_tpu_torch.parallel.sharding import batch_rows, batch_shard, context_of
+
+    cfg, params, lora, spec, arrays = _decoder_inputs(r, "pipe")
+    dp, fsdp, tp, pp = spec["mesh"]
+    mesh = make_mesh(dp=dp, fsdp=fsdp, tp=tp, pp=pp, device=r.device)
+    rows = {k: torch.as_tensor(v, device=r.device) for k, v in batch_rows(
+        {k: arrays[k] for k in ("x", "lengths", "w")}, mesh).items()}
+    x, lengths, w = rows["x"], rows["lengths"], rows["w"]
+    scaling = spec["scaling"]
+
+    def forward(x, lo=None, remat=False):
+        return pipeline_decoder_forward(mesh, cfg, params, x, lengths, PP_MICRO, lora=lo,
+                                        lora_scaling=scaling, remat=remat)
+
+    out = {"stage": context_of(mesh).pp_rank, "rows": list(batch_shard(mesh))}
+    with torch.no_grad():
+        collectives.reset_counts()
+        r.arrays["pipe.plain"] = forward(x).cpu().numpy()
+        out["p2p_forward"] = collectives.counts()["p2p"]
+        r.arrays["pipe.lora"] = forward(x, lora).cpu().numpy()
+        r.arrays["pipe.remat"] = forward(x, lora, True).cpu().numpy()
+    for remat in (False, True):
+        xg = x.clone().requires_grad_()
+        lo = {k: {n: t.clone().requires_grad_() for n, t in sub.items()}
+              for k, sub in lora.items()}
+        collectives.reset_counts()
+        (forward(xg, lo, remat) * w).sum().backward()
+        out["p2p_step"] = collectives.counts()["p2p"]
+        tag = "remat" if remat else "plain"
+        for k, t in _paths({"x": xg, "lora": lo}).items():
+            g = torch.zeros_like(t) if t.grad is None else t.grad
+            r.arrays[f"pipe.grad_{tag}.{k}"] = g.cpu().numpy()
+    with torch.no_grad():
+        out["layer_guard"] = _guard(lambda: pipeline_decoder_forward(
+            mesh, dataclasses.replace(cfg, n_layers=cfg.n_layers + 2), params, x, lengths,
+            PP_MICRO))
+        out["batch_guard"] = _guard(lambda: forward(x[:1]))
+    return out
+
+
+@_mesh_task
+def _mt_sp(r):
+    """Ring attention and the sequence-parallel decoder over the mesh's tp
+    axis (``sp.npz``: a tiny decoder's ``params.*``, ``lora.*`` (``sp.json``:
+    its overrides of ``tiny``, the LoRA scaling), x and lengths whole, and
+    q, k, v for the ring alone): ``ring_attention`` causal with lengths and
+    full without; ``decoder_forward(ring=)`` without and with remat;
+    ``sp_decoder_forward`` without LoRA and with it under remat; the guard
+    of a length the axis does not divide."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import decoder_forward
+    from icl_speech_text_llm_tpu_torch.parallel.ring_attention import ring_attention
+    from icl_speech_text_llm_tpu_torch.parallel.sequence_parallel import sp_decoder_forward
+
+    cfg, params, lora, spec, arrays = _decoder_inputs(r, "sp")
+    t = {k: torch.as_tensor(arrays[k], device=r.device)
+         for k in ("x", "lengths", "q", "k", "v", "ring_lengths")}
+    mesh, scaling = r.mesh, spec["scaling"]
+    with torch.no_grad():
+        for name, kw in (("ring_causal", dict(lengths=t["ring_lengths"], causal=True)),
+                         ("ring_full", dict(causal=False))):
+            r.arrays[f"sp.{name}"] = ring_attention(t["q"], t["k"], t["v"], mesh, "tp",
+                                                    **kw).cpu().numpy()
+        for remat in (False, True):
+            r.arrays[f"sp.dec_ring_{remat}"] = decoder_forward(
+                cfg, params, t["x"], t["lengths"], ring=(mesh, "tp"), remat=remat)[0].cpu().numpy()
+        r.arrays["sp.sp_plain"] = sp_decoder_forward(mesh, "tp", cfg, params, t["x"],
+                                                     t["lengths"]).cpu().numpy()
+    # under grad, so that remat checkpoints (no_grad would run it plain)
+    r.arrays["sp.sp_lora_remat"] = sp_decoder_forward(
+        mesh, "tp", cfg, params, t["x"], t["lengths"], lora=lora, lora_scaling=scaling,
+        remat=True).detach().cpu().numpy()
+    with torch.no_grad():
+        guard = _guard(lambda: sp_decoder_forward(mesh, "tp", cfg, params, t["x"][:, :-2],
+                                                  t["lengths"]))
+    return {"guard": guard}
 
 
 @contextlib.contextmanager
@@ -3893,14 +4118,16 @@ def _mt_decode(r):
 
 
 @_mesh_task
-def _mt_serve(r):
-    """The continuous-batching engine under the mesh (``serve.npz``:
-    ``params.*`` of a decoder, requests ``req.*``, ``prefix``;
-    ``serve.json``: the decoder config, ``ServingConfig``, the request
-    lengths, which request takes the prefix and which the beams): each
-    request's tokens, every logits row the engine decoded from
-    (``serve.logits`` (N, V): admissions, decode steps, the beam lane's
-    prefill and steps), the rank's pool bytes and peak GiB."""
+def _mt_serve(r, name="serve"):
+    """The continuous-batching engine under the mesh (``{name}.npz``:
+    ``params.*`` of a decoder, requests ``req.*``, ``prefix``, and a LoRA
+    bank ``bank.*`` where one is given, whole on every rank;
+    ``{name}.json``: the decoder config, ``ServingConfig``, the request
+    lengths, which request takes the prefix and which the beams, each
+    request's adapter): each request's tokens, every logits row the
+    engine decoded from (``{name}.logits`` (N, V): admissions, decode
+    steps, the beam lane's prefill and steps), the rank's pool bytes and
+    peak GiB."""
     import torch
 
     from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
@@ -3911,27 +4138,75 @@ def _mt_serve(r):
     from icl_speech_text_llm_tpu_torch.models.llama import DECODER_CONFIGS
     from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_params
 
-    spec, arrays = r.json("serve"), r.npz("serve")
+    spec, arrays = r.json(name), r.npz(name)
     cfg = dataclasses.replace(DECODER_CONFIGS[spec["decoder"]], **spec.get("cfg", {}))
     dtype = getattr(torch, spec.get("dtype", "float32"))
     if "params.tok_embed" in arrays:
-        flat = {k[len("params."):]: v for k, v in arrays.items() if k.startswith("params.")}
-        params = params_from_numpy(_unpaths(flat), device=r.device, dtype=dtype)
+        params = params_from_numpy(_unpaths(_prefixed(arrays, "params.")), device=r.device,
+                                   dtype=dtype)
     else:  # drawn from the spec's seed on the rank's device
         from icl_speech_text_llm_tpu_torch.models.llama import init_decoder
 
         params = init_decoder(cfg, torch.Generator(device=r.device).manual_seed(spec["seed"]),
                               torch.device(r.device), dtype)
     params = shard_params({"llm": params}, r.mesh)["llm"]
+    bank = _serve_bank(spec, arrays, r.device, dtype)
     engine = ContinuousBatchingEngine(cfg, params, ServingConfig(**{
         k: tuple(v) if isinstance(v, list) else v for k, v in spec["serving"].items()}),
-        dtype=dtype, device=r.device, mesh=r.mesh)
+        lora=bank, lora_scaling=spec.get("lora_scaling", 1.0), dtype=dtype, device=r.device,
+        mesh=r.mesh)
     with _recorded_logits(*_serve_logits_modules()) as seen:
         results = _serve_requests(engine, spec, arrays, r.device)
-    r.arrays["serve.logits"] = torch.cat(seen).numpy()
+    r.arrays[f"{name}.logits"] = torch.cat(seen).numpy()
     return {"results": results,
             "pool_bytes": sum(t.numel() * t.element_size() for t in engine._cache.values()),
             **_peak(r.device)}
+
+
+@_mesh_task
+def _mt_serve_bank(r):
+    """``_mt_serve`` of ``serve_bank.*``: a LoRA bank under the mesh."""
+    return _mt_serve(r, "serve_bank")
+
+
+def _prefixed(arrays, prefix):
+    """{name: array} of the ``arrays`` whose names start with ``prefix``,
+    the prefix dropped."""
+    return {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+
+
+def _serve_bank(spec, arrays, device, dtype):
+    """The LoRA bank of a serving spec: ``bank.*`` arrays, or ``bank_seed``'s
+    ``_lora_bank`` drawn on ``device``; None without one."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
+    from icl_speech_text_llm_tpu_torch.models.llama import DECODER_CONFIGS
+
+    if any(k.startswith("bank.") for k in arrays):
+        return params_from_numpy(_unpaths(_prefixed(arrays, "bank.")), device=device,
+                                 dtype=dtype)
+    if "bank_seed" not in spec:
+        return None
+    cfg = dataclasses.replace(DECODER_CONFIGS[spec["decoder"]], **spec.get("cfg", {}))
+    return _lora_bank(cfg, spec["bank_seed"], torch.device(device), dtype)
+
+
+def _lora_bank(cfg, seed, device, dtype, n=2):
+    """A ``stack_lora_bank`` of ``n`` adapters of ``LoraConfig()``'s rank
+    and targets on decoder ``cfg``, A and B random from ``seed``."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import LoraConfig, init_lora, stack_lora_bank
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    adapters = []
+    for _ in range(n):
+        lo = init_lora(cfg, LoraConfig(), gen, device, dtype)
+        for sub in lo.values():
+            sub["b"] = (torch.randn(sub["b"].shape, generator=gen, device=device) * 0.02).to(dtype)
+        adapters.append(lo)
+    return stack_lora_bank(adapters)
 
 
 def _serve_logits_modules():
@@ -3944,9 +4219,11 @@ def _serve_logits_modules():
 
 def _serve_requests(engine, spec, arrays, device):
     """``serve.json``'s requests through ``engine``: the prefix registered
-    first, request ``prefix_request`` on it, ``beam_request`` with 2 beams;
-    → each request's tokens in submission order. A request given as token
-    ids enters as their embeddings (the vocab-sharded lookup under a mesh)."""
+    first (under ``prefix_adapter``), request ``prefix_request`` on it,
+    ``beam_request`` with 2 beams, request i under adapter
+    ``adapters[i]`` where a bank serves; → each request's tokens in
+    submission order. A request given as token ids enters as their
+    embeddings (the vocab-sharded lookup under a mesh)."""
     import torch
 
     from icl_speech_text_llm_tpu_torch.models.llama import embed_tokens
@@ -3959,9 +4236,12 @@ def _serve_requests(engine, spec, arrays, device):
         with shard_context(engine._shard), torch.no_grad():
             return embed_tokens(engine.params, x[None], dtype=engine._dtype)[0]
 
-    pid = engine.register_prefix(emb("prefix"), len(arrays["prefix"]))
+    adapters = spec.get("adapters", [0] * len(spec["lengths"]))
+    pid = engine.register_prefix(emb("prefix"), len(arrays["prefix"]),
+                                 adapter_id=spec.get("prefix_adapter", 0))
     rids = [engine.submit(emb(f"req.{i}"), n, num_beams=2 if i == spec["beam_request"] else 1,
-                          prefix_id=pid if i == spec["prefix_request"] else None)
+                          prefix_id=pid if i == spec["prefix_request"] else None,
+                          adapter_id=adapters[i])
             for i, n in enumerate(spec["lengths"])]
     res = engine.run()
     return [res[i] for i in rids]
@@ -4489,7 +4769,8 @@ def mesh_step_counts(cfg, sizes):
     shards are what it keeps), reduce-scatters the LoRA A gradients, and
     sums those over dp in a buffer of their own. The norm, taken once for
     the metric and the clip, sums each cut group's squares over its axis.
-    No remat (a checkpointed layer gathers anew in its recompute)."""
+    No remat (a checkpointed layer gathers anew in its recompute); no
+    pipeline, so no point-to-point transfer."""
     _, fsdp, tp = sizes
     Ll, Lw, Lb = cfg.llm.n_layers, cfg.whisper.n_layers, cfg.beats.n_layers
     n_lora = len(cfg.lora.targets)
@@ -4502,7 +4783,7 @@ def mesh_step_counts(cfg, sizes):
     ar += (fsdp > 1) + (tp > 1)  # the norm
     ag = (fsdp > 1) * (Ll * (7 + n_lora + 7) + 6 * Lw + 6 * Lb)
     rs = (fsdp > 1) * Ll * n_lora
-    return {"all_reduce": ar, "all_gather": ag, "reduce_scatter": rs}
+    return {"all_reduce": ar, "all_gather": ag, "reduce_scatter": rs, "p2p": 0}
 
 
 def _mesh_gen_batch(cfg, n=4):
@@ -4700,13 +4981,16 @@ def _mesh_static(d, smi):
     torch.cuda.empty_cache()
 
 
-def _mesh_serve(d, smi, depth=8):
+def _mesh_serve(d, smi, depth=8, bank=False):
     """(c) the continuous-batching engine at tp = 2: salmonn-13b's decoder
     (vicuna-13b widths, ``depth`` layers) in bf16, 4 slots, int8 KV pool on
     20 of 40 KV heads a rank (K4 q8, K7 q8), a registered prefix and a
     2-beam request, against the one-process engine (run first): every
     token's logits against the one-process decoder teacher-forced on the
-    rank's tokens (``_matched_logits``), then the tokens by ``_gap_rule``."""
+    rank's tokens (``_matched_logits``), then the tokens by ``_gap_rule``.
+    ``bank``: (h), the same with a 2-adapter LoRA bank (``_lora_bank``,
+    whole on every rank), requests, the prefix and the beam request each
+    under its adapter, the teacher forced with each request's adapter."""
     import numpy as np
     import torch
 
@@ -4716,25 +5000,36 @@ def _mesh_serve(d, smi, depth=8):
     )
     from icl_speech_text_llm_tpu_torch.models.llama import (
         DECODER_CONFIGS,
+        LoraConfig,
         embed_tokens,
         init_decoder,
     )
+    from icl_speech_text_llm_tpu_torch.training.step import tree_map
 
+    label, name = ("(h)", "serve_bank") if bank else ("(c)", "serve")
     rng = np.random.RandomState(7)
     lengths = [int(n) for n in rng.randint(96, 256, size=6)]
     spec = {"decoder": "vicuna-13b", "cfg": {"n_layers": depth}, "dtype": "bfloat16",
             "seed": 3, "lengths": lengths, "prefix_request": 0, "beam_request": 5,
             "serving": dict(num_slots=4, max_new_tokens=10, prompt_buckets=[256],
                             prefix_buckets=[128], kv_int8=True, eos_token_id=2)}
+    adapters = [0] * len(lengths)
+    if bank:
+        adapters = [1, 0, 1, 0, 0, 1]
+        spec.update(bank_seed=11, adapters=adapters, prefix_adapter=adapters[0],
+                    lora_scaling=LoraConfig().scaling)
     arrays = {f"req.{i}": rng.randint(3, 32000, size=n).astype(np.int64)
               for i, n in enumerate(lengths)}
     arrays["prefix"] = rng.randint(3, 32000, size=100).astype(np.int64)
     cfg = dataclasses.replace(DECODER_CONFIGS["vicuna-13b"], n_layers=depth)
     params = init_decoder(cfg, torch.Generator(device="cuda").manual_seed(spec["seed"]),
                           torch.device("cuda"), torch.bfloat16)
+    lora = _serve_bank(spec, {}, "cuda", torch.bfloat16)
+    scaling = spec.get("lora_scaling", 1.0)
     scfg = ServingConfig(**{k: tuple(v) if isinstance(v, list) else v
                             for k, v in spec["serving"].items()})
-    engine = ContinuousBatchingEngine(cfg, params, scfg, dtype=torch.bfloat16, device="cuda")
+    engine = ContinuousBatchingEngine(cfg, params, scfg, lora=lora, lora_scaling=scaling,
+                                      dtype=torch.bfloat16, device="cuda")
     with _recorded_logits(*_serve_logits_modules()) as seen:
         want = _serve_requests(engine, spec, arrays, "cuda")
     one_rows = torch.cat(seen)
@@ -4752,7 +5047,16 @@ def _mesh_serve(d, smi, depth=8):
 
     def teacher(results):  # the one-process decoder teacher-forced on ``results``
         toks = torch.tensor([g + [2] * (T - len(g)) for g in results], device="cuda")
-        return _teacher_logits(cfg, params, prompts, toks, None, 1.0, torch.bfloat16)
+        if lora is None:
+            return _teacher_logits(cfg, params, prompts, toks, None, 1.0, torch.bfloat16)
+        rows = [None] * len(results)
+        for a in sorted(set(adapters)):
+            idx = [i for i, x in enumerate(adapters) if x == a]
+            got = _teacher_logits(cfg, params, [prompts[i] for i in idx], toks[idx],
+                                  tree_map(lambda x: x[:, a], lora), scaling, torch.bfloat16)
+            for j, i in enumerate(idx):
+                rows[i] = got[j]
+        return torch.stack(rows)
 
     ref = teacher(want)
     top = ref.topk(2, dim=-1).values
@@ -4761,44 +5065,45 @@ def _mesh_serve(d, smi, depth=8):
     del one_rows, ref
     torch.cuda.empty_cache()
 
-    out_dir = os.path.join(d, "serve")
+    out_dir = os.path.join(d, name)
     os.makedirs(out_dir, exist_ok=True)
-    np.savez(os.path.join(out_dir, "serve.npz"), **arrays)
-    with open(os.path.join(out_dir, "serve.json"), "w") as f:
+    np.savez(os.path.join(out_dir, f"{name}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
         json.dump(spec, f)
     t0 = time.perf_counter()
     ranks = _dp_spawn(out_dir, "file", None, None, "cuda", world=2, timeout=240, mesh="1,1,2",
-                      tasks=("serve",))
+                      tasks=(name,))
     wall = time.perf_counter() - t0
+    what = "a 2-adapter LoRA bank whole on each rank, " if bank else ""
     for r, (res, got) in enumerate(ranks):
-        _need_launches(f"(c) rank {r}", res["serve_launches"],
+        _need_launches(f"{label} rank {r}", res[f"{name}_launches"],
                        {"flash_decode_attention_q8": depth, "append_kv_q8": depth,
                         "flash_attention_causal": depth}, res["plain"])
-        s = res["serve"]
-        print(f"  (c) rank {r} of tp = 2: pool {s['pool_bytes']} bytes (one process "
+        s = res[name]
+        print(f"  {label} rank {r} of tp = 2: {what}pool {s['pool_bytes']} bytes (one process "
               f"{one_pool}), peak {s['peak_gib']:.3f} GiB; launches K7 q8 "
-              f"{res['serve_launches']['flash_decode_attention_q8']}, K4 q8 "
-              f"{res['serve_launches']['append_kv_q8']}  [{smi}]", flush=True)
+              f"{res[f'{name}_launches']['flash_decode_attention_q8']}, K4 q8 "
+              f"{res[f'{name}_launches']['append_kv_q8']}  [{smi}]", flush=True)
         if 2 * s["pool_bytes"] != one_pool:
-            raise AssertionError(f"(c) rank {r}: the pool is not half of one process's")
-        err = _matched_logits(teacher(s["results"]), torch.as_tensor(got["serve.logits"]),
+            raise AssertionError(f"{label} rank {r}: the pool is not half of one process's")
+        err = _matched_logits(teacher(s["results"]), torch.as_tensor(got[f"{name}.logits"]),
                               s["results"])
-        print(f"  (c) rank {r}: every generated token's logits (the 5 slot requests' "
+        print(f"  {label} rank {r}: every generated token's logits (the 5 slot requests' "
               f"admission and decode steps through K7 q8, the beam request's best beam) "
               f"against one process teacher-forced on the rank's tokens: worst "
               f"max_abs_err {err['err']:.4f}, {err['ratio']:.3f} of its tolerance (5% of "
               f"the row's max |logit|) over {err['rows']} rows; the one-process engine's "
               f"own: {one_err['err']:.4f}, {one_err['ratio']:.3f}  [{smi}]", flush=True)
         if err["ratio"] > 1.0:
-            raise AssertionError(f"(c) rank {r}: a token's logits are off: {err}")
+            raise AssertionError(f"{label} rank {r}: a token's logits are off: {err}")
         padded = [g + [2] * (T - len(g)) for g in s["results"]]
-        _gap_rule(f"(c) rank {r}, tp = 2, 6 requests (prefix, 2 beams)", padded,
+        _gap_rule(f"{label} rank {r}, tp = 2, 6 requests (prefix, 2 beams)", padded,
                   [w + [2] * (T - len(w)) for w in want], gaps)
-        if s["results"] != ranks[0][0]["serve"]["results"]:
-            raise AssertionError(f"(c) rank {r}'s tokens are not rank 0's")
-    print(f"  (c) two ranks, the same tokens on both: {wall:.1f} s with the process starts",
+        if s["results"] != ranks[0][0][name]["results"]:
+            raise AssertionError(f"{label} rank {r}'s tokens are not rank 0's")
+    print(f"  {label} two ranks, the same tokens on both: {wall:.1f} s with the process starts",
           flush=True)
-    del params, prompts
+    del params, prompts, lora
     torch.cuda.empty_cache()
 
 
@@ -4950,16 +5255,138 @@ def _mesh_four(d, smi):
     return errs
 
 
+def _pp_batch(cfg, L=1024):
+    """phase check's two-request train batch (``_train_batch``) at ``L``
+    positions as four rows, the pair and its reverse."""
+    import numpy as np
+
+    b = _train_batch(cfg, cfg.audio_tokens_per_slot, L)
+    return {k: np.concatenate([v, v[::-1]]) for k, v in b.items()}
+
+
+def _mesh_pipeline(d, smi):
+    """(f) pp = 2 at salmonn-7b's widths, 4 layers a stack, batch 4 at 1024
+    positions, ``PP_MICRO`` microbatches, 2 steps, against the same 2 steps
+    in one process (run first): the losses within 1e-3 relative; each
+    stage's K1, K5 and K6 launches exactly its layers × microbatches ×
+    steps, no plain version; each stage holding half of one process's
+    layer and LoRA bytes; the peaks printed beside one process's."""
+    import torch
+
+    model = "salmonn-7b-4layer"
+    cfg, params = _dp_model(model, d, "cuda")
+    arrays = _pp_batch(cfg)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()}
+    one = _train_steps(cfg, params, batch, 2)
+    del params, batch
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(d, "pipeline")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "steps.json"), "w") as f:
+        json.dump({"n": 2}, f)
+    t0 = time.perf_counter()
+    ranks = _dp_spawn(out_dir, model, None, arrays, "cuda", world=2, timeout=300,
+                      mesh="1,1,1,2", tasks=("train_steps",))
+    wall = time.perf_counter() - t0
+    n = 2 * (cfg.llm.n_layers // 2) * PP_MICRO
+    want = {"flash_attention_causal": n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n}
+    faults = []
+    for r, (res, _) in enumerate(ranks):
+        t, launches = res["train_steps"], res["train_steps_launches"]
+        errs = [abs(a - b) / abs(b) for a, b in zip(t["losses"], one["losses"])]
+        got = {k: launches[k] for k in want}
+        print(f"  (f) pp = 2 stage {r}: losses {t['losses']} against one process's "
+              f"{one['losses']} (relative {errs}, bound 1e-3); K1/K5/K6 launches {got} "
+              f"(layers × microbatches × steps: {n} each); layers and LoRA held "
+              f"{t['layer_bytes']} bytes (one process {one['layer_bytes']}); the steps' peak above "
+              f"the memory held before them {t['peak_gib']:.3f} GiB (one process "
+              f"{one['peak_gib']:.3f}); steps "
+              f"{t['seconds']:.1f} s (one process {one['seconds']:.1f})  [{smi}]", flush=True)
+        if max(errs) > 1e-3:
+            faults.append(f"stage {r}: losses {errs}")
+        if got != want or sum(res["plain"].values()):
+            faults.append(f"stage {r}: launches {got}, plain {res['plain']}")
+        if 2 * t["layer_bytes"] != one["layer_bytes"]:
+            faults.append(f"stage {r}: holds {t['layer_bytes']} layer bytes")
+    print(f"  (f) two stages: {wall:.1f} s with the process starts; transport "
+          f"{ranks[0][0]['transport']}", flush=True)
+    if faults:
+        raise AssertionError(f"(f) the pipeline is not one process's: {faults}")
+
+
+def _mesh_sp(d, smi):
+    """(g) sp = 2 at salmonn-7b's widths, 2 layers a stack, 2 rows at 2048
+    positions: ``decoder_forward(ring=)``'s hidden against K1's route in
+    one process (valid rows, 2e-2 of the max |hidden|), and one step with
+    the decoder sequence-parallel against one process's (loss within 1e-3
+    relative)."""
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.models.llama import decoder_forward
+    from icl_speech_text_llm_tpu_torch.models.salmonn import _train_sequence
+
+    model = "salmonn-7b-2layer"
+    cfg, params = _dp_model(model, d, "cuda")
+    arrays = _train_batch(cfg, cfg.audio_tokens_per_slot, 2048)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()}
+    lengths = batch["seq_mask"].sum(dim=1).to(torch.int32)
+    with torch.no_grad():
+        seq = _train_sequence(cfg, params, batch)
+        ref = decoder_forward(cfg.llm, params["llm"], seq, lengths, lora=params["lora"],
+                              lora_scaling=cfg.lora.scaling)[0].float().cpu()
+    del seq
+    one = _train_steps(cfg, params, batch, 1)
+    del params, batch
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(d, "sp")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "steps.json"), "w") as f:
+        json.dump({"n": 1, "sp": True}, f)
+    t0 = time.perf_counter()
+    ranks = _dp_spawn(out_dir, model, None, arrays, "cuda", world=2, timeout=300,
+                      mesh="1,1,2", tasks=("train_steps",))
+    wall = time.perf_counter() - t0
+    scale = max(float(ref[b, :n].abs().max()) for b, n in enumerate(lengths.tolist()))
+    faults = []
+    for r, (res, got) in enumerate(ranks):
+        t = res["train_steps"]
+        hidden = torch.as_tensor(got["steps.ring_hidden"])
+        err = max(float((hidden[b, :n] - ref[b, :n]).abs().max())
+                  for b, n in enumerate(lengths.tolist()))
+        loss_err = abs(t["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        print(f"  (g) sp = 2 rank {r}: decoder_forward(ring=) hidden against K1's route "
+              f"max_abs_err {err:.4e} ({err / scale:.3e} of max |hidden| {scale:.3f}, bound "
+              f"2e-2); the sp step's loss {t['losses'][0]:.6f} against one process's "
+              f"{one['losses'][0]:.6f} (relative {loss_err:.3e}, bound 1e-3); the step's "
+              f"peak above the memory held before it {t['peak_gib']:.3f} GiB (one process "
+              f"{one['peak_gib']:.3f}); step {t['seconds']:.1f} s (one process "
+              f"{one['seconds']:.1f}); plain routes "
+              f"{ {k: v for k, v in res['plain'].items() if v} }  [{smi}]", flush=True)
+        if err > 2e-2 * scale or loss_err > 1e-3 or sum(res["plain"].values()):
+            faults.append(f"rank {r}: hidden {err / scale:.3e}, loss {loss_err:.3e}")
+    print(f"  (g) two ranks: {wall:.1f} s with the process starts", flush=True)
+    if faults:
+        raise AssertionError(f"(g) the sequence-parallel decoder is not one process's: {faults}")
+
+
 def _mesh_phase(out_dir, train_losses, smi):
-    """FSDP and tensor parallelism on the one card: ranks are processes
-    sharing it over gloo (NCCL refuses a card twice in a group), so this
-    shows the sharded paths correct and running their kernels on local
-    shards, not NCCL's speed. (a)-(e): ``_mesh_static``, ``_mesh_serve``,
-    ``_mesh_train``, ``_mesh_four``."""
-    _mesh_static(out_dir, smi)
-    _mesh_serve(out_dir, smi)
-    _mesh_train(out_dir, smi, train_losses)
-    _mesh_four(out_dir, smi)
+    """FSDP, tensor, pipeline and sequence parallelism on the one card:
+    ranks are processes sharing it over gloo (NCCL refuses a card twice in
+    a group), so this shows the sharded paths correct and running their
+    kernels on local shards, not NCCL's speed. (a)-(h): ``_mesh_static``,
+    ``_mesh_serve``, ``_mesh_train``, ``_mesh_four``, ``_mesh_pipeline``,
+    ``_mesh_sp``, ``_mesh_serve(bank=True)``; each sub-phase's seconds."""
+    for label, run in (("(a)-(b)", lambda: _mesh_static(out_dir, smi)),
+                       ("(c)", lambda: _mesh_serve(out_dir, smi)),
+                       ("(d)", lambda: _mesh_train(out_dir, smi, train_losses)),
+                       ("(e)", lambda: _mesh_four(out_dir, smi)),
+                       ("(f)", lambda: _mesh_pipeline(out_dir, smi)),
+                       ("(g)", lambda: _mesh_sp(out_dir, smi)),
+                       ("(h)", lambda: _mesh_serve(out_dir, smi, bank=True))):
+        t0 = time.perf_counter()
+        run()
+        print(f"  phase mesh {label}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main():

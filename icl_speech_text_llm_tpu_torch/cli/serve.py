@@ -26,9 +26,9 @@ dp × fsdp × tp processes (tp must divide the KV heads):
 each rank holds its blocks of the weights (quantized ones whole) and its
 KV heads of the pool, every rank runs the same schedule, and only rank 0
 prints; ``pool_bytes`` are a rank's. Ranks sharing one card need gloo.
-``--lora_bank`` under a sharded mesh is not ported
-(``NotImplementedError``); ``--compile_cache`` (the XLA compilation cache)
-has no counterpart and is refused. Qwen2-Audio splices up to 750
+Under a sharded mesh a ``--lora_bank`` stays whole on every rank (only the
+model's weights are cut), as under JAX; ``--compile_cache`` (the XLA
+compilation cache) has no counterpart and is refused. Qwen2-Audio splices up to 750
 positions a clip: 6 clips take ``--seq_len 2048 --prompt_buckets 2048``.
 The last line printed
 is a JSON summary: throughput and the engine's counts.

@@ -18,14 +18,19 @@ run once at each size of JAX's doubling-then-bisect search (no optimizer
 update, so the state is left as it was; an out-of-memory probe counts as
 "does not fit"), and the state is rebuilt at the pick.
 
-``--mesh dp,fsdp,tp`` trains over dp × fsdp × tp processes, one a card:
+``--mesh dp,fsdp,tp[,pp]`` trains over dp × fsdp × tp × pp processes, one a
+card:
 
     torchrun --nproc_per_node=N -m icl_speech_text_llm_tpu_torch.cli.train \
-        --mesh dp,fsdp,tp --model_type salmonn-7b ...
+        --mesh dp,fsdp,tp[,pp] --model_type salmonn-7b ...
 
 dp replicates the model, fsdp shards the big matrices' other dim (gathered
 a layer at a time), tp the heads, MLP columns and vocabulary by the rule
-table (``parallel/sharding.py``); quantized leaves stay replicated.
+table (``parallel/sharding.py``); quantized leaves stay replicated. pp > 1
+cuts the decoder's layers (and the LoRA) into stages run as a GPipe
+pipeline over ``--pp_microbatches`` microbatches of each rank's rows
+(default 2, as JAX's; read only where pp > 1): stage 0 runs the encoders
+and the Q-Former, the last stage the loss (``parallel/pipeline.py``).
 ``--batch_size`` stays the global batch (each (dp, fsdp) coordinate steps
 ``batch_size / (dp · fsdp)`` of its rows, the tp ranks of one coordinate
 the same rows; the loss is the global token mean, ``training/step.py``),
@@ -34,10 +39,11 @@ one-process format). ``--mesh 1`` runs the same reductions in a group of
 one. Ranks sharing one card need gloo (``initialize_distributed(...,
 backend="gloo")``): NCCL refuses a card twice in a group. With
 ``--auto_batch`` each rank probes its own rows, every size's verdict is
-agreed over the ranks, and the pick is a rank's rows × dp · fsdp. The
-pipeline (pp > 1) and ``--pp_microbatches`` > 1 raise
-``NotImplementedError`` (the next slice); ``--compile_cache`` (an XLA
-compilation cache) has no counterpart and is refused.
+agreed over the ranks, and the pick is a rank's rows × dp · fsdp (under a
+pipeline each size is a count of microbatches). Qwen2-Audio has no
+pipeline (JAX's ``qwen_audio_train_loss`` takes none), so pp > 1 with a
+Qwen model type is refused; ``--compile_cache`` (an XLA compilation cache)
+has no counterpart and is refused.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from ..parallel import (
     parse_mesh,
     shutdown_distributed,
 )
-from ..parallel.sharding import batch_shard, is_sharded, shard_params
+from ..parallel.sharding import batch_shard, is_sharded, shard_params, stage_params
 from ..registry import DatasetSplit, parse_dataset_types
 from ..training.loop import TrainSettings, batch_arrays, train
 from ..training.schedulers import get_schedule
@@ -117,8 +123,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--randomize_swap", action="store_true")
     p.add_argument("--mesh", type=str, default=None,
                    help="process mesh 'dp,fsdp,tp[,pp]' (sizes multiply to the world "
-                        "size); pp > 1 is not ported")
-    p.add_argument("--pp_microbatches", type=int, default=1)
+                        "size), e.g. 4,2,1 or 2,1,1,2; pp > 1 GPipe-schedules the decoder")
+    p.add_argument("--pp_microbatches", type=int, default=2,
+                   help="microbatches of each rank's rows per pipeline pass (pp > 1); "
+                        "the rows must be divisible by it")
     p.add_argument("--seq_len", type=int, default=2048)
     p.add_argument("--text_len", type=int, default=1024)
     p.add_argument("--tokenizer", type=str, default=None)
@@ -139,11 +147,9 @@ def _check_ported(args) -> None:
     if args.compile_cache:
         raise SystemExit("--compile_cache is the JAX package's XLA compilation cache "
                          "(TPU only); the PyTorch port has no counterpart")
-    unported = {"--pp_microbatches > 1": args.pp_microbatches > 1}
-    asked = [flag for flag, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)} "
-                                  "(ROADMAP.md queue 1 item 3)")
+    if args.mesh and parse_mesh(args.mesh)[3] > 1 and args.model_type.lower().startswith("qwen"):
+        raise SystemExit("--mesh with pp > 1: Qwen2-Audio's train loss has no pipeline (the "
+                         "JAX package's qwen_audio_train_loss takes no pipeline= either)")
 
 
 def _remat(args):
@@ -185,8 +191,11 @@ def _train(args, mesh):
     is_qwen = args.model_type.lower().startswith("qwen")
     model = create_model(args.model_type, tokenizer=args.tokenizer, seed=args.seed,
                          device=args.device, trainable_dtype=torch.float32)
-    if is_sharded(mesh):  # every rank drew the same weights: keep its blocks
-        model.params = model.engine.params = shard_params(model.params, mesh)
+    if is_sharded(mesh):  # every rank drew the same weights: keep its blocks and stage
+        model.params = model.engine.params = stage_params(shard_params(model.params, mesh),
+                                                          mesh)
+    pp = parse_mesh(args.mesh)[3] if args.mesh else 1
+    pipeline = (mesh, args.pp_microbatches) if pp > 1 else None
     n_slots = args.num_examples + 1 if args.fewshot_mode == "speech" else 1
     pack_cfg = dataclasses.replace(model.pack_cfg, seq_len=args.seq_len,
                                    text_len=args.text_len, max_slots=n_slots)
@@ -212,18 +221,21 @@ def _train(args, mesh):
             grad_accum_steps=args.gradient_accumulation_steps, schedule=schedule))
         state, frozen = init_train_state(model.params, optimizer)
         step_fn = make_train_step(model.cfg, optimizer, loss_fn=model.loss_fn,
-                                  remat=_remat(args), mesh=mesh)
+                                  remat=_remat(args), mesh=mesh, pipeline=pipeline)
         return state, frozen, step_fn
 
     state, frozen, step_fn = _build(args.batch_size)
     if args.auto_batch:
         probe = batch_arrays(collate_icl_batch([train_ds[0]], model.tokenizer, pack_cfg))
         device = model.engine.device
-        shards = batch_shard(mesh)[1]  # the search runs over a rank's rows
+        # the search runs over a rank's rows, in microbatches under a pipeline
+        micro = args.pp_microbatches if pipeline else 1
+        shards = batch_shard(mesh)[1] * micro
         sizer = BatchSizeOptimizer(
-            make_train_probe(model.cfg, model.loss_fn, _remat(args), mesh=mesh),
+            make_train_probe(model.cfg, model.loss_fn, _remat(args), mesh=mesh,
+                             pipeline=pipeline),
             lambda bs: (state, frozen, {k: torch.as_tensor(v, device=device)
-                                        for k, v in tile_batch(probe, bs).items()}),
+                                        for k, v in tile_batch(probe, bs * micro).items()}),
             max_batch=args.auto_batch_max, device=device)
         picked = sizer.find_optimal_batch_size(start=1) * shards
         if picked and picked != args.batch_size:

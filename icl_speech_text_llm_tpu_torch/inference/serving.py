@@ -50,8 +50,11 @@ the int8 pool) per rank on its KV heads (``DecodeAttention.FLASH``, as the
 JAX engine sets ``(mesh, tp)``), and the beam lane runs the same sharded
 decoder. Tokens come from logits gathered over tp, so every rank samples
 the same ones; dp and fsdp ranks run the same schedule (JAX replicates the
-pool over them), and ``pool_bytes`` are a rank's. A LoRA bank under a
-sharded mesh raises ``NotImplementedError``.
+pool over them), and ``pool_bytes`` are a rank's. A LoRA bank stays whole
+on every rank, as JAX replicates it: each product gathers its samples'
+factors and cuts them to the rank's part (``models/llama.py:_proj_tp``);
+a prefix registered under one of its adapters prefills with that adapter
+cut by the rule table.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ from ..models.llama import (
     init_kv_cache,
     lm_logits,
 )
-from ..parallel.sharding import context_of, is_sharded, shard_context
+from ..parallel.sharding import context_of, is_sharded, shard_context, shard_params
 from ..training.step import tree_leaves, tree_map
 
 
@@ -266,10 +269,8 @@ class ContinuousBatchingEngine:
         # a stack_lora_bank tree has leaves (n_layers, n_adapters, ·, ·)
         leaves = tree_leaves(lora) if lora is not None else []
         self._n_adapters = leaves[0].shape[1] if leaves and leaves[0].dim() == 4 else 0
+        self._mesh = mesh
         self._shard = context_of(mesh) if is_sharded(mesh) else None
-        if self._shard is not None and self._n_adapters:
-            raise NotImplementedError("a LoRA bank under a sharded mesh is not ported "
-                                      "(ROADMAP.md queue 1 item 3)")
         self._attention = DecodeAttention.FLASH if self._shard else DecodeAttention.XLA
         self._scratch = S
         self._dtype = dtype
@@ -324,10 +325,12 @@ class ContinuousBatchingEngine:
 
     def _adapter(self, adapter_id: int):
         """The LoRA one request decodes under: the bank sliced at
-        ``adapter_id``, or the single adapter."""
+        ``adapter_id`` (cut to the rank's blocks under a sharded mesh, as a
+        single adapter is), or the single adapter."""
         if not self._n_adapters:
             return self.lora
-        return tree_map(lambda x: x[:, adapter_id], self.lora)
+        lora = tree_map(lambda x: x[:, adapter_id], self.lora)
+        return lora if self._shard is None else shard_params({"lora": lora}, self._mesh)["lora"]
 
     # -- public API ---------------------------------------------------------
     @torch.no_grad()

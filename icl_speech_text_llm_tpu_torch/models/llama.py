@@ -333,10 +333,10 @@ def _proj_tp(sh, x, w, lora_layer, name, scaling, bias, lora_ids, row):
     rank's output columns. Row: x the rank's input columns (heads), the
     partial products summed over tp in f32. A quantized ``w`` is whole on
     every rank: the full product, then the rank's columns (column), or the
-    heads gathered first and no sum (row)."""
-    if lora_ids is not None:
-        raise NotImplementedError("a LoRA bank under a tensor-parallel mesh is not ported "
-                                  "(ROADMAP.md queue 1 item 3)")
+    heads gathered first and no sum (row). A LoRA bank (``lora_ids``) is
+    whole on every rank, as under JAX: each sample's A and B are gathered,
+    then cut to the rank's part, B's columns (column) or A's rows (row, its
+    partial delta summed with the product's in the same reduce)."""
     whole = isinstance(w, dict)
     if row:
         y = dequant_matmul(sh.gather_tp(x, -1) if whole else x, w)
@@ -347,11 +347,20 @@ def _proj_tp(sh, x, w, lora_layer, name, scaling, bias, lora_ids, row):
     delta = None
     if lora_layer is not None and name in lora_layer:
         a, b = lora_layer[name]["a"], lora_layer[name]["b"]
-        # the factor whole on every tp rank multiplies a tp-sharded one: its
-        # gradient is a partial sum over tp, summed in the factor's own
-        # dtype (before the cast, so f32 master weights sum f32 gradients)
-        a, b = (a, sh.copy_to_tp(b)) if row else (sh.copy_to_tp(a), b)
-        delta = torch.matmul(torch.matmul(x, a.to(x.dtype)), b.to(x.dtype)) * scaling
+        if lora_ids is not None:
+            a, b = a.index_select(0, lora_ids), b.index_select(0, lora_ids)
+            if row:
+                a = a[:, sh.cols(a.shape[1])]
+            else:
+                b = b[..., sh.cols(b.shape[-1])]
+            delta = torch.bmm(torch.bmm(x, a.to(x.dtype)), b.to(x.dtype)) * scaling
+        else:
+            # the factor whole on every tp rank multiplies a tp-sharded one:
+            # its gradient is a partial sum over tp, summed in the factor's
+            # own dtype (before the cast, so f32 master weights sum f32
+            # gradients)
+            a, b = (a, sh.copy_to_tp(b)) if row else (sh.copy_to_tp(a), b)
+            delta = torch.matmul(torch.matmul(x, a.to(x.dtype)), b.to(x.dtype)) * scaling
     if row:
         if whole:
             y = y if delta is None else y + sh.reduce_from_tp(delta)
@@ -375,13 +384,13 @@ def _local_cfg(cfg: DecoderConfig) -> DecoderConfig:
                                head_dim=cfg.hd)
 
 
-def _gathered(layer, lo):
+def _gathered(layer, lo, bank: bool = False):
     """A layer's weights and LoRA with their FSDP shards gathered (as they
-    are without a mesh)."""
+    are without a mesh); a LoRA ``bank`` is whole on every rank."""
     sh = current_shard()
     if sh is None:
         return layer, lo
-    return sh.gather_fsdp(layer, "llm/layers"), sh.gather_fsdp(lo, "lora")
+    return sh.gather_fsdp(layer, "llm/layers"), lo if bank else sh.gather_fsdp(lo, "lora")
 
 
 def _tp_input(h):
@@ -510,11 +519,13 @@ def _cache_prefill_attn(cfg, q, k, v, cache, l, starts):
 
 
 def _layer_forward(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lengths,
-                   cache=None, l=0, starts=None, lora_ids=None):
+                   cache=None, l=0, starts=None, lora_ids=None, attn=None):
     B, T, _ = x.shape
-    layer, lo = _gathered(layer, lo)
+    layer, lo = _gathered(layer, lo, bank=lora_ids is not None)
     q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lora_ids)
-    if starts is not None:
+    if attn is not None:  # ring or sequence-parallel attention (cacheless)
+        out = attn(q, k.to(q.dtype), v.to(q.dtype), l)
+    elif starts is not None:
         out = _cache_prefill_attn(cfg, q, k, v, cache, l, starts)
     else:
         if cache is not None:
@@ -530,11 +541,47 @@ def _layer_forward(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lengths
     return _attn_out_mlp(cfg, layer, lo, lora_scaling, x, out, lora_ids)
 
 
+def run_layer_stack(cfg: DecoderConfig, layers: Dict[str, Any], x: torch.Tensor,
+                    positions: torch.Tensor, lengths: Optional[torch.Tensor],
+                    lora: Optional[Dict[str, Any]] = None, lora_scaling: float = 1.0,
+                    remat=False, attn=None, cache: Optional[Dict[str, torch.Tensor]] = None,
+                    cache_positions: Optional[torch.Tensor] = None,
+                    lora_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run a contiguous sub-stack of decoder layers (leading dim of
+    ``layers`` and ``lora``), no final norm: the loop ``decoder_forward``
+    runs over every layer and a pipeline stage over its own
+    (``parallel/pipeline.py``), as the JAX package's ``run_layer_stack``.
+    ``attn`` (q, k, v heads-first, layer → out) replaces the causal flash
+    attention of a cacheless stack (ring and sequence-parallel attention);
+    ``remat`` as ``decoder_forward``'s, its "1inK" over this stack."""
+    n = layers["ln_attn"].shape[0]
+    inv_freq = _inv_freq(cfg, x.device)
+    g = _mixed_remat_group(remat)
+    if g and n % g:
+        _warn_remat_degraded(remat, n, "stack not divisible by K")
+        g, remat = 0, True
+    plain = functools.partial(_layer_forward, cfg, attn=attn)
+    ckpt = _checkpointed(True if g else remat, plain) if remat else None
+    sh = current_shard()
+    keep = sh.keep_shards if sh is not None else contextlib.nullcontext
+    for l in range(n):
+        layer = layer_at(layers, l)
+        lo = layer_at(lora, l) if lora is not None else None
+        args = (layer, lo, lora_scaling, x, positions, inv_freq, lengths, cache, l,
+                cache_positions, lora_ids)
+        if ckpt is not None and not (g and l % g == g - 1):
+            x = ckpt(*args)
+        else:  # the backward keeps the FSDP shards of the layer's weights only
+            with keep():
+                x = plain(*args)
+    return x
+
+
 def decoder_forward(cfg: DecoderConfig, params: Dict[str, Any], inputs_embeds: torch.Tensor,
                     lengths: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None,
                     lora: Optional[Dict[str, Any]] = None, lora_scaling: float = 1.0,
                     remat=False, lora_ids: Optional[torch.Tensor] = None,
-                    cache_positions: Optional[torch.Tensor] = None,
+                    cache_positions: Optional[torch.Tensor] = None, ring=None,
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Causal prefill over right-padded prompts: inputs_embeds (B, T, dim),
     lengths (B,) valid positions. Writes every layer's k/v into cache[..., :T, :]
@@ -547,37 +594,35 @@ def decoder_forward(cfg: DecoderConfig, params: Dict[str, Any], inputs_embeds: t
     positions cache_positions[b] + i, their k/v are written there, and they
     attend every cache position up to their own (``_cache_prefill_attn``).
 
+    ``ring=(mesh, axis)`` (no cache): every layer's attention is
+    ``parallel/ring_attention.py:ring_attention`` over the mesh axis, each
+    rank holding the whole input and its sequence shard of k/v, as the
+    JAX package's ``ring``.
+
     ``remat`` (training): ``True`` checkpoints every layer,
     ``"dots"`` every layer with the weight-matmul outputs saved, ``"1inK"``
     checkpoints K−1 of every K layers and runs the K-th plain (a K that does
     not divide ``n_layers`` degrades to full remat, with a warning)."""
     B, T, _ = inputs_embeds.shape
     cfg = _local_cfg(cfg)
-    inv_freq = _inv_freq(cfg, inputs_embeds.device)
     positions = torch.arange(T, device=inputs_embeds.device)[None].expand(B, T)
     if cache_positions is not None:
         if cache is None:
             raise ValueError("cache_positions needs a cache")
         positions = cache_positions.long()[:, None] + positions
-    g = _mixed_remat_group(remat)
-    if g and cfg.n_layers % g:
-        _warn_remat_degraded(remat, cfg.n_layers, "n_layers not divisible by K")
-        g, remat = 0, True
-    plain = functools.partial(_layer_forward, cfg)
-    ckpt = _checkpointed(True if g else remat, plain) if remat else None
-    sh = current_shard()
-    keep = sh.keep_shards if sh is not None else contextlib.nullcontext
-    x = inputs_embeds
-    for l in range(cfg.n_layers):
-        layer = layer_at(params["layers"], l)
-        lo = layer_at(lora, l) if lora is not None else None
-        args = (layer, lo, lora_scaling, x, positions, inv_freq, lengths, cache, l,
-                cache_positions, lora_ids)
-        if ckpt is not None and not (g and l % g == g - 1):
-            x = ckpt(*args)
-        else:  # the backward keeps the FSDP shards of the layer's weights only
-            with keep():
-                x = plain(*args)
+    attn = None
+    if ring is not None and cache is None:
+        from ..parallel.ring_attention import ring_attention
+
+        mesh, axis = ring
+
+        def attn(q, k, v, layer):
+            return ring_attention(q, k, v, mesh, axis_name=axis, lengths=lengths, causal=True,
+                                  layer=layer)
+
+    x = run_layer_stack(cfg, params["layers"], inputs_embeds, positions, lengths, lora,
+                        lora_scaling, remat, attn, cache=cache, cache_positions=cache_positions,
+                        lora_ids=lora_ids)
     return rms_norm(x, params["final_norm"], cfg.rms_eps), cache
 
 
@@ -675,7 +720,8 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
     scales = (cache["k_s"], cache["v_s"]) if quant else ()
     for l in range(L):
         layer, lo = _gathered(layer_at(params["layers"], l),
-                              layer_at(lora, l) if lora is not None else None)
+                              layer_at(lora, l) if lora is not None else None,
+                              bank=lora_ids is not None)
         q, k, v = _qkv_heads(cfg, layer, lo, lora_scaling, x, positions, inv_freq, lora_ids)
         if generic:
             out = _generic_decode_attn(cfg, q, k, v, cache, l, cache_positions)

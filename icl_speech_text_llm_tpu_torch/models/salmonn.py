@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..data.packing import IGNORE_INDEX
 from ..ops.mel import log_mel_spectrogram, pad_or_trim, wavs_to_float
 from .beats import BEATS_CONFIGS, BeatsConfig, beats_bias_table, beats_encode, beats_num_tokens, init_beats
 from .llama import (
@@ -207,12 +208,58 @@ def salmonn_train_loss(cfg: SalmonnConfig, params: Dict[str, Any], batch: Dict[s
     inside, ``remat`` as ``decoder_forward``), the logits and the CE run with
     grad. Under a mesh (``parallel/sharding.py``) the batch is the rank's
     rows, the encoders and the decoder run on their shards and the
-    Q-Former replicated, and the loss is the vocab-parallel one. ``pipeline``
-    and ``sp`` (the JAX package's pipeline and sequence-parallel decoders)
-    are the next slice of the port."""
-    if pipeline is not None or sp is not None:
-        raise NotImplementedError("pipeline / sequence-parallel decoders are not ported yet "
-                                  "(ROADMAP, parallel slice)")
+    Q-Former replicated, and the loss is the vocab-parallel one.
+
+    ``pipeline=(mesh, n_micro)`` runs the decoder as a GPipe pipeline over
+    the mesh's pp axis (``parallel/pipeline.py``): stage 0 alone runs the
+    encoders, the Q-Former and the assembly, the last stage alone the
+    logits and the CE, and the loss is summed over pp to every stage.
+    ``sp=(mesh, axis)`` cuts the decoder's activations along the sequence
+    over ``axis`` (``parallel/sequence_parallel.py``): each rank's CE over
+    its positions divided by the rows' label count, summed over the axis,
+    so the loss is the rows' on every rank and each rank's gradients are
+    its partial sums."""
+    B, L = batch["gather_idx"].shape
+    lengths = batch["seq_mask"].sum(dim=1).to(torch.int32)
+    scaling = cfg.lora.scaling if cfg.lora is not None else 1.0
+    lora, labels = params.get("lora"), batch["shifted_labels"]
+    if pipeline is not None:
+        from ..parallel.pipeline import last_stage_loss, pipeline_stage_forward
+        from ..parallel.sharding import context_of
+
+        mesh, n_micro = pipeline
+        if context_of(mesh).pp_rank == 0:
+            seq = _train_sequence(cfg, params, batch)
+        else:  # read on stage 0 alone
+            seq = torch.zeros((), dtype=cfg.compute_dtype, device=labels.device).expand(
+                B, L, cfg.llm.dim)
+        out = pipeline_stage_forward(mesh, cfg.llm, params["llm"], seq, lengths, n_micro,
+                                     lora=lora, lora_scaling=scaling, remat=remat)
+        return last_stage_loss(mesh, lambda h: decoder_loss(cfg.llm, params["llm"], h, labels),
+                               out)
+    seq = _train_sequence(cfg, params, batch)
+    if sp is not None:
+        from ..parallel import collectives
+        from ..parallel.mesh import axis_group
+        from ..parallel.sequence_parallel import sp_hidden, sp_slice
+
+        mesh, axis = sp
+        hidden = sp_hidden(mesh, axis, cfg.llm, params["llm"], seq, lengths, lora, scaling,
+                           remat)
+        mine = labels[:, sp_slice(mesh, axis, L)]
+        count = (mine != IGNORE_INDEX).sum()
+        total = (labels != IGNORE_INDEX).sum().clamp(min=1)
+        part = decoder_loss(cfg.llm, params["llm"], hidden, mine) * (count / total)
+        return collectives.ReduceFromGroup.apply(part, axis_group(mesh, axis))
+    hidden, _ = decoder_forward(cfg.llm, params["llm"], seq, lengths, lora=lora,
+                                lora_scaling=scaling, remat=remat)
+    return decoder_loss(cfg.llm, params["llm"], hidden, labels)
+
+
+def _train_sequence(cfg: SalmonnConfig, params: Dict[str, Any],
+                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The train loss's decoder input: the frozen encoders without grad,
+    then the Q-Former and the assembly (B, L, dim)."""
     B = batch["text_tokens"].shape[0]
     with torch.no_grad():
         wavs = wavs_to_float(batch["wavs"])
@@ -222,9 +269,4 @@ def salmonn_train_loss(cfg: SalmonnConfig, params: Dict[str, Any], batch: Dict[s
                                  flat if cfg.beats is not None else None)
     speech = qformer_windows(cfg.qformer, params["qformer"], feats)
     speech = speech.reshape(B, n_slots, -1, cfg.llm.dim)
-    seq = assemble_sequence(cfg, params, batch["text_tokens"], speech, batch["gather_idx"])
-    lengths = batch["seq_mask"].sum(dim=1).to(torch.int32)
-    scaling = cfg.lora.scaling if cfg.lora is not None else 1.0
-    hidden, _ = decoder_forward(cfg.llm, params["llm"], seq, lengths, lora=params.get("lora"),
-                                lora_scaling=scaling, remat=remat)
-    return decoder_loss(cfg.llm, params["llm"], hidden, batch["shifted_labels"])
+    return assemble_sequence(cfg, params, batch["text_tokens"], speech, batch["gather_idx"])

@@ -14,10 +14,20 @@ shard context that names the groups):
 - ``GatherShards``: all-gather forward, reduce-scatter backward (an
   FSDP-sharded trainable leaf, gathered at its layer's start);
 - ``GatherDim``: all-gather forward, this rank's slice backward (logits
-  and heads gathered along a dim).
+  and heads gathered along a dim);
+- ``send`` / ``recv``: one tensor from this rank to a neighbour of its
+  group (the pipeline's activations and their gradients), and ``Shift``:
+  every rank of a group sends to the rank ``offset`` after it and receives
+  from the one ``offset`` before it, forward; the reverse shift of the
+  gradient backward (ring attention's KV rotation).
 
-Every call to a primitive counts one under its family (``counts()``), so
-tests and ``chip_smoke.py`` hold the number a step issues to a formula.
+Every call to a primitive counts one under its family (``counts()``; each
+send and each receive one ``p2p``), so tests and ``chip_smoke.py`` hold
+the number a step makes to a formula. Every transfer carries a tag that
+names what it moves (``tag``): under gloo a receive only matches the send
+of its own tag, so a pair posted out of order waits out the group's
+timeout and raises rather than taking another tensor (NCCL matches by
+order alone).
 
 Transport: the group's backend decides it, never a failure. Under NCCL the
 tensors go as they are; under gloo a CUDA tensor is staged through pinned
@@ -34,7 +44,7 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
-FAMILIES = ("all_reduce", "all_gather", "reduce_scatter")
+FAMILIES = ("all_reduce", "all_gather", "reduce_scatter", "p2p")
 _COUNTS: collections.Counter = collections.Counter()
 
 
@@ -105,6 +115,55 @@ def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.to(t.device).movedim(0, dim).contiguous()
 
 
+def tag(*fields: int) -> int:
+    """One transfer's tag from at most three small fields (which transfer,
+    then e.g. layer and hop, or microbatch), each in [0, 1024)."""
+    if len(fields) > 3 or not all(0 <= f < 1024 for f in fields):
+        raise ValueError(f"tag fields {fields}: at most three, each in [0, 1024)")
+    out = 0
+    for f in fields:
+        out = out * 1024 + f
+    return out
+
+
+def _peer(group, offset: int) -> int:
+    """The global rank ``offset`` places after this one in ``group``."""
+    n = dist.get_world_size(group)
+    return dist.get_global_rank(group, (dist.get_rank(group) + offset) % n)
+
+
+def send(t: torch.Tensor, group, offset: int, tag: int) -> None:
+    """``t`` to the rank ``offset`` after this one in ``group``."""
+    _COUNTS["p2p"] += 1
+    buf = _host(t) if _staged(t, group) else t.contiguous()
+    dist.send(buf, _peer(group, offset), group=group, tag=tag)
+
+
+def recv(shape, dtype, device, group, offset: int, tag: int) -> torch.Tensor:
+    """A new tensor from the rank ``offset`` after this one in ``group``."""
+    _COUNTS["p2p"] += 1
+    staged = torch.device(device).type == "cuda" and dist.get_backend(group) != "nccl"
+    buf = torch.empty(shape, dtype=dtype, pin_memory=staged,
+                      device="cpu" if staged else device)
+    dist.recv(buf, _peer(group, offset), group=group, tag=tag)
+    return buf.to(device)
+
+
+def shift(t: torch.Tensor, group, offset: int, tag: int) -> torch.Tensor:
+    """Every rank of ``group`` sends ``t`` to the rank ``offset`` after it
+    and returns what the rank ``offset`` before it sent (both posted before
+    either is waited on: the ring has no first sender)."""
+    _COUNTS["p2p"] += 2
+    staged = _staged(t, group)
+    src = _host(t) if staged else t.contiguous()
+    out = torch.empty(src.shape, dtype=src.dtype, pin_memory=staged, device=src.device)
+    works = [dist.isend(src, _peer(group, offset), group=group, tag=tag),
+             dist.irecv(out, _peer(group, -offset), group=group, tag=tag)]
+    for w in works:
+        w.wait()
+    return out.to(t.device)
+
+
 def reduce_f32(t: torch.Tensor, group) -> torch.Tensor:
     """Sum over ``group`` in f32, cast once to ``t``'s dtype."""
     return all_reduce(t.float(), group).to(t.dtype)
@@ -162,3 +221,17 @@ class GatherDim(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+class Shift(torch.autograd.Function):
+    """``shift`` by ``offset`` forward; the gradient shifted back by
+    ``-offset`` backward (tagged ``bwd_tag``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, offset, fwd_tag, bwd_tag):
+        ctx.group, ctx.offset, ctx.tag = group, offset, bwd_tag
+        return shift(x, group, offset, fwd_tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shift(g, ctx.group, -ctx.offset, ctx.tag), None, None, None, None

@@ -8,11 +8,10 @@ Data parallelism is the ``dp`` axis: each rank steps its rows of the global
 batch and the gradients are summed over the axis's group
 (``training/step.py``); ``fsdp`` shards the big matrices' other dim and
 the batch too, ``tp`` the heads, columns and vocabulary
-(``parallel/sharding.py``). Each axis has its sub-group and this rank's
+(``parallel/sharding.py``), and ``pp`` the decoder's layers into stages
+of a GPipe schedule (``parallel/pipeline.py``; the ranks that differ only
+in pp are one pipeline). Each axis has its sub-group and this rank's
 coordinate on it (``axis_group``, ``axis_rank``, ``axis_size``).
-
-The pipeline (pp > 1) raises ``NotImplementedError``: it is the next slice
-of the port (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -47,10 +46,6 @@ def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, pp: int = 1,
     mesh of one starts a group of one (its store in this process), so the
     data-parallel step runs its reductions even alone.
     """
-    if pp != 1:
-        raise NotImplementedError(
-            f"mesh dp{dp}xpp{pp}xfsdp{fsdp}xtp{tp}: pipeline parallelism (pp > 1) is not "
-            "ported yet; it is the next slice of the port (ROADMAP.md queue 1 item 3)")
     want = dp * fsdp * tp * pp
     if not dist.is_initialized() and want == 1:
         initialize_distributed(num_processes=1, process_id=0, device=device)

@@ -18,6 +18,12 @@ the mesh, which the mesh-aware entry points install with
 every layer then takes its one-process path). One divergence from GSPMD: a
 sharded dim that its axis size does not divide raises ``ValueError`` here,
 where GSPMD pads.
+
+Pipeline stages (a mesh with pp > 1) are a separate cut after the rule
+table (``stage_params``): a stage holds only its contiguous slice of the
+decoder's stacked layers and of the LoRA along the layer dim, and
+``gather_params`` gathers the slices back over pp. JAX keeps them
+replicated over pp and slices them inside its ``shard_map``.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 from . import collectives as C
-from .mesh import DP_AXIS, FSDP_AXIS, TP_AXIS, axis_group, axis_rank, axis_size
+from .mesh import DP_AXIS, FSDP_AXIS, PP_AXIS, TP_AXIS, axis_group, axis_rank, axis_size
 
 Spec = Tuple[Optional[str], ...]
 
@@ -81,6 +87,15 @@ def spec_for_path(path: str, ndim: int) -> Spec:
     return ()
 
 
+#: the layer-stacked subtrees whose dim 0 a pipeline stage holds its slice of
+_STAGED = re.compile(r"^(llm/layers|lora)/")
+
+
+def is_staged(path: str) -> bool:
+    """True for a leaf whose layers are cut over the pipeline's stages."""
+    return bool(_STAGED.match(path))
+
+
 def tree_paths(tree, prefix: str = ""):
     """(path, leaf) of a nested dict, 'a/b/c' paths, in insertion order."""
     if isinstance(tree, dict):
@@ -116,7 +131,8 @@ def _sharded_dims(path: str, leaf, sizes: Dict[str, int]):
 class ShardContext:
     """This rank's place in a (dp, pp, fsdp, tp) mesh: each axis's size,
     coordinate and process group, and the collectives the sharded layers
-    call (no-ops over an axis of size 1)."""
+    call (no-ops over an axis of size 1). The layers never read pp: a
+    stage runs its layers as a whole model would (``parallel/pipeline.py``)."""
 
     sizes: Dict[str, int]
     ranks: Dict[str, int]
@@ -127,7 +143,7 @@ class ShardContext:
 
     @classmethod
     def of(cls, mesh) -> "ShardContext":
-        axes = (DP_AXIS, FSDP_AXIS, TP_AXIS)
+        axes = (DP_AXIS, PP_AXIS, FSDP_AXIS, TP_AXIS)
         return cls({a: axis_size(mesh, a) for a in axes},
                    {a: axis_rank(mesh, a) for a in axes},
                    {a: axis_group(mesh, a) for a in axes})
@@ -143,6 +159,14 @@ class ShardContext:
     @property
     def tp_rank(self) -> int:
         return self.ranks[TP_AXIS]
+
+    @property
+    def pp(self) -> int:
+        return self.sizes[PP_AXIS]
+
+    @property
+    def pp_rank(self) -> int:
+        return self.ranks[PP_AXIS]
 
     def local_heads(self, n_heads: int, what: str = "heads") -> int:
         if n_heads % self.tp:
@@ -245,8 +269,8 @@ class ShardContext:
 
 #: one process's context: every axis of size 1, so every slice is whole
 #: and every collective the identity (the layers' ``current_shard() or ONE``)
-ONE = ShardContext({DP_AXIS: 1, FSDP_AXIS: 1, TP_AXIS: 1}, {DP_AXIS: 0, FSDP_AXIS: 0, TP_AXIS: 0},
-                   {})
+ONE = ShardContext({DP_AXIS: 1, PP_AXIS: 1, FSDP_AXIS: 1, TP_AXIS: 1},
+                   {DP_AXIS: 0, PP_AXIS: 0, FSDP_AXIS: 0, TP_AXIS: 0}, {})
 
 _SHARD: contextvars.ContextVar = contextvars.ContextVar("shard", default=None)
 
@@ -279,9 +303,9 @@ def context_of(mesh) -> Optional[ShardContext]:
 
 
 def is_sharded(mesh) -> bool:
-    """True where fsdp or tp > 1 (a dp-only mesh keeps every leaf whole)."""
+    """True where fsdp, tp or pp > 1 (a dp-only mesh keeps every leaf whole)."""
     ctx = context_of(mesh)
-    return ctx is not None and (ctx.fsdp > 1 or ctx.tp > 1)
+    return ctx is not None and (ctx.fsdp > 1 or ctx.tp > 1 or ctx.pp > 1)
 
 
 def shard_params(params: Dict[str, Any], mesh) -> Dict[str, Any]:
@@ -299,9 +323,44 @@ def shard_params(params: Dict[str, Any], mesh) -> Dict[str, Any]:
     return _map_paths(cut, params)
 
 
+def stage_params(params: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """This pipeline stage's contiguous slice of the layers (dim 0) of every
+    ``llm/layers`` and ``lora`` leaf (copies); the rest as it is. Applied
+    after ``shard_params``; the identity where pp is 1."""
+    ctx = context_of(mesh)
+    if ctx is None or ctx.pp == 1:
+        return params
+
+    def cut(path, leaf):
+        if not (is_staged(path) and isinstance(leaf, torch.Tensor)):
+            return leaf
+        if leaf.shape[0] % ctx.pp:
+            raise ValueError(f"{leaf.shape[0]} layers not divisible by pp={ctx.pp}")
+        n = leaf.shape[0] // ctx.pp
+        return leaf.narrow(0, ctx.pp_rank * n, n).clone()
+
+    return _map_paths(cut, params)
+
+
+def gather_stages(params: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """``stage_params``' inverse: the stages' layer slices gathered over pp
+    (a collective over the pipeline); the rest as it is."""
+    ctx = context_of(mesh)
+    if ctx is None or ctx.pp == 1:
+        return params
+
+    def gather(path, leaf):
+        if not (is_staged(path) and isinstance(leaf, torch.Tensor)):
+            return leaf
+        return C.all_gather(leaf.detach(), 0, ctx.groups[PP_AXIS])
+
+    return _map_paths(gather, params)
+
+
 def gather_params(params: Dict[str, Any], mesh) -> Dict[str, Any]:
-    """``shard_params``' inverse: every sharded leaf gathered whole (a
-    collective: every rank calls it); shapes give the rule's dims back."""
+    """``stage_params(shard_params(·))``' inverse: every sharded leaf
+    gathered whole (a collective: every rank calls it); shapes give the
+    rule's dims back."""
     ctx = context_of(mesh)
 
     def gather(path, leaf):
@@ -313,12 +372,17 @@ def gather_params(params: Dict[str, Any], mesh) -> Dict[str, Any]:
                 out = C.all_gather(out, dim, ctx.groups[axis])
         return out
 
-    return _map_paths(gather, params)
+    return gather_stages(_map_paths(gather, params), mesh)
 
 
 def leaf_axes(path: str, leaf) -> Tuple[str, ...]:
     """The axes (fsdp, tp) a leaf at ``path`` is cut over by the rules."""
     return tuple(a for a in spec_for_path(path, leaf.dim()) if a is not None)
+
+
+def cut_axes(path: str, leaf, ctx: ShardContext) -> Tuple[str, ...]:
+    """``leaf_axes``, and pp for a staged leaf where pp > 1."""
+    return leaf_axes(path, leaf) + ((PP_AXIS,) if ctx.pp > 1 and is_staged(path) else ())
 
 
 def batch_shard(mesh) -> Tuple[int, int]:

@@ -16,10 +16,12 @@ tp group collate the same rows), so ``batch_size`` stays the global batch;
 validation shards the samples the same way (``shard_indices`` without
 shuffle), generates under the mesh's shard context, gathers the
 predictions on every rank and drops the duplicates the wrap-around padding
-and the tp ranks made; only rank 0 logs steps and writes checkpoints. A
-sharded mesh's checkpoint holds the gathered leaves (every rank takes part
-in the gather, rank 0 writes), in the one-process format, and a resume
-cuts the loaded leaves to the rank's blocks.
+and the tp and pp ranks made; only rank 0 logs steps and writes
+checkpoints. A sharded mesh's checkpoint holds the gathered leaves (every
+rank takes part in the gather, rank 0 writes), in the one-process format,
+and a resume cuts the loaded leaves to the rank's blocks. Under a pipeline
+(pp > 1) validation generates with the layers gathered over pp (every
+stage holds the whole decoder while it generates, as JAX keeps it).
 """
 
 from __future__ import annotations
@@ -44,8 +46,10 @@ from ..parallel.sharding import (
     batch_shard,
     context_of,
     gather_params,
+    gather_stages,
     is_sharded,
     shard_params,
+    stage_params,
 )
 from ..registry import DatasetType
 from .checkpoint import copy_into, load_checkpoint, save_checkpoint
@@ -191,7 +195,7 @@ def _blocks(tree, mesh):
     """A loaded numpy tree cut to this rank's blocks under a sharded mesh."""
     if not is_sharded(mesh):
         return tree
-    return shard_params(_tensors(tree), mesh)
+    return stage_params(shard_params(_tensors(tree), mesh), mesh)
 
 
 def _tensors(tree):
@@ -272,9 +276,10 @@ def train(model, state: TrainState, frozen: Dict[str, Any], step_fn: Callable,
         if val_dataset is not None and dataset_types:
             # validation generates with the CURRENT trainable weights
             model.params = merge_params(frozen, state.trainable)
-            model.engine.params = model.params
+            model.engine.params = gather_stages(model.params, mesh)
             val_metrics = validate(model.engine, val_dataset, pack_cfg, dataset_types, settings,
                                    rank, world)
+            model.engine.params = model.params
             if main:
                 logger.info(f"epoch {epoch} validation: " + ", ".join(
                     f"{k}={_headline(v):.4f}" for k, v in val_metrics.items()))

@@ -42,6 +42,20 @@ are summed over the axes it is cut over, a replicated leaf's taken once.
 Clipping uses that norm, AdamW steps the local blocks, and the non-finite
 flag is summed over the whole world.
 
+Pipeline parallelism (``pipeline=(mesh, n_micro)``, the JAX package's
+argument; a mesh with pp > 1): the loss is the GPipe decoder's
+(``models/salmonn.py``), the same on every stage; a stage's LoRA leaves
+are its layers' slice (``sharding.stage_params``) and get their gradient
+there alone, while a leaf every stage holds whole (the Q-Former, which
+stage 0 alone runs) has its gradient summed over pp, non-zero on stage 0
+alone. The norm counts each stage's slices once (``cut_axes``).
+
+Sequence parallelism (``sp=(mesh, axis)``): the ranks of ``axis`` hold
+the same rows and whole weights, each runs the decoder on its positions,
+and every gradient is a partial sum over the axis, summed there (the
+loss is already summed by the loss function); the mesh's other axes are
+batch axes as above.
+
 PyTorch idiom: the trainable leaves are f32 tensors that require grad, the
 step updates them and the optimizer state in place (no second copy of the
 weights) and returns the same ``TrainState``.
@@ -58,8 +72,16 @@ import torch.distributed as dist
 
 from ..data.packing import IGNORE_INDEX
 from ..models.salmonn import TRAINABLE_KEYS, SalmonnConfig, salmonn_train_loss
-from ..parallel.mesh import DP_AXIS, FSDP_AXIS, TP_AXIS
-from ..parallel.sharding import context_of, is_sharded, leaf_axes, shard_context, tree_paths
+from ..parallel.mesh import DP_AXIS, FSDP_AXIS, PP_AXIS, TP_AXIS
+from ..parallel.sharding import (
+    context_of,
+    cut_axes,
+    is_sharded,
+    is_staged,
+    leaf_axes,
+    shard_context,
+    tree_paths,
+)
 from ..parallel import collectives
 
 #: Subtrees that train by default (everything else is frozen), as in the JAX
@@ -203,10 +225,11 @@ def init_train_state(params: Dict[str, Any], optimizer: AdamW,
 
 
 def _loss_and_grads(cfg, loss_fn, remat, state: TrainState, frozen: Dict[str, Any],
-                    batch: Dict[str, torch.Tensor], weight=None):
-    """The loss (× ``weight``) and its gradients over the trainable leaves."""
+                    batch: Dict[str, torch.Tensor], weight=None, **kw):
+    """The loss (× ``weight``) and its gradients over the trainable leaves;
+    ``kw`` the loss function's ``pipeline`` / ``sp``."""
     leaves = tree_leaves(state.trainable)
-    loss = loss_fn(cfg, merge_params(frozen, state.trainable), batch, remat=remat)
+    loss = loss_fn(cfg, merge_params(frozen, state.trainable), batch, remat=remat, **kw)
     if weight is not None:
         loss = loss * weight
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -215,16 +238,18 @@ def _loss_and_grads(cfg, loss_fn, remat, state: TrainState, frozen: Dict[str, An
 
 
 def make_train_probe(cfg: SalmonnConfig, loss_fn: Callable = salmonn_train_loss,
-                     remat=False, mesh=None) -> Callable:
+                     remat=False, mesh=None, pipeline=None) -> Callable:
     """The step's forward and backward without its optimizer update:
     (state, frozen, batch) → (loss, gradients), changing no state. What
     ``--auto_batch`` runs at each candidate batch size; under a sharded
-    ``mesh`` on the rank's blocks and rows (no gradient reduction)."""
+    ``mesh`` on the rank's blocks and rows (no gradient reduction), through
+    the ``pipeline`` where one is given."""
     ctx = context_of(mesh) if is_sharded(mesh) else None
+    kw = {} if pipeline is None else {"pipeline": pipeline}
 
     def probe(state: TrainState, frozen: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         with shard_context(ctx):
-            return _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch)
+            return _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch, **kw)
 
     return probe
 
@@ -240,10 +265,11 @@ def _sum_over(t: torch.Tensor, ctx, *axes) -> torch.Tensor:
 
 
 def sharded_norm_fn(trainable: Dict[str, Any], ctx) -> Callable:
-    """The global norm of a tree of local blocks cut by the rule table:
-    each leaf's squares summed over the axes it is cut over, a replicated
-    leaf's taken once (one all-reduce an axis combination)."""
-    axes = [leaf_axes(path, leaf) for path, leaf in tree_paths(trainable)]
+    """The global norm of a tree of local blocks cut by the rule table and
+    the pipeline's stages: each leaf's squares summed over the axes it is
+    cut over, a replicated leaf's taken once (one all-reduce an axis
+    combination)."""
+    axes = [cut_axes(path, leaf, ctx) for path, leaf in tree_paths(trainable)]
 
     def norm(grads):
         groups: Dict[Tuple[str, ...], torch.Tensor] = {}
@@ -256,17 +282,33 @@ def sharded_norm_fn(trainable: Dict[str, Any], ctx) -> Callable:
     return norm
 
 
-def _mesh_loss_and_grads(cfg, loss_fn, remat, ctx, state, frozen, batch):
+def _sum_leaves(grads, which, ctx, axis):
+    """``grads`` with the leaves ``which`` marks summed over ``axis`` (one
+    all-reduce of them all)."""
+    picked = [g for g, w in zip(grads, which) if w]
+    if not picked:
+        return grads
+    flat = _sum_over(torch.cat([g.reshape(-1) for g in picked]), ctx, axis)
+    summed = iter(v.view_as(g) for v, g in zip(flat.split([g.numel() for g in picked]), picked))
+    return [next(summed) if w else g for g, w in zip(grads, which)]
+
+
+def _mesh_loss_and_grads(cfg, loss_fn, remat, ctx, state, frozen, batch, **kw):
     """This rank's share of the global token-mean loss and its gradients
-    reduced over the batch axes: (global loss, reduced local gradients,
-    skip flag), the same on every rank (module docstring)."""
+    reduced over the batch axes (and over pp or the sp axis where they are
+    partial sums there): (global loss, reduced local gradients, skip
+    flag), the same on every rank (module docstring); ``kw`` the loss
+    function's ``pipeline`` / ``sp``."""
+    sp = kw.get("sp")
     count = (batch["shifted_labels"] != IGNORE_INDEX).sum().to(torch.float32)
     total = _sum_over(count, ctx, FSDP_AXIS, DP_AXIS)
-    with shard_context(ctx if ctx.fsdp > 1 or ctx.tp > 1 else None):
+    layered = sp is None and (ctx.fsdp > 1 or ctx.tp > 1)
+    with shard_context(ctx if layered else None):
         loss, grads = _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch,
-                                      weight=count / total.clamp(min=1))
-    fsdp_cut = [ctx.fsdp > 1 and FSDP_AXIS in leaf_axes(path, leaf)
-                for path, leaf in tree_paths(state.trainable)]
+                                      weight=count / total.clamp(min=1), **kw)
+    paths = list(tree_paths(state.trainable))
+    fsdp_cut = [layered and ctx.fsdp > 1 and FSDP_AXIS in leaf_axes(path, leaf)
+                for path, leaf in paths]
     whole = [g for g, cut in zip(grads, fsdp_cut) if not cut]
     flat = torch.cat([g.reshape(-1) for g in whole]
                      + [loss.reshape(1), (~torch.isfinite(loss)).to(torch.float32).reshape(1)])
@@ -279,28 +321,51 @@ def _mesh_loss_and_grads(cfg, loss_fn, remat, ctx, state, frozen, batch):
     whole = iter(v.view_as(g) for v, g in zip(flat[:-2].split([g.numel() for g in whole]),
                                                whole))
     grads = [next(cut) if c else next(whole) for c in fsdp_cut]
+    if sp is not None:  # every gradient a partial sum over the sp axis
+        grads = _sum_leaves(grads, [True] * len(grads), ctx, sp[1])
+    elif ctx.pp > 1:  # a leaf every stage holds whole: non-zero on stage 0 alone
+        grads = _sum_leaves(grads, [not is_staged(path) for path, _ in paths], ctx, PP_AXIS)
     return flat[-2], grads, bool(flag[0] > 0)
 
 
 def make_train_step(cfg: SalmonnConfig, optimizer: AdamW,
-                    loss_fn: Callable = salmonn_train_loss, remat=False, mesh=None) -> Callable:
+                    loss_fn: Callable = salmonn_train_loss, remat=False, mesh=None,
+                    pipeline=None, sp=None) -> Callable:
     """Build the step: (state, frozen, batch) → (state, metrics) with metrics
     ``loss``, ``grad_norm`` (of the micro-batch gradients, before clipping),
     ``skipped_nonfinite`` and ``step`` (the micro-step it ran as). With a
     ``mesh`` the batch is this rank's rows of the global batch, and the
     loss, gradients and skip are the global batch's (module docstring); a
-    mesh with fsdp or tp > 1 takes ``state`` and ``frozen`` as the rank's
-    blocks (``shard_params``)."""
+    mesh with fsdp, tp or pp > 1 takes ``state`` and ``frozen`` as the
+    rank's blocks (``shard_params``, then ``stage_params``).
+    ``pipeline=(mesh, n_micro)`` (its mesh is the step's) GPipes the
+    decoder; ``sp=(mesh, axis)`` cuts its activations along T over
+    ``axis``, the weights whole on every rank."""
+    if pipeline is not None and sp is not None:
+        raise ValueError("pipeline and sp are two ways to run the decoder: pass one")
+    kw = {}
+    if pipeline is not None:
+        if mesh is not None and mesh is not pipeline[0]:
+            raise ValueError("the pipeline's mesh must be the step's")
+        mesh, kw = pipeline[0], {"pipeline": pipeline}
+    if sp is not None:
+        if mesh is not None and mesh is not sp[0]:
+            raise ValueError("the sp mesh must be the step's")
+        if sp[1] in (DP_AXIS, FSDP_AXIS):
+            raise ValueError(f"sp over {sp[1]!r}: a batch axis splits the rows, not the "
+                             "sequence")
+        mesh, kw = sp[0], {"sp": sp}
     ctx = context_of(mesh)
 
     def step(state: TrainState, frozen: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        norm_fn = sharded_norm_fn(state.trainable, ctx) if is_sharded(mesh) else global_norm
+        sharded = sp is None and is_sharded(mesh)
+        norm_fn = sharded_norm_fn(state.trainable, ctx) if sharded else global_norm
         if ctx is None:
             loss, grads = _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch)
             nonfinite = False
         else:
             loss, grads, nonfinite = _mesh_loss_and_grads(cfg, loss_fn, remat, ctx, state,
-                                                          frozen, batch)
+                                                          frozen, batch, **kw)
         ok = not nonfinite and bool(torch.isfinite(loss))
         norm = norm_fn(grads)
         metrics = {"loss": loss.item(), "grad_norm": norm.item(),

@@ -131,9 +131,10 @@ def test_mesh_spec_parses_as_jax():
     assert tmesh.parse_mesh("4,2,1") == (4, 2, 1, 1)
     assert tmesh.parse_mesh("2,1,1,2") == (2, 1, 1, 2)
     assert tmesh.AXES == ("dp", "pp", "fsdp", "tp")
-    # FSDP and tensor parallelism are ported: a tp mesh needs its processes
+    # FSDP, tensor and pipeline parallelism are ported: such a mesh needs
+    # its processes
     with pytest.raises(ValueError, match="2 != 1 processes"):
         tmesh.make_mesh(dp=1, tp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(ValueError, match=r"dp1xpp2xfsdp1xtp1 = 2 != 1 processes"):
         tmesh.make_mesh(dp=1, pp=2, device="cpu")
     assert not torch.distributed.is_initialized()

@@ -28,7 +28,8 @@ REQUIRED = ("training.step", "training.loop", "training.schedulers", "training.c
             "cli.interactive", "models.multi_task", "utils.perf", "utils.memory",
             "utils.logging_utils", "config", "config.static_configs",
             "data.fewshot_retrieval", "parallel", "parallel.multihost", "parallel.mesh",
-            "parallel.sharding", "parallel.collectives")
+            "parallel.sharding", "parallel.collectives", "parallel.pipeline",
+            "parallel.ring_attention", "parallel.sequence_parallel")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys

@@ -10,7 +10,9 @@ weights (carried across by ``bridge.py``, LoRA B drawn non-zero):
 - (1,1,2): the train loss, one train step, greedy tokens, the XLA, FLASH
   and GENERIC decode routes, Qwen2-Audio's loss (qwen2-0.5b's 14 heads and
   2 KV heads become 7 and 1, tied vocab-sharded logits, q/k/v biases, the
-  tower whole); a second spawn: int8 tokens (the quantized leaves whole on
+  tower whole), the serving engine with a 2-adapter LoRA bank on every
+  target (whole on every rank, a prefix and a beam request under an
+  adapter); a second spawn: int8 tokens (the quantized leaves whole on
   every rank) and ``--auto_batch --mesh 1,1,2``;
 - (1,2,1): the train loss and step;
 - (2,2,2): the train loss and step, greedy tokens and the serving engine
@@ -181,11 +183,50 @@ def qwen_inputs():
 
 
 @pytest.fixture(scope="module")
-def tp2(tmp_path_factory, world, decode_inputs, qwen_inputs):
+def bank_inputs():
+    """The serving case with a 2-adapter bank on all seven targets (B
+    non-zero): requests alternate adapters, the prefix and the beam
+    request run under adapter 1; JAX's engine unsharded."""
+    cfg = jllama.DECODER_CONFIGS["tiny"]
+    params = _np(jllama.init_decoder(jax.random.PRNGKey(0), cfg))
+    lcfg = jllama.LoraConfig(rank=4, alpha=8.0, targets=tuple(jllama.LORA_TARGET_SHAPES))
+    rng = np.random.RandomState(4)
+    adapters = []
+    for seed in (5, 6):
+        lo = _np(jllama.init_lora(jax.random.PRNGKey(seed), cfg, lcfg))
+        for sub in lo.values():
+            sub["b"] = (rng.randn(*sub["b"].shape) * 0.05).astype(np.float32)
+        adapters.append(lo)
+    bank = _np(jllama.stack_lora_bank([_jnp(a) for a in adapters]))
+    serving = dict(num_slots=2, max_new_tokens=5, prompt_buckets=[16, 32],
+                   prefix_buckets=[16], eos_token_id=2)
+    reqs = [(rng.randn(int(n), cfg.dim).astype(np.float32) * 0.3, int(n))
+            for n in rng.randint(5, 30, size=5)]
+    prefix = rng.randn(12, cfg.dim).astype(np.float32) * 0.3
+    adapter_ids = [1, 0, 1, 0, 1]
+    spec = {"decoder": "tiny", "serving": serving, "lengths": [n for _, n in reqs],
+            "prefix_request": 0, "beam_request": len(reqs) - 1, "adapters": adapter_ids,
+            "prefix_adapter": 1, "lora_scaling": lcfg.scaling}
+    arrays = {**{f"params.{k}": v for k, v in chip_smoke._paths(params).items()},
+              **{f"bank.{k}": v for k, v in chip_smoke._paths(bank).items()},
+              **{f"req.{i}": e for i, (e, _) in enumerate(reqs)}, "prefix": prefix}
+    engine = jserving.ContinuousBatchingEngine(cfg, _jnp(params), jserving.ServingConfig(
+        **{k: tuple(v) if isinstance(v, list) else v for k, v in serving.items()}),
+        lora=_jnp(bank), lora_scaling=lcfg.scaling)
+    pid = engine.register_prefix(prefix, len(prefix), adapter_id=1)
+    rids = [engine.submit(e, n, num_beams=2 if i == len(reqs) - 1 else 1,
+                          prefix_id=pid if i == 0 else None, adapter_id=adapter_ids[i])
+            for i, (e, n) in enumerate(reqs)]
+    res = engine.run()
+    return ("serve_bank", arrays, spec), [res[r] for r in rids]
+
+
+@pytest.fixture(scope="module")
+def tp2(tmp_path_factory, world, decode_inputs, qwen_inputs, bank_inputs):
     params, batch, gen = world
-    inputs = [("gen", gen, {"kw": GEN_KW}), decode_inputs[0], *qwen_inputs[0]]
+    inputs = [("gen", gen, {"kw": GEN_KW}), decode_inputs[0], *qwen_inputs[0], bank_inputs[0]]
     return _spawn(tmp_path_factory, params, batch, "1,1,2",
-                  ("loss", "step", "generate", "decode", "qwen"), 2, inputs)[0]
+                  ("loss", "step", "generate", "decode", "qwen", "serve_bank"), 2, inputs)[0]
 
 
 @pytest.fixture(scope="module")
@@ -323,6 +364,15 @@ def test_serving_under_the_mesh_matches_jax_unsharded(mesh222, serve_inputs):
     for res, _ in mesh222:
         assert res["serve"]["results"] == serve_inputs[1]
         assert all(len(t) for t in res["serve"]["results"])
+
+
+def test_lora_bank_serving_under_tp_matches_jax_unsharded(tp2, bank_inputs):
+    """A bank whole on every tp rank: column targets cut B's columns, row
+    targets A's rows (their partial deltas summed with the product's), a
+    prefix and a beam lane under an adapter; token for token."""
+    for res, _ in tp2:
+        assert res["serve_bank"]["results"] == bank_inputs[1]
+        assert all(len(t) for t in res["serve_bank"]["results"])
 
 
 def test_decode_routes_under_tp_match_jax_generic(tp2, decode_inputs):

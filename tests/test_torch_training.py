@@ -182,11 +182,35 @@ def test_cross_entropy_matches_jax_including_masked_and_out_of_vocab_labels():
 
 
 def test_pipeline_and_sp_are_not_ported(world):
+    """The pipeline and sequence-parallel decoders are ported (their
+    parity with JAX is ``tests/test_torch_pipeline.py`` and
+    ``tests/test_torch_sequence_parallel.py``, on gloo ranks); this pins,
+    in one process (a group of one), JAX's batch guard and its message,
+    the step's refusals of what JAX's step cannot mean, and that a
+    pipeline of one stage and a sequence over one rank give the plain
+    loss."""
+    from icl_speech_text_llm_tpu_torch.parallel import make_mesh, shutdown_distributed
+
     params, batch = world
-    with pytest.raises(NotImplementedError):
-        tsalmonn.salmonn_train_loss(tsalmonn.salmonn_tiny(),
-                                    params_from_numpy(params, device="cpu"), {},
-                                    pipeline=(None, 2))
+    cfg = tsalmonn.salmonn_tiny()
+    tparams = params_from_numpy(params, device="cpu")
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    try:
+        mesh = make_mesh(device="cpu")
+        with torch.no_grad():
+            with pytest.raises(ValueError, match="batch 2 not divisible by n_micro=3"):
+                tsalmonn.salmonn_train_loss(cfg, tparams, tb, pipeline=(mesh, 3))
+            plain = tsalmonn.salmonn_train_loss(cfg, tparams, tb).item()
+            for kw in ({"pipeline": (mesh, 2)}, {"sp": (mesh, "tp")}):
+                assert tsalmonn.salmonn_train_loss(cfg, tparams, tb, **kw).item() == \
+                    pytest.approx(plain, rel=1e-6), kw
+        opt = tstep.AdamW(tstep.OptimizerSettings())
+        with pytest.raises(ValueError, match="pass one"):
+            tstep.make_train_step(cfg, opt, pipeline=(mesh, 2), sp=(mesh, "tp"))
+        with pytest.raises(ValueError, match="a batch axis splits the rows"):
+            tstep.make_train_step(cfg, opt, sp=(mesh, "dp"))
+    finally:
+        shutdown_distributed()
 
 
 # ---------------------------------------------------------------------------
@@ -371,14 +395,20 @@ def test_train_cli_runs_two_steps_on_cpu(tmp_path, capsys):
     assert resumed.state.step == 4 and resumed.state.opt_state["count"] == 4
     assert saved["opt_state"]["count"] == 2 and saved["meta"]["epoch"] == 1
     assert len(glob.glob(os.path.join(out, "epoch_1_loss_*"))) == 1
-    # only the pipeline stays unported; FSDP and tp meshes (and --auto_batch
-    # with them) need their processes: one process is the world-size error
-    for argv in (["--mesh", "1,1,1,2"], ["--pp_microbatches", "2"]):
-        with pytest.raises(NotImplementedError):
-            train.main(argv + ["--device", "cpu", "--output_dir", str(out)])
+    # --pp_microbatches is read only where pp > 1 (3 does not divide these
+    # 2 rows): the run is the first one's
+    again = train.main(["--model_type", "salmonn-tiny", "--synthetic", "--num_epochs", "1",
+                        "--batch_size", "2", "--max_samples", "4", "--seq_len", "768",
+                        "--text_len", "384", "--val_max_samples", "0", "--device", "cpu",
+                        "--save_every", "0", "--pp_microbatches", "3"])
+    assert again.losses == result.losses
+    # FSDP, tp and pp meshes (and --auto_batch with them) need their
+    # processes: one process is the world-size error
     for argv in (["--mesh", "2,1,1"], ["--mesh", "1,2,1"], ["--mesh", "1,1,2"],
-                 ["--mesh", "1,1,2", "--auto_batch"]):
+                 ["--mesh", "1,1,2", "--auto_batch"], ["--mesh", "1,1,1,2"]):
         with pytest.raises(ValueError, match="2 != 1 processes"):
             train.main(argv + ["--device", "cpu", "--output_dir", str(out)])
     with pytest.raises(SystemExit):
         train.main(["--compile_cache", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="no pipeline"):  # JAX's Qwen loss takes none
+        train.main(["--model_type", "qwen2-audio-tiny", "--mesh", "1,1,1,2", "--device", "cpu"])
