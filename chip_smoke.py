@@ -207,6 +207,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -3430,7 +3431,9 @@ def _dp_batch(cfg):
 
 def _dp_model(model, out_dir, device):
     """(cfg, params) of a ``_dp_worker`` model: ``"file"`` is salmonn-tiny
-    from ``out_dir/params.npz`` (f32; the CPU test's JAX weights);
+    from ``out_dir/params.npz`` (f32; the CPU test's JAX weights), with
+    ``out_dir/salmonn.json``'s overrides where there is one
+    (``_salmonn_variant``);
     ``"salmonn-7b-1layer"`` salmonn-7b's widths, one layer per stack, bf16
     with f32 trainable weights and LoRA B non-zero, drawn from seed 2 on
     ``device`` (every process draws the same; the kernels take its shapes)."""
@@ -3445,8 +3448,13 @@ def _dp_model(model, out_dir, device):
     )
 
     if model == "file":
+        cfg = salmonn_tiny()
+        variant = os.path.join(out_dir, "salmonn.json")
+        if os.path.exists(variant):
+            with open(variant) as f:
+                cfg = _salmonn_variant(json.load(f))
         with np.load(os.path.join(out_dir, "params.npz")) as f:
-            return salmonn_tiny(), params_from_numpy(_unpaths(dict(f)), device=device)
+            return cfg, params_from_numpy(_unpaths(dict(f)), device=device)
     cfg = _one_layer(salmonn_7b())
     if model != "salmonn-7b-1layer":  # "salmonn-7b" at full depth, or "salmonn-7b-Nlayer"
         depth = int(model.split("-")[2][:-len("layer")]) if model.count("-") == 2 else None
@@ -3457,6 +3465,17 @@ def _dp_model(model, out_dir, device):
     for sub in params["lora"].values():
         sub["b"] = torch.randn(sub["b"].shape, generator=gen, device=device) * 0.02
     return cfg, params
+
+
+def _salmonn_variant(spec, family=None):
+    """salmonn-tiny in the port's (or with ``family``, that package's)
+    salmonn module, each of ``spec``'s components ("whisper", "beats",
+    "llm") with its fields replaced."""
+    if family is None:
+        from icl_speech_text_llm_tpu_torch.models import salmonn as family
+    base = family.salmonn_tiny()
+    return dataclasses.replace(base, **{k: dataclasses.replace(getattr(base, k), **v)
+                                        for k, v in spec.items()})
 
 
 def _free_port():
@@ -3499,9 +3518,10 @@ def _dp_spawn(out_dir, model, params, batch, device, world=2, timeout=50, mesh=N
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    for r, proc in enumerate(procs):
-        if proc.returncode != 0:
-            raise AssertionError(f"dp rank {r} failed ({proc.returncode}):\n{outs[r][-3000:]}")
+    failed = [r for r, proc in enumerate(procs) if proc.returncode != 0]
+    if failed:  # every failed rank's tail: the first may only have lost a peer
+        raise AssertionError("\n".join(f"dp rank {r} failed ({procs[r].returncode}):\n"
+                                        f"{outs[r][-3000 // len(failed):]}" for r in failed))
     ranks = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -3710,19 +3730,26 @@ class _MeshRank:
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch_rows(arrays, self.mesh).items()}
 
-    def params(self, bits=None):
+    def params(self, bits=None, qwen=False):
         """(cfg, this rank's blocks and pipeline stage) of
-        ``_dp_model(model)``; with ``bits`` the LLM quantized first (its
-        leaves then stay whole)."""
+        ``_dp_model(model)``, or with ``qwen`` of ``_qwen_model``; with
+        ``bits`` the LLM quantized first (its leaves then stay whole)."""
+        import torch
+
         from icl_speech_text_llm_tpu_torch.ops.quant import quantize_decoder
         from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_params, stage_params
 
-        if bits not in self._params:
-            cfg, params = _dp_model(self.model, self.dir, self.device)
+        if (bits, qwen) not in self._params:
+            cfg, params = (_qwen_model(self.json("qwen"), self.dir, self.device) if qwen
+                           else _dp_model(self.model, self.dir, self.device))
             if bits:
                 quantize_decoder(params["llm"], bits=bits)
-            self._params[bits] = (cfg, stage_params(shard_params(params, self.mesh), self.mesh))
-        return self._params[bits]
+            self._params[bits, qwen] = (cfg, stage_params(shard_params(params, self.mesh),
+                                                          self.mesh))
+            del params
+            if torch.device(self.device).type == "cuda":  # the whole tree's blocks back
+                torch.cuda.empty_cache()  # to the ranks that share the card
+        return self._params[bits, qwen]
 
     @property
     def pipeline(self):
@@ -3758,17 +3785,20 @@ def _mt_loss(r):
 
 
 @_mesh_task
-def _mt_step(r, sp=False):
+def _mt_step(r, sp=False, qwen=False):
     """One train step (``DP_OPT``) on ``batch.npz``: its metrics and
     collective counts, the gathered trainable leaves and first moments
     after it; then a step with a label past the vocabulary on the last
     (dp, fsdp) coordinate's rows, which every rank must skip. Where pp > 1
     the decoder is the GPipe pipeline over ``PP_MICRO`` microbatches;
     ``sp``: the decoder sequence-parallel over the mesh's tp axis, the
-    weights whole on every rank."""
+    weights whole on every rank; ``qwen``: ``_qwen_model``'s
+    Qwen2-Audio on ``qbatch.npz``, its arrays named ``qwen_step.*``."""
     import torch
 
     from icl_speech_text_llm_tpu_torch.data.packing import IGNORE_INDEX
+    from icl_speech_text_llm_tpu_torch.models.qwen_audio import qwen_audio_train_loss
+    from icl_speech_text_llm_tpu_torch.models.salmonn import salmonn_train_loss
     from icl_speech_text_llm_tpu_torch.parallel import collectives
     from icl_speech_text_llm_tpu_torch.parallel.sharding import batch_shard, gather_params
     from icl_speech_text_llm_tpu_torch.training.step import (
@@ -3778,22 +3808,34 @@ def _mt_step(r, sp=False):
         make_train_step,
     )
 
-    cfg, params = _dp_model(r.model, r.dir, r.device) if sp else r.params()
-    batch = r.rows(r.npz("batch"))
+    cfg, params = _dp_model(r.model, r.dir, r.device) if sp else r.params(qwen=qwen)
+    batch = r.rows(r.npz("qbatch" if qwen else "batch"))
     opt = AdamW(OptimizerSettings(**DP_OPT))
     state, frozen = init_train_state(params, opt)
     if sp:
         step = make_train_step(cfg, opt, sp=(r.mesh, "tp"))
     else:
-        step = make_train_step(cfg, opt, mesh=r.mesh, pipeline=r.pipeline)
+        step = make_train_step(cfg, opt, qwen_audio_train_loss if qwen else salmonn_train_loss,
+                               mesh=r.mesh, pipeline=r.pipeline)
+    cuda = torch.device(r.device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        process_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
     collectives.reset_counts()
     t0 = time.perf_counter()
     state, m1 = step(state, frozen, batch)
     seconds = time.perf_counter() - t0
     counts = collectives.counts()
+    memory = {}
+    if cuda:  # the step's peak above what the rank held before it
+        memory = {"held_gib": held / 2**30, "process_peak_gib": process_peak / 2**30,
+                  "step_peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
     gather = (lambda t: t) if sp else (lambda t: gather_params(t, r.mesh))
-    leaves = {k: t.detach().float().cpu().numpy() for k, t in _paths(
-        {"trainable": gather(state.trainable), "mu": gather(state.opt_state["mu"])}).items()}
+    leaves = {("qwen_step." if qwen else "") + k: t.detach().float().cpu().numpy()
+              for k, t in _paths({"trainable": gather(state.trainable),
+                                  "mu": gather(state.opt_state["mu"])}).items()}
     r.arrays.update(leaves)
     before = [t.detach().clone() for t in _paths(state.trainable).values()]
     labels = batch["shifted_labels"].clone()
@@ -3806,7 +3848,7 @@ def _mt_step(r, sp=False):
     return {"loss": m1["loss"], "grad_norm": m1["grad_norm"], "skipped": m1["skipped_nonfinite"],
             "nan_loss": m2["loss"], "nan_skipped": m2["skipped_nonfinite"],
             "kept_after_nan": kept, "counts": counts, "seconds": seconds,
-            "label_count": int((batch["shifted_labels"] != IGNORE_INDEX).sum())}
+            "label_count": int((batch["shifted_labels"] != IGNORE_INDEX).sum()), **memory}
 
 
 #: the optimizer of phase mesh (f) and (g): AdamW at the train CLI's
@@ -3884,6 +3926,12 @@ def _mt_train_steps(r):
     r.arrays["steps.ring_hidden"] = hidden.float().cpu().numpy()
     del seq, hidden
     return _train_steps(cfg, params, batch, spec["n"], sp=(r.mesh, "tp"))
+
+
+@_mesh_task
+def _mt_qwen_step(r):
+    """``_mt_step`` on ``_qwen_model``'s Qwen2-Audio and ``qbatch.npz``."""
+    return _mt_step(r, qwen=True)
 
 
 @_mesh_task
@@ -4031,9 +4079,10 @@ def _recorded_logits(*modules):
 
 
 @_mesh_task
-def _mt_generate(r, bits=None, name="generate"):
+def _mt_generate(r, bits=None, name="generate", qwen=False):
     """Static generation of ``gen.npz``'s rows (``gen.json``: the
-    ``GenerationConfig`` keywords ``kw``), ``bits`` for a quantized LLM:
+    ``GenerationConfig`` keywords ``kw``), ``bits`` for a quantized LLM,
+    ``qwen`` for ``_qwen_model``'s Qwen2-Audio on ``qgen.npz``:
     this rank's tokens (``{name}.tokens``), the logits that picked each of
     them (``{name}.step_logits`` (T, B, V): the prefill's, then each
     decode step's, gathered over tp), its prefill and decode-step ms (CUDA
@@ -4043,14 +4092,17 @@ def _mt_generate(r, bits=None, name="generate"):
     from icl_speech_text_llm_tpu_torch.inference import engine
     from icl_speech_text_llm_tpu_torch.parallel.sharding import batch_shard, shard_context
 
+    from icl_speech_text_llm_tpu_torch.models.qwen_audio import qwen_sequence
+
     spec = r.json("gen")
-    cfg, params = r.params(bits)
-    batch = r.rows(r.npz("gen"))
+    cfg, params = r.params(bits, qwen)
+    batch = r.rows(r.npz("qgen" if qwen else "gen"))
     cuda = torch.device(r.device).type == "cuda"
     events = engine.StepEvents() if cuda else None
     with _recorded_logits(engine) as seen, shard_context(r.ctx):
         toks = engine.generate_batch(cfg, engine.GenerationConfig(**spec["kw"]), params,
-                                     batch, engine.speech_sequence, events)
+                                     batch, qwen_sequence if qwen else engine.speech_sequence,
+                                     events)
     r.arrays[f"{name}.tokens"] = toks.cpu().numpy()
     r.arrays[f"{name}.step_logits"] = torch.stack(seen).numpy()
     out = {"rows": list(batch_shard(r.mesh))}
@@ -4060,6 +4112,12 @@ def _mt_generate(r, bits=None, name="generate"):
         out.update(prefill_ms=ms[0], step_ms=statistics.median(ms[1:]),
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     return out
+
+
+@_mesh_task
+def _mt_qwen_generate(r):
+    """``_mt_generate`` on ``_qwen_model``'s Qwen2-Audio and ``qgen.npz``."""
+    return _mt_generate(r, name="qwen_generate", qwen=True)
 
 
 @_mesh_task
@@ -4262,26 +4320,49 @@ def _mt_qwen(r):
     ``qwen.json``: the LLM config name and depth, the tower's widths) under
     the mesh: the tower whole, the decoder sharded, tied vocab-sharded
     logits."""
-    from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
     from icl_speech_text_llm_tpu_torch.models import qwen_audio
-    from icl_speech_text_llm_tpu_torch.parallel.sharding import shard_params
 
-    cfg = _qwen_mesh_cfg(r.json("qwen"))
-    params = shard_params(params_from_numpy(_unpaths(r.npz("qwen")), device=r.device), r.mesh)
+    cfg, params = r.params(qwen=True)
     return {"loss": _global_loss(r, cfg, params, r.rows(r.npz("qbatch")),
                                  qwen_audio.qwen_audio_train_loss)}
 
 
 def _qwen_mesh_cfg(spec, family=None):
     """The Qwen2-Audio config of ``qwen.json`` in the port's (or with
-    ``family``, that package's) qwen_audio module: ``llm`` at ``n_layers``,
-    a Whisper tower of ``tower`` widths."""
+    ``family``, that package's) qwen_audio module: ``base`` (a config
+    function's name, ``qwen2_audio_smoke`` by default) with ``llm`` at
+    ``n_layers`` and a Whisper tower of ``tower`` widths."""
     if family is None:
         from icl_speech_text_llm_tpu_torch.models import qwen_audio as family
-    base = family.qwen2_audio_smoke()
+    base = getattr(family, spec.get("base", "qwen2_audio_smoke"))()
     llm = dataclasses.replace(base.llm, n_layers=spec["n_layers"])
     tower = dataclasses.replace(base.encoder, **spec["tower"])
     return dataclasses.replace(base, llm=llm, encoder=tower)
+
+
+def _qwen_model(spec, out_dir, device):
+    """(cfg, params) of ``qwen.json``'s Qwen2-Audio (``_qwen_mesh_cfg``):
+    from ``out_dir/qwen.npz`` (the CPU tests' JAX weights), or where
+    ``spec`` has a ``seed``, drawn from it on ``device`` in the config's
+    compute dtype, the LoRA in f32 with B non-zero (every process draws the
+    same)."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.bridge import params_from_numpy
+    from icl_speech_text_llm_tpu_torch.models.qwen_audio import init_qwen_audio
+
+    cfg = _qwen_mesh_cfg(spec)
+    if "seed" not in spec:
+        with np.load(os.path.join(out_dir, "qwen.npz")) as f:
+            return cfg, params_from_numpy(_unpaths(dict(f)), device=device)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    params = init_qwen_audio(cfg, gen, torch.device(device), cfg.compute_dtype,
+                             trainable_dtype=torch.float32)
+    for sub in params["lora"].values():
+        sub["b"] = torch.randn(sub["b"].shape, generator=gen, device=device) * 0.02
+    return cfg, params
+
 
 
 @_mesh_task
@@ -4351,10 +4432,42 @@ def _mt_train_cli(r):
     return out
 
 
+#: the attention ops the model code calls, by module: the kernels K1/K2
+#: (``flash_attention``), K3 and K9 take q (B, H, T, hd)
+HEAD_OPS = {"llama": ("flash_attention",), "whisper": ("flash_attention",),
+            "beats": ("flash_attention", "gated_bias_attention", "gated_bias_attention_rows")}
+
+
+@contextlib.contextmanager
+def _recorded_heads():
+    """The head counts (q's dim 1) of every ``HEAD_OPS`` call the model
+    code makes inside the block: {"module.op": set of H}."""
+    import importlib
+
+    seen, saved = {}, []
+    for mod_name, names in HEAD_OPS.items():
+        mod = importlib.import_module(f"icl_speech_text_llm_tpu_torch.models.{mod_name}")
+        for name in names:
+            fn = getattr(mod, name)
+            saved.append((mod, name, fn))
+
+            def recorded(q, *a, _key=f"{mod_name}.{name}", _fn=fn, **kw):
+                seen.setdefault(_key, set()).add(int(q.shape[1]))
+                return _fn(q, *a, **kw)
+
+            setattr(mod, name, recorded)
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def _mesh_worker(rank, world, out_dir, device, model, mesh_spec, tasks):
     """The ``--dp_worker`` rank of a ``--mesh`` spawn: the (dp, fsdp, tp)
     mesh of ``mesh_spec`` over the gloo group, then each of ``tasks``
     (``MESH_TASKS``) in order; writes ``rank{r}.json`` (each task's result,
+    seconds, kernel launches and attention head counts (``_recorded_heads``),
     the rank's coordinates and the collectives' transport) and
     ``rank{r}.npz``."""
     import numpy as np
@@ -4373,9 +4486,11 @@ def _mesh_worker(rank, world, out_dir, device, model, mesh_spec, tasks):
         for task in tasks.split(","):
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            r.res[task] = MESH_TASKS[task](r)
+            with _recorded_heads() as heads:
+                r.res[task] = MESH_TASKS[task](r)
             r.res[task + "_seconds"] = time.perf_counter() - t0
             r.res[task + "_launches"] = kernels.launch_counts()
+            r.res[task + "_heads"] = {k: sorted(v) for k, v in heads.items()}
     finally:
         undo()
     r.res["plain"] = plain
@@ -4769,20 +4884,36 @@ def mesh_step_counts(cfg, sizes):
     shards are what it keeps), reduce-scatters the LoRA A gradients, and
     sums those over dp in a buffer of their own. The norm, taken once for
     the metric and the clip, sums each cut group's squares over its axis.
-    No remat (a checkpointed layer gathers anew in its recompute); no
-    pipeline, so no point-to-point transfer."""
+    A model on the split-head path (tp does not divide its heads, or the
+    decoder's KV heads: ``ShardContext.split_heads``) all-gathers its q/k/v
+    column blocks once a layer in the forward; the decoder's layers
+    reduce-scatter that gather's gradient once each in the backward (the
+    encoders run without grad). Qwen2-Audio's tower is whole (no rule
+    matches it) and adds nothing, and its frozen projector leaves the
+    decoder's input without grad, so the first layer's attention input
+    sums nothing in the backward. No remat (a checkpointed layer gathers
+    anew in its recompute); no pipeline, so no point-to-point transfer."""
     _, fsdp, tp = sizes
-    Ll, Lw, Lb = cfg.llm.n_layers, cfg.whisper.n_layers, cfg.beats.n_layers
+    llm, Ll = cfg.llm, cfg.llm.n_layers
+    encoders = [m for m in (getattr(cfg, "whisper", None), getattr(cfg, "beats", None)) if m]
+    Le = sum(m.n_layers for m in encoders)
     n_lora = len(cfg.lora.targets)
+
+    def split(*heads):
+        return tp > 1 and any(n % tp for n in heads)
+
     ar = 0
     if tp > 1:
-        ar += 1 + 2 * Lw + 2 * Lb + 2 * Ll + 3  # forward
-        ar += Ll * (2 + n_lora) + 1  # backward
+        ar += 1 + 2 * Le + 2 * Ll + 3  # forward
+        ar += Ll * (2 + n_lora) + 1 - (not hasattr(cfg, "qformer"))  # backward
         ar += 1  # the non-finite flag
     ar += 2 * (fsdp > 1) + 2 + (fsdp > 1)  # count, gradients (over dp always)
     ar += (fsdp > 1) + (tp > 1)  # the norm
-    ag = (fsdp > 1) * (Ll * (7 + n_lora + 7) + 6 * Lw + 6 * Lb)
+    ag = (fsdp > 1) * (Ll * (7 + n_lora + 7) + 6 * Le)
     rs = (fsdp > 1) * Ll * n_lora
+    split_llm = split(llm.n_heads, llm.n_kv_heads)
+    ag += sum(m.n_layers for m in encoders if split(m.n_heads)) + Ll * split_llm
+    rs += Ll * split_llm
     return {"all_reduce": ar, "all_gather": ag, "reduce_scatter": rs, "p2p": 0}
 
 
@@ -5370,20 +5501,262 @@ def _mesh_sp(d, smi):
         raise AssertionError(f"(g) the sequence-parallel decoder is not one process's: {faults}")
 
 
+#: sub-phase (i)'s Qwen2-Audio-7B: the preset at 2 layers a stack (tower
+#: whole, as under JAX), drawn from seed 2 on every rank
+SPLIT_QWEN = {"base": "qwen2_audio_7b", "n_layers": 2, "tower": {"n_layers": 2}, "seed": 2}
+
+
+def _split_reference(label, cfg, params, batch, gen, loss_fn, sequence_fn, kw, host):
+    """One process on the card for sub-phase (i): the loss, grad norm and
+    gradients of a ``DP_OPT`` step on ``batch``, the greedy tokens of
+    ``gen``, the logits that picked them (T, B, V) and their teacher-forced
+    top-1/top-2 gaps; with ``host`` also
+    the same gradients in f32 on the host and one process's distance from
+    them (``floor``, × the group's max)."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.inference.engine import GenerationConfig
+    from icl_speech_text_llm_tpu_torch.training.step import (
+        AdamW,
+        OptimizerSettings,
+        init_train_state,
+        make_train_probe,
+        make_train_step,
+        tree_map,
+    )
+
+    t0 = time.perf_counter()
+    dev = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    opt = AdamW(OptimizerSettings(**DP_OPT))
+    state, frozen = init_train_state(params, opt)
+    _, g = make_train_probe(cfg, loss_fn)(state, frozen, dev)
+    out = {"grads": dict(zip(_paths(state.trainable), (t.float().cpu().numpy() for t in g)))}
+    _, m = make_train_step(cfg, opt, loss_fn)(state, frozen, dev)
+    out.update(loss=m["loss"], grad_norm=m["grad_norm"])
+    del state, frozen, g
+    from icl_speech_text_llm_tpu_torch.inference import engine
+
+    gdev = {k: torch.as_tensor(v, device="cuda") for k, v in gen.items()}
+    with torch.inference_mode(), _recorded_logits(engine) as seen:
+        toks = engine.generate_batch(cfg, GenerationConfig(**kw), params, gdev, sequence_fn)
+        seq = sequence_fn(cfg, params, gdev)
+    out["step_logits"] = torch.stack(seen).numpy()
+    lengths = gen["seq_lengths"]
+    prompts = [seq[b, :lengths[b]] for b in range(len(lengths))]
+    lora = params.get("lora")
+    out["gaps"] = _teacher_gaps(cfg.llm, params["llm"], prompts, toks, lora,
+                                cfg.lora.scaling, cfg.compute_dtype)
+    out["tokens"] = toks.cpu().numpy()
+    del seq, prompts, gdev, dev
+    if host:
+        cpu = tree_map(lambda t: t.detach().float().cpu(), params)
+        state, frozen = init_train_state(cpu, opt)
+        _, g = make_train_probe(dataclasses.replace(cfg, compute_dtype=torch.float32), loss_fn)(
+            state, frozen, {k: torch.as_tensor(v) for k, v in batch.items()})
+        exact = dict(zip(_paths(state.trainable), (t.numpy() for t in g)))
+        out["exact"] = exact
+        out["floor"] = max(np.abs(out["grads"][k] - v).max() / _group_max(exact, k)
+                           for k, v in exact.items())
+        del cpu, state, frozen, g
+    print(f"  (i) {label}, one process on the card: loss {out['loss']:.8f}, grad norm "
+          f"{out['grad_norm']:.6f}, tokens {out['tokens'].tolist()}"
+          + (f"; its gradients {out['floor']:.3e} of their group's max from the f32 host "
+             "step" if host else "") + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
+def _split_check(label, cfg, ranks, task, gen_task, ref, prefix, smi):
+    """Sub-phase (i)'s readings of one model on every rank (``_mesh_split``)
+    → the faults found."""
+    import numpy as np
+
+    from icl_speech_text_llm_tpu_torch.parallel.sharding import ShardContext
+
+    tp = 8
+    ctx = ShardContext({"tp": tp}, {"tp": 0}, {})
+    counts = mesh_step_counts(cfg, (1, 1, tp))
+    want_heads = {}
+    llm = cfg.llm
+    split = ctx.split_heads(llm.n_heads, llm.n_kv_heads)
+    want_heads["llama.flash_attention"] = [ctx.local_heads(llm.n_heads, split)]
+    need = {"flash_attention_causal": llm.n_layers, "flash_attention_bwd_dq": llm.n_layers,
+            "flash_attention_bwd_dkv": llm.n_layers}
+    layouts = {"decoder": "split-head" if split else "head-sharded"}
+    if hasattr(cfg, "whisper"):  # SALMONN: Whisper and BEATs cut over tp
+        for name, enc in (("whisper", cfg.whisper), ("beats", cfg.beats)):
+            s = ctx.split_heads(enc.n_heads)
+            layouts[name] = "split-head" if s else "head-sharded"
+            key = "whisper.flash_attention" if name == "whisper" else "beats.gated_bias_attention"
+            want_heads[key] = [ctx.local_heads(enc.n_heads, s)]
+        need.update(flash_attention_noncausal=cfg.whisper.n_layers,
+                    gated_bias_attention=cfg.beats.n_layers)
+    else:  # Qwen2-Audio: the tower whole on every rank
+        want_heads["whisper.flash_attention"] = [cfg.encoder.n_heads]
+        need["flash_attention_noncausal"] = cfg.encoder.n_layers
+    errs = {k: 0.0 for k in MESH_CARD_LIMITS}
+    off_exact, logit_ratio, faults = 0.0, 0.0, []
+    first = None
+    for r, (res, arrays) in enumerate(ranks):
+        s = res[task]
+        _need_launches(f"(i) {label} rank {r} step", res[task + "_launches"], need, res["plain"])
+        _need_launches(f"(i) {label} rank {r} generation", res[gen_task + "_launches"],
+                       {**{k: v for k, v in need.items() if "bwd" not in k}, "append_kv": 9},
+                       res["plain"])
+        for t in (task, gen_task):
+            if res[t + "_heads"] != want_heads:
+                faults.append(f"rank {r} {t}: attention heads {res[t + '_heads']}, "
+                              f"not {want_heads}")
+        errs["loss"] = max(errs["loss"], abs(s["loss"] - ref["loss"]) / abs(ref["loss"]))
+        errs["grad_norm"] = max(errs["grad_norm"],
+                                abs(s["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"])
+        mine = {k[len(prefix):]: v for k, v in arrays.items()
+                if k.startswith((prefix + "trainable.", prefix + "mu."))}
+        grads = _dp_grads({k[len("mu."):]: v for k, v in mine.items() if k.startswith("mu.")},
+                          s["grad_norm"])
+        for name, w in ref["grads"].items():
+            errs["grads"] = max(errs["grads"], float(np.abs(grads[name] - w).max()
+                                                     / _group_max(ref["grads"], name)))
+            if "exact" in ref:
+                off_exact = max(off_exact, float(np.abs(grads[name] - ref["exact"][name]).max()
+                                                 / _group_max(ref["exact"], name)))
+        first = first or mine
+        if any(not np.array_equal(v, first[k]) for k, v in mine.items()):
+            faults.append(f"rank {r}: the gathered leaves differ from rank 0's")
+        if s["skipped"] or not (s["nan_skipped"] == 1.0 and s["kept_after_nan"]):
+            faults.append(f"rank {r}: a step was wrongly taken or skipped")
+        if s["counts"] != counts:
+            faults.append(f"rank {r}: collectives {s['counts']} against {counts}")
+        toks = arrays[f"{gen_task}.tokens"]
+        if not np.array_equal(toks, ranks[0][1][f"{gen_task}.tokens"]):
+            faults.append(f"rank {r}: tokens differ from rank 0's")
+        # the logits that picked each token against one process's, at every
+        # position whose prefix both share (up to and with the first token
+        # that differs)
+        steps, ratio = arrays[f"{gen_task}.step_logits"], 0.0
+        for b, (got, want) in enumerate(zip(toks, ref["tokens"])):
+            same = [int(x) == int(y) for x, y in zip(got, want)] + [False]
+            n = min(same.index(False) + 1, len(want))
+            ref_b = ref["step_logits"][:n, b]
+            ratio = max(ratio, float(np.abs(steps[:n, b] - ref_b).max()
+                                     / (5e-2 * np.abs(ref_b).max())))
+        logit_ratio = max(logit_ratio, ratio)
+        print(f"  (i) {label} rank {r}: the rank's peak {s['process_peak_gib']:.3f} GiB "
+              f"before the step (its models drawn whole, then cut), held "
+              f"{s['held_gib']:.3f} GiB before the step, the step's peak "
+              f"{s['step_peak_gib']:.3f} GiB above it, the peak through the step and the "
+              f"generation {res[gen_task]['peak_gib']:.3f} GiB; step "
+              f"{s['seconds']:.2f} s; the logits that picked the "
+              f"tokens {ratio:.3f} of 5% of max |logit| from one process's", flush=True)
+        if ratio > 1:
+            faults.append(f"rank {r}: step logits {ratio:.3f} of their tolerance")
+    _gap_rule(f"(i) {label}, tp = 8", ranks[0][1][f"{gen_task}.tokens"], ref["tokens"],
+              ref["gaps"])
+    s = ranks[0][0][task]
+    print(f"  (i) {label} at --mesh 1,1,8 ({layouts}; attention heads a rank {want_heads}): "
+          f"loss {s['loss']:.8f} (one process {ref['loss']:.8f}); relative errors loss "
+          f"{errs['loss']:.3e}, grad norm {errs['grad_norm']:.3e}, gradients "
+          f"{errs['grads']:.3e} of their group's max (limits {MESH_CARD_LIMITS})"
+          + (f"; from the f32 host step {off_exact:.3e} against one process's "
+             f"{ref['floor']:.3e} (limit {MESH_ROUNDING} ×)" if "exact" in ref else "")
+          + f"; the logits that picked every token {logit_ratio:.3f} of their tolerance"
+          f"; collectives a step {s['counts']} (formula {counts}); "
+          f"{'; '.join(faults) or 'replicas and tokens equal on every rank'}  [{smi}]",
+          flush=True)
+    if any(errs[k] > MESH_CARD_LIMITS[k] for k in errs):
+        faults.append(f"errors {errs} over {MESH_CARD_LIMITS}")
+    if "exact" in ref and off_exact > MESH_ROUNDING * ref["floor"]:
+        faults.append(f"{off_exact:.3e} from the f32 step against one process's "
+                      f"{ref['floor']:.3e}")
+    return [f"{label}: {f}" for f in faults]
+
+
+def _mesh_split(d, smi):
+    """(i) tensor parallelism where tp does not divide a head count: 8 gloo
+    ranks at --mesh 1,1,8, 2 layers a stack at full width, in one spawn:
+    Qwen2-Audio-7B (28 heads over 4 KV heads: 3.5 heads and half a KV head
+    a rank; its tower whole) and salmonn-7b's widths (Whisper's 20 heads,
+    BEATs' 12; Vicuna's 32 divide and keep the head-sharded path). Each
+    model's loss and one step against one process's on the card
+    (``MESH_CARD_LIMITS``), Qwen's gradients also against the f32 step on
+    the host (``MESH_ROUNDING``); each family's collective calls against
+    ``mesh_step_counts``; 10 greedy tokens against one process's by
+    ``_gap_rule``, equal on every rank, and the logits that picked them
+    within 5% of max |logit| of one process's (random weights tie Qwen's
+    first gaps under the rule's tau); every rank's K1, K2 and K3 at the
+    head counts of its layout (``_recorded_heads``) and K5/K6 in the step;
+    each rank's peaks."""
+    import numpy as np
+    import torch
+
+    from icl_speech_text_llm_tpu_torch.inference.engine import speech_sequence
+    from icl_speech_text_llm_tpu_torch.models.qwen_audio import (
+        audio_output_length,
+        qwen_audio_train_loss,
+        qwen_sequence,
+    )
+    from icl_speech_text_llm_tpu_torch.models.salmonn import salmonn_train_loss
+
+    out_dir = os.path.join(d, "split")
+    os.makedirs(out_dir, exist_ok=True)
+    kw = dict(max_new_tokens=10, eos_token_id=2, pad_token_id=0)
+    qcfg, qparams = _qwen_model(SPLIT_QWEN, out_dir, "cuda")
+    clip = 5 * 16000
+    qbatch = _train_batch(qcfg, int(audio_output_length(clip)), 384, clip_samples=clip)
+    qgen = {"text_tokens": qbatch["text_tokens"], "gather_idx": qbatch["gather_idx"],
+            "seq_lengths": qbatch["seq_mask"].sum(axis=1).astype(np.int32),
+            "wavs": qbatch["wavs"], "audio_lengths": qbatch["audio_lengths"]}
+    qref = _split_reference("Qwen2-Audio-7B", qcfg, qparams, qbatch, qgen,
+                            qwen_audio_train_loss, qwen_sequence, kw, host=True)
+    del qparams
+    torch.cuda.empty_cache()
+    model = "salmonn-7b-2layer"
+    scfg, sparams = _dp_model(model, out_dir, "cuda")
+    sbatch, sgen = _dp_batch(scfg), _mesh_gen_batch(scfg, n=2)
+    sref = _split_reference("salmonn-7b widths", scfg, sparams, sbatch, sgen,
+                            salmonn_train_loss, speech_sequence, kw, host=False)
+    del sparams
+    torch.cuda.empty_cache()
+    for name, arrays in (("gen", sgen), ("qbatch", qbatch), ("qgen", qgen)):
+        np.savez(os.path.join(out_dir, f"{name}.npz"), **arrays)
+    for name, spec in (("gen", {"kw": kw}), ("qwen", SPLIT_QWEN)):
+        with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+            json.dump(spec, f)
+    gc.collect()  # the eight ranks need the card: nothing of this process's stays cached
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  (i) before the spawn: {free / 2**30:.3f} of {total / 2**30:.3f} GiB free on the "
+          f"card, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved by this process",
+          flush=True)
+    t0 = time.perf_counter()
+    ranks = _dp_spawn(out_dir, model, None, sbatch, "cuda", world=8, timeout=480,
+                      mesh="1,1,8", tasks=("qwen_step", "qwen_generate", "step", "generate"))
+    wall = time.perf_counter() - t0
+    faults = _split_check("Qwen2-Audio-7B", qcfg, ranks, "qwen_step", "qwen_generate", qref,
+                          "qwen_step.", smi)
+    faults += _split_check("salmonn-7b widths", scfg, ranks, "step", "generate", sref, "", smi)
+    print(f"  (i) eight ranks: {wall:.1f} s with the process starts; transport "
+          f"{ranks[0][0]['transport']}", flush=True)
+    if faults:
+        raise AssertionError(f"(i) the split-head path is not one process's: {faults}")
+
+
 def _mesh_phase(out_dir, train_losses, smi):
     """FSDP, tensor, pipeline and sequence parallelism on the one card:
     ranks are processes sharing it over gloo (NCCL refuses a card twice in
     a group), so this shows the sharded paths correct and running their
-    kernels on local shards, not NCCL's speed. (a)-(h): ``_mesh_static``,
+    kernels on local shards, not NCCL's speed. (a)-(i): ``_mesh_static``,
     ``_mesh_serve``, ``_mesh_train``, ``_mesh_four``, ``_mesh_pipeline``,
-    ``_mesh_sp``, ``_mesh_serve(bank=True)``; each sub-phase's seconds."""
+    ``_mesh_sp``, ``_mesh_serve(bank=True)``, ``_mesh_split``; each
+    sub-phase's seconds."""
     for label, run in (("(a)-(b)", lambda: _mesh_static(out_dir, smi)),
                        ("(c)", lambda: _mesh_serve(out_dir, smi)),
                        ("(d)", lambda: _mesh_train(out_dir, smi, train_losses)),
                        ("(e)", lambda: _mesh_four(out_dir, smi)),
                        ("(f)", lambda: _mesh_pipeline(out_dir, smi)),
                        ("(g)", lambda: _mesh_sp(out_dir, smi)),
-                       ("(h)", lambda: _mesh_serve(out_dir, smi, bank=True))):
+                       ("(h)", lambda: _mesh_serve(out_dir, smi, bank=True)),
+                       ("(i)", lambda: _mesh_split(out_dir, smi))):
         t0 = time.perf_counter()
         run()
         print(f"  phase mesh {label}: {time.perf_counter() - t0:.1f} s", flush=True)

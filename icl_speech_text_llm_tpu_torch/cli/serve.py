@@ -138,7 +138,8 @@ def _mesh_sizes(args, model):
         raise SystemExit(f"--mesh wants exactly 'dp,fsdp,tp' (got {args.mesh!r})")
     if model.cfg.llm.n_kv_heads % sizes[2]:
         raise SystemExit(f"tp={sizes[2]} must divide n_kv_heads={model.cfg.llm.n_kv_heads} "
-                         "for the KV-head-sharded pool")
+                         "for the KV-head-sharded pool (the JAX engine refuses such a mesh "
+                         "too; cli.train and static generation take it)")
     return sizes
 
 

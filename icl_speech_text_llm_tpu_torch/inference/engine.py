@@ -23,7 +23,10 @@ Under a mesh (any call inside ``parallel/sharding.py:shard_context``;
 ``SalmonnEngine.shard``) the parameters are the rank's
 blocks and the batch its rows over (dp, fsdp): the encoders and the
 decoder run on the rank's heads (K7 per rank on its KV heads with
-``True``, JAX's ``shard_map`` route), and every decoder here works on the
+``True``, JAX's ``shard_map`` route), or on every head where tp does not
+divide a model's heads (the split-head path, ``models/llama.py``: the
+cache then holds every KV head, and ``True`` takes the plain decode math,
+as JAX's gate under a mesh does), and every decoder here works on the
 logits gathered over tp (B × V), so greedy, sampling (the same generator
 seed on every rank), the processors and beams pick the same tokens on
 every tp rank, an argmax tie keeping the lowest global index. Sampling draws from a ``torch.Generator`` seeded

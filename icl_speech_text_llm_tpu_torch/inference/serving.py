@@ -54,7 +54,9 @@ pool over them), and ``pool_bytes`` are a rank's. A LoRA bank stays whole
 on every rank, as JAX replicates it: each product gathers its samples'
 factors and cuts them to the rank's part (``models/llama.py:_proj_tp``);
 a prefix registered under one of its adapters prefills with that adapter
-cut by the rule table.
+cut by the rule table. A tp that does not divide the KV heads raises
+``ValueError`` in the constructor, as the JAX engine's placement of its
+pool does.
 """
 
 from __future__ import annotations
@@ -271,6 +273,12 @@ class ContinuousBatchingEngine:
         self._n_adapters = leaves[0].shape[1] if leaves and leaves[0].dim() == 4 else 0
         self._mesh = mesh
         self._shard = context_of(mesh) if is_sharded(mesh) else None
+        if self._shard is not None and llm_cfg.n_kv_heads % self._shard.tp:
+            raise ValueError(
+                f"tp={self._shard.tp} does not divide the {llm_cfg.n_kv_heads} KV heads: the "
+                "pool is cut over its KV heads, and the JAX engine's device_put of its pool "
+                "refuses the same mesh (the split-head path is static generation and "
+                "training only)")
         self._attention = DecodeAttention.FLASH if self._shard else DecodeAttention.XLA
         self._scratch = S
         self._dtype = dtype

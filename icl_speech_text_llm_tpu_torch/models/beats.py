@@ -17,7 +17,8 @@ leaves no rule matches stay whole and are sliced to the rank's heads and
 columns: the biases bq/bk/bv/b1, ``grep_a`` (L, H) before the gate rows,
 ``rel_bias`` (buckets, H) before the bias table (else K3 would add head
 h's bias to another head); bo and b2 are added once, by tp rank 0 before
-the sum over tp.
+the sum over tp. Where tp does not divide the heads, the split-head path
+(``_layer_forward``): K3/K9 over every head on every rank.
 """
 
 from __future__ import annotations
@@ -221,17 +222,23 @@ def _layer_forward(cfg: BeatsConfig, layer, x: torch.Tensor,
                    bias: Optional[torch.Tensor]) -> torch.Tensor:
     """One post-LN (DeepNorm) layer; under a mesh on this tp rank's heads
     and MLP columns, ``bias`` then the rank's heads of the table
-    (``beats_bias_table``). With one process every slice is whole and
-    every sum the identity."""
+    (``beats_bias_table``). Where tp does not divide the heads (12 at tp =
+    8) the split-head path: the q/k/v column blocks gathered over tp into
+    whole heads, the gate, ``grep_a`` and the table over every head, the
+    rank's columns of the output into wo. With one process every slice is
+    whole and every sum the identity."""
     sh = current_shard() or ONE
     layer = sh.gather_fsdp(layer, "beats/layers")
     B, T, d = x.shape
-    H, hd = sh.local_heads(cfg.n_heads, "BEATs heads"), cfg.head_dim
-    cols, heads = sh.cols(d), sh.cols(cfg.n_heads)
+    split = sh.split_heads(cfg.n_heads)
+    H, hd = sh.local_heads(cfg.n_heads, split), cfg.head_dim
+    cols, heads = sh.cols(d), sh.head_block(cfg.n_heads, split)
     a = layer["attn"]
-    q = linear(x, a["wq"], a["bq"][cols]).view(B, T, H, hd).transpose(1, 2)
-    k = linear(x, a["wk"], a["bk"][cols]).view(B, T, H, hd).transpose(1, 2)
-    v = linear(x, a["wv"], a["bv"][cols]).view(B, T, H, hd).transpose(1, 2)
+    qkv = tuple(linear(x, a[w], a[b][cols]) for w, b in (("wq", "bq"), ("wk", "bk"),
+                                                         ("wv", "bv")))
+    if split:
+        qkv = sh.gather_cols(*qkv)
+    q, k, v = (t.view(B, T, H, hd).transpose(1, 2) for t in qkv)
     if bias is not None and cfg.lean_bias_flash and flash_bias_rows_usable(B, H, T, hd):
         out = gated_bias_attention_rows(q, k, v, _gate_scale_rows(cfg, a, x, heads), bias)
     elif bias is not None:
@@ -240,8 +247,10 @@ def _layer_forward(cfg: BeatsConfig, layer, x: torch.Tensor,
                                    a["grep_a"][heads])
     else:
         out = flash_attention(q, k, v, None, causal=False)
-    out = sh.reduce_from_tp(linear(out.transpose(1, 2).reshape(B, T, H * hd), a["wo"],
-                                   sh.row_bias(a["bo"])))
+    out = out.transpose(1, 2).reshape(B, T, H * hd)
+    if split:
+        out = out[..., cols]
+    out = sh.reduce_from_tp(linear(out, a["wo"], sh.row_bias(a["bo"])))
     x = layer_norm(x * cfg.deep_norm_alpha + out, layer["ln_attn"]["w"], layer["ln_attn"]["b"])
     m = layer["mlp"]
     h = sh.reduce_from_tp(linear(gelu(linear(x, m["w1"], m["b1"][sh.cols(m["b1"].shape[-1])])),
@@ -258,10 +267,12 @@ def beats_num_tokens(cfg: BeatsConfig, n_samples: int) -> int:
 def beats_bias_table(cfg: BeatsConfig, params: Dict[str, Any], n_tokens: int) -> torch.Tensor:
     """The shared gated-rel-pos bias table (H, T, T) f32 for a T-token clip —
     a function of the frozen rel_bias weights and T, built once per encode.
-    Under a mesh, the rank's heads of it (``rel_bias`` is whole)."""
+    Under a mesh, the rank's heads of it (``rel_bias`` is whole), every
+    head on the split-head path."""
     buckets = torch.from_numpy(relative_position_buckets(
         n_tokens, cfg.rel_pos_buckets, cfg.rel_pos_max_distance)).long()
-    rel = params["rel_bias"][:, (current_shard() or ONE).cols(cfg.n_heads)]
+    sh = current_shard() or ONE
+    rel = params["rel_bias"][:, sh.head_block(cfg.n_heads, sh.split_heads(cfg.n_heads))]
     return rel.float()[buckets.to(rel.device)].permute(2, 0, 1).contiguous()
 
 

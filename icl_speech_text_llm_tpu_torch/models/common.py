@@ -38,12 +38,12 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device, dtype,
     for i in range(flat.shape[0]):
         w = torch.empty((in_dim, out_dim), device=device, dtype=torch.float32)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        flat[i].copy_(w * in_dim ** -0.5)
+        flat[i].copy_(w.mul_(in_dim ** -0.5))
     return out
 
 
 def normal_init(gen: torch.Generator, shape, std: float, device, dtype) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * std
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32).mul_(std)
     return w.to(dtype)
 
 

@@ -54,9 +54,16 @@ lookup plus an all-reduce, vocab-sharded logits (gathered for decoding),
 and a vocab-parallel cross entropy. FSDP-sharded leaves are gathered at
 their layer's start, and the backward keeps only the frozen ones' shards
 (``ShardContext.keep_shards``: gathered again when it needs them; a
-checkpointed layer's recompute gathers anew). K1, K5/K6, K7 and K4 see
-only the rank's heads, and
-the KV cache holds the rank's KV heads.
+checkpointed layer's recompute gathers anew). On the head-sharded path
+K1, K5/K6, K7 and K4 see only the rank's heads, and the KV cache holds the
+rank's KV heads. Where tp does not divide the heads or the KV heads
+(``ShardContext.split_heads``; ``_local_cfg`` then gives a
+``SplitHeadConfig``) the q/k/v column blocks are gathered over tp into
+whole heads (one all-gather a layer, a reduce-scatter backward), K1,
+K5/K6 and K4 run over every head on every rank, the cache holds every KV
+head, the decode step takes the plain math where ``FLASH`` would take K7
+(JAX's gate under a mesh), and the attention output is cut back to the
+rank's columns for its wo row shard.
 
 Matmul weights may be plain tensors or the JAX package's quantized dicts
 (int8 ``{"q", "s"}``, int4 ``{"q4", "s"}``): every product goes through
@@ -373,15 +380,23 @@ def _proj_tp(sh, x, w, lora_layer, name, scaling, bias, lora_ids, row):
     return y
 
 
+@dataclass(frozen=True)
+class SplitHeadConfig(DecoderConfig):
+    """A decoder config on the split-head path (tp does not divide its
+    heads or its KV heads): every head, attended on every tp rank."""
+
+
 def _local_cfg(cfg: DecoderConfig) -> DecoderConfig:
     """``cfg`` with this tp rank's heads and KV heads (head_dim kept), or
-    ``cfg`` itself outside tensor parallelism."""
+    as a ``SplitHeadConfig`` where tp does not divide them, or ``cfg``
+    itself outside tensor parallelism."""
     sh = current_shard()
     if sh is None or sh.tp == 1:
         return cfg
+    if sh.split_heads(cfg.n_heads, cfg.n_kv_heads):
+        return SplitHeadConfig(**{**dataclasses.asdict(cfg), "head_dim": cfg.hd})
     return dataclasses.replace(cfg, n_heads=sh.local_heads(cfg.n_heads),
-                               n_kv_heads=sh.local_heads(cfg.n_kv_heads, "KV heads"),
-                               head_dim=cfg.hd)
+                               n_kv_heads=sh.local_heads(cfg.n_kv_heads), head_dim=cfg.hd)
 
 
 def _gathered(layer, lo, bank: bool = False):
@@ -414,6 +429,8 @@ def _qkv_heads(cfg, layer, lora_layer, lora_scaling, x, positions, inv_freq, lor
     q = pj(h, attn["wq"], lora_layer, "wq", lora_scaling, attn.get("bq"))
     k = pj(h, attn["wk"], lora_layer, "wk", lora_scaling, attn.get("bk"))
     v = pj(h, attn["wv"], lora_layer, "wv", lora_scaling, attn.get("bv"))
+    if isinstance(cfg, SplitHeadConfig):  # the rank's column blocks → whole heads
+        q, k, v = current_shard().gather_cols(q, k, v)
     q = q.view(B, T, cfg.n_heads, hd).transpose(1, 2)
     k = k.view(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
     v = v.view(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
@@ -421,9 +438,13 @@ def _qkv_heads(cfg, layer, lora_layer, lora_scaling, x, positions, inv_freq, lor
 
 
 def _attn_out_mlp(cfg, layer, lora_layer, lora_scaling, x, out, lora_ids=None):
-    """Attention output projection + residual + SwiGLU MLP block."""
+    """Attention output projection + residual + SwiGLU MLP block; on the
+    split-head path the rank's columns of the whole heads' ``out`` enter
+    its wo row shard."""
     attn, mlp = layer["attn"], layer["mlp"]
     pj = functools.partial(_proj, lora_ids=lora_ids)
+    if isinstance(cfg, SplitHeadConfig):
+        out = out[..., current_shard().cols(out.shape[-1])]
     x = x + pj(out, attn["wo"], lora_layer, "wo", lora_scaling, row=True)
     h = _tp_input(rms_norm(x, layer["ln_mlp"], cfg.rms_eps))
     gate = pj(h, mlp["w_gate"], lora_layer, "w_gate", lora_scaling)
@@ -440,7 +461,8 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bflo
                   device="cuda", quant: bool = False) -> Dict[str, torch.Tensor]:
     """Stacked KV cache {"k", "v"}: (L, B, Hkv, max_len, hd). ``quant``: int8
     k/v and f32 per-position scales {"k_s", "v_s"} (L, B, Hkv, max_len).
-    Under tensor parallelism Hkv is the rank's KV heads."""
+    Under tensor parallelism Hkv is the rank's KV heads (every KV head on
+    the split-head path)."""
     cfg = _local_cfg(cfg)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
     if quant:
@@ -707,7 +729,9 @@ def decode_step(cfg: DecoderConfig, params: Dict[str, Any], x: torch.Tensor,
     L, hd = cfg.n_layers, cfg.hd
     quant = "k_s" in cache
     generic = attention is DecodeAttention.GENERIC
-    flash = attention is DecodeAttention.FLASH and flash_decode_usable(
+    # split heads under a mesh: JAX's flash gate is false, its plain math runs
+    split = isinstance(cfg, SplitHeadConfig)
+    flash = attention is DecodeAttention.FLASH and not split and flash_decode_usable(
         (B, cfg.n_heads, 1, hd), (B, cfg.n_kv_heads) + tuple(cache["k"].shape[-2:])) and (
         not quant or q8_cache_layout_ok(cache["k"], cache["v"], cache["k_s"], cache["v_s"]))
     inv_freq = _inv_freq(cfg, x.device)

@@ -14,7 +14,11 @@ column-parallel and wo/w2 row-parallel over tp, FSDP-sharded leaves are
 gathered at each block's start, and K2 runs on the rank's heads; the
 biases match no rule and are whole: bq/bv/b1 are sliced to the rank's
 columns, and the row-parallel products' bo/b2 are added once, by tp rank
-0 before the sum over tp.
+0 before the sum over tp. Where tp does not divide the heads (large-v2's
+20 at tp = 8) the block takes the split-head path
+(``ShardContext.split_heads``): the q/k/v column blocks are gathered over
+tp into whole heads, K2 runs over all of them on every rank, and the
+rank's columns of its output enter wo.
 """
 
 from __future__ import annotations
@@ -104,16 +108,21 @@ def _block_forward(cfg: WhisperEncoderConfig, blk, x: torch.Tensor,
     sh = current_shard() or ONE
     blk = sh.gather_fsdp(blk, "whisper/blocks")
     B, T, d = x.shape
-    H, hd = sh.local_heads(cfg.n_heads, "Whisper heads"), d // cfg.n_heads
+    split = sh.split_heads(cfg.n_heads)
+    H, hd = sh.local_heads(cfg.n_heads, split), d // cfg.n_heads
     cols = sh.cols(d)
     a = blk["attn"]
     h = layer_norm(x, blk["ln1"]["w"], blk["ln1"]["b"])
-    q = linear(h, a["wq"], a["bq"][cols]).view(B, T, H, hd).transpose(1, 2)
-    k = linear(h, a["wk"]).view(B, T, H, hd).transpose(1, 2)
-    v = linear(h, a["wv"], a["bv"][cols]).view(B, T, H, hd).transpose(1, 2)
+    qkv = (linear(h, a["wq"], a["bq"][cols]), linear(h, a["wk"]),
+           linear(h, a["wv"], a["bv"][cols]))
+    if split:
+        qkv = sh.gather_cols(*qkv)
+    q, k, v = (t.view(B, T, H, hd).transpose(1, 2) for t in qkv)
     # keys past lengths[b] masked; rows past it are garbage the caller drops
     out = flash_attention(q, k, v, lengths, causal=False)
     out = out.transpose(1, 2).reshape(B, T, H * hd)
+    if split:
+        out = out[..., cols]
     x = x + sh.reduce_from_tp(linear(out, a["wo"], sh.row_bias(a["bo"])))
     h = layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"])
     m = blk["mlp"]

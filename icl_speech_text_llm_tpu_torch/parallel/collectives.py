@@ -12,7 +12,8 @@ shard context that names the groups):
   backward (the output of a row-parallel block, a masked vocab lookup, the
   vocab-parallel softmax sums);
 - ``GatherShards``: all-gather forward, reduce-scatter backward (an
-  FSDP-sharded trainable leaf, gathered at its layer's start);
+  FSDP-sharded trainable leaf, gathered at its layer's start; the
+  split-head path's q/k/v column blocks, gathered into whole heads);
 - ``GatherDim``: all-gather forward, this rank's slice backward (logits
   and heads gathered along a dim);
 - ``send`` / ``recv``: one tensor from this rank to a neighbour of its

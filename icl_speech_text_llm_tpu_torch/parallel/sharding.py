@@ -15,9 +15,20 @@ its local blocks (``shard_params``) and the layer code calls explicit
 collectives (``parallel/collectives.py``) through the ``ShardContext`` of
 the mesh, which the mesh-aware entry points install with
 ``shard_context(ctx)`` (``current_shard()`` is None on one process, and
-every layer then takes its one-process path). One divergence from GSPMD: a
-sharded dim that its axis size does not divide raises ``ValueError`` here,
-where GSPMD pads.
+every layer then takes its one-process path). A sharded dim that its axis
+size does not divide raises ``ValueError``, as the JAX package's
+``shard_params`` does (its ``jax.device_put`` refuses such a sharding).
+
+A head count that tp does not divide, where the column widths it cuts do
+divide (Whisper's 20 heads, BEATs' 12, Qwen2-7B's 28 and 4 KV heads at
+tp = 8), is not such a dim: GSPMD computes on the logical arrays, so the
+JAX package runs it. Each model (decoder, Whisper, BEATs) takes one of two
+layouts, fixed by its config and the mesh before any call
+(``ShardContext.split_heads``): head-sharded, each rank attending its own
+heads, where tp divides every head count; else split-head, each rank
+gathering its column blocks of q, k and v over tp into whole heads,
+attending all of them (attention is then computed tp times over), and
+cutting the output back to its column block for its wo row shard.
 
 Pipeline stages (a mesh with pp > 1) are a separate cut after the rule
 table (``stage_params``): a stage holds only its contiguous slice of the
@@ -122,7 +133,8 @@ def _sharded_dims(path: str, leaf, sizes: Dict[str, int]):
         if n > 1:
             if leaf.shape[dim] % n:
                 raise ValueError(f"{path}: dim {dim} of size {leaf.shape[dim]} does not split "
-                                 f"over the {axis} axis of size {n} (GSPMD would pad)")
+                                 f"over the {axis} axis of size {n} (the JAX package's "
+                                 "device_put refuses it too)")
             out.append((dim, axis))
     return out
 
@@ -168,10 +180,21 @@ class ShardContext:
     def pp_rank(self) -> int:
         return self.ranks[PP_AXIS]
 
-    def local_heads(self, n_heads: int, what: str = "heads") -> int:
-        if n_heads % self.tp:
-            raise ValueError(f"tp={self.tp} must divide the {n_heads} {what}")
-        return n_heads // self.tp
+    def split_heads(self, *counts: int) -> bool:
+        """The layout rule for one model, from its head counts (the
+        decoder's heads and KV heads; Whisper's or BEATs' heads): False
+        (head-sharded) where tp divides every one of them, True
+        (split-head) where it does not."""
+        return any(n % self.tp for n in counts)
+
+    def local_heads(self, n_heads: int, split: bool = False) -> int:
+        """The heads this rank attends: all of them on the split-head path,
+        else its block."""
+        return n_heads if split else n_heads // self.tp
+
+    def head_block(self, n_heads: int, split: bool = False) -> slice:
+        """The heads of ``local_heads`` as a slice of all ``n_heads``."""
+        return slice(0, n_heads) if split else self.cols(n_heads)
 
     def cols(self, n: int) -> slice:
         """This rank's block of ``n`` tp-sharded columns (or heads)."""
@@ -201,6 +224,20 @@ class ShardContext:
         if self.tp == 1:
             return x
         return C.GatherDim.apply(x, dim, self.groups[TP_AXIS])
+
+    def gather_cols(self, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Each x (…, n/tp), this rank's column block of an (…, n) product,
+        gathered whole over tp, all of them in one all-gather. Backward,
+        each block's gradient is the whole gradient summed over tp (one
+        reduce-scatter, ``GatherShards``): on the split-head path each rank
+        uses only its own columns of the attention output, so a head that
+        straddles two ranks' blocks takes gradient from both."""
+        if self.tp == 1:
+            return xs
+        widths = [x.shape[-1] for x in xs]
+        blocks = torch.cat(xs, -1) if len(xs) > 1 else xs[0]
+        whole = C.GatherShards.apply(blocks.unsqueeze(0), 0, self.groups[TP_AXIS])
+        return tuple(p.movedim(0, -2).flatten(-2) for p in whole.split(widths, -1))
 
     def max_over_tp(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp == 1:

@@ -2,8 +2,9 @@
 package's: the rule table itself, ``spec_for_path`` on every leaf path of
 the model trees, each rank's block shapes against JAX's
 ``NamedSharding.shard_shape``, the bit-exact ``shard_params`` →
-``gather_params`` round trip over gloo ranks, and the divisibility error
-(where GSPMD would pad).
+``gather_params`` round trip over gloo ranks, the divisibility error (the
+JAX package's ``shard_params`` raises on the same tree and mesh) and the
+serving engines' refusal of a tp that does not divide the KV heads.
 """
 
 import contextlib
@@ -90,9 +91,17 @@ def _fake_mesh(sizes, coords):
     return types.SimpleNamespace(_icl_shard_context=ctx)
 
 
-@pytest.mark.parametrize("sizes", [(1, 1, 2), (1, 2, 1), (2, 2, 2)], ids=str)
+#: salmonn-tiny with Whisper and BEATs at 2 heads: tp = 4 cuts each head in
+#: two (the split-head path), every column width still divides
+VARIANT = {"whisper": {"n_heads": 2}, "beats": {"n_heads": 2}}
+
+
+@pytest.mark.parametrize("sizes", [(1, 1, 2), (1, 2, 1), (2, 2, 2), (1, 1, 4)], ids=str)
 def test_each_ranks_block_shapes_equal_jax_shard_shape(sizes):
-    params = _salmonn()
+    """At (1, 1, 4) the tree is the 2-head variant's: its ranks' blocks are
+    JAX's too, though tp does not divide a head count."""
+    params = _salmonn() if sizes != (1, 1, 4) else _np(jsalmonn.init_salmonn(
+        jax.random.PRNGKey(0), chip_smoke._salmonn_variant(VARIANT, jsalmonn)))
     dp, fsdp, tp = sizes
     mesh = jmesh.make_mesh(dp=dp, fsdp=fsdp, tp=tp, devices=jax.devices()[:dp * fsdp * tp])
     want = {p: NamedSharding(mesh, jsharding.spec_for_path(p, leaf.ndim)).shard_shape(leaf.shape)
@@ -121,12 +130,47 @@ def test_batch_rows_follow_dp_then_fsdp():
 
 
 def test_a_dim_the_axis_does_not_divide_raises():
-    """GSPMD pads such a shard; the port refuses it, naming leaf and axis."""
-    full = params_from_numpy(_salmonn(), device="cpu")
+    """A dim its axis does not divide: the JAX package's ``shard_params``
+    (a ``jax.device_put``) raises ``ValueError`` on the tree and mesh, and
+    the port refuses it the same way, naming leaf and axis."""
+    params = _salmonn()
+    jm = jmesh.make_mesh(dp=1, fsdp=1, tp=3, devices=jax.devices()[:3])
+    for tree in (params, {"llm": params["llm"]}):
+        with pytest.raises(ValueError, match="divisible by 3"):
+            jsharding.shard_params(tree, jm)
+    full = params_from_numpy(params, device="cpu")
     with pytest.raises(ValueError, match=r"beats/layers/attn/w[kqv]: .* tp axis of size 3"):
         tsharding.shard_params(full, _fake_mesh((1, 1, 3), (0, 0, 0)))
     with pytest.raises(ValueError, match=r"llm/layers/attn/w[kqv]: dim 2 .* tp axis of size 3"):
         tsharding.shard_params({"llm": full["llm"]}, _fake_mesh((1, 1, 3), (0, 0, 0)))
+
+
+def test_serving_engines_refuse_a_tp_that_does_not_divide_the_kv_heads():
+    """The tiny decoder's 2 KV heads at tp = 4: JAX's engine raises placing
+    its KV-head-sharded pool, the port's in its constructor; at tp = 2 both
+    build."""
+    from icl_speech_text_llm_tpu.inference import serving as jserving
+    from icl_speech_text_llm_tpu_torch.inference import serving as tserving
+    from icl_speech_text_llm_tpu_torch.models import llama as tllama
+
+    jcfg = jllama.DECODER_CONFIGS["tiny"]
+    params = _np(jllama.init_decoder(jax.random.PRNGKey(0), jcfg))
+    serving = dict(num_slots=2, max_new_tokens=2, prompt_buckets=(16,))
+    for tp, refused in ((4, True), (2, False)):
+        jm = jmesh.make_mesh(dp=1, fsdp=1, tp=tp, devices=jax.devices()[:tp])
+        build = lambda: jserving.ContinuousBatchingEngine(  # noqa: E731
+            jcfg, jsharding.shard_params(jax.tree_util.tree_map(jax.numpy.asarray, params), jm),
+            jserving.ServingConfig(**serving), mesh=jm)
+        if refused:
+            with pytest.raises(ValueError, match="divisible by 4"):
+                build()
+        else:
+            build()
+    tcfg = tllama.DECODER_CONFIGS["tiny"]
+    tparams = params_from_numpy(params, device="cpu")
+    with pytest.raises(ValueError, match="tp=4 does not divide the 2 KV heads"):
+        tserving.ContinuousBatchingEngine(tcfg, tparams, tserving.ServingConfig(**serving),
+                                          mesh=_fake_mesh((1, 1, 4), (0, 0, 1)), device="cpu")
 
 
 @pytest.mark.parametrize("mesh", ["1,2,2"])
