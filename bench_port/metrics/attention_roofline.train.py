@@ -1,0 +1,12 @@
+"""The attention's share of its roofline in a training step: the tower's
+forward, the decoder's forward and backward (``opmap.json``)."""
+
+from benchlib import roofline
+
+OPS = ("tower_attention", "train_attention_fwd", "train_attention_bwd")
+
+
+def read(rec):
+    if rec["loop"] != "train" or rec.get("trace") is None:
+        return None
+    return roofline.share(OPS, rec["work"], rec["trace"]["kernel_s"], roofline.load_opmap())
