@@ -10,7 +10,8 @@ A copy of ``icl_speech_text_llm_tpu/data/collate.py`` with only the
 imports changed: the JAX package's ``collate`` takes ``N_SAMPLES`` from
 its jax-backed ``ops.mel`` (here it comes from the port's ``ops/mel``),
 and every ``data`` module imports through ``data/__init__``, which
-imports ``collate``.
+imports ``collate``. Besides, ``collate_icl_batch`` runs the original's
+body inside the port's ``port/collate`` span (``utils/perf.py:span``).
 The framework-free ``registry``, ``utils.tokenization`` and ``utils.native``
 are still imported from the JAX package. Keep the copies in step.
 """
@@ -24,6 +25,7 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 
 from ..ops.mel import N_SAMPLES
+from ..utils.perf import span
 from ..utils.tokenization import Tokenizer
 from .packing import PackConfig, PackedBatch, PackedSample, pack_batch, shift_labels, tokenize_plan
 from .prompts import PromptPlan
@@ -58,6 +60,12 @@ def collate_icl_batch(
     PackConfig (one extra compile) instead of raising PackError — the
     reference simply ran oversized prompts slower; we match that behavior.
     """
+    with span("collate"):
+        return _collate_icl_batch(samples, tokenizer, pack_cfg, auto_grow)
+
+
+def _collate_icl_batch(samples: Sequence[ICLSample], tokenizer: Tokenizer,
+                       pack_cfg: PackConfig, auto_grow: bool) -> PackedBatch:
     packed_samples: List[PackedSample] = []
     for s in samples:
         ps = tokenize_plan(tokenizer, s.plan, s.completion, extras=s.extras)

@@ -32,6 +32,7 @@ from typing import Any, Dict
 import torch
 
 from ..models.llama import decode_step, embed_tokens, lm_logits
+from ..utils.perf import span
 from .engine import _process_logits, prefill, sampling_generator
 
 NEG = -1e9
@@ -68,7 +69,6 @@ def beam_decode_from_sequence(llm_cfg, llm_params: Dict[str, Any], seq: torch.Te
     beams draw from ``generator`` where given (the serving engine's), else
     from a new one seeded with ``gen.seed``."""
     mark = events.mark if events is not None else (lambda: None)
-    mark()
     B, L, _ = seq.shape
     K, Tmax, lp = gen.num_beams, gen.max_new_tokens, gen.length_penalty
     dev = seq.device
@@ -76,21 +76,7 @@ def beam_decode_from_sequence(llm_cfg, llm_params: Dict[str, Any], seq: torch.Te
     sample = bool(gen.do_sample) and gen.temperature > 0
     rng = (generator or sampling_generator(gen, dev)) if sample else None
     temp = gen.temperature if sample else 1.0
-    lengths = lengths.to(device=dev, dtype=torch.int32)
     cache_len = -(-(L + Tmax) // 128) * 128
-    first_logits, cache = prefill(llm_cfg, llm_params, seq, lengths, cache_len, lora,
-                                  lora_scaling, dt, gen.kv_int8)
-    # B rows → B·K rows, beam-major within each sample (scale planes too)
-    cache = {name: c.repeat_interleave(K, dim=1) for name, c in cache.items()}
-
-    ar_k = torch.arange(K, device=dev)
-    run_scores = torch.where(ar_k == 0, 0.0, NEG).float()[None].repeat(B, 1)  # (B, K)
-    run_toks = torch.full((B, K, Tmax), gen.pad_token_id, dtype=torch.int32, device=dev)
-    hyp_scores = torch.full((B, K), float("-inf"), device=dev)
-    hyp_toks = torch.full((B, K, Tmax), gen.pad_token_id, dtype=torch.int32, device=dev)
-    hyp_lens = torch.zeros((B, K), dtype=torch.int32, device=dev)
-    batch_done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    rank = torch.arange(2 * K, device=dev)
 
     def select(state, scores_bkv, t):
         """One HF BeamSearchScorer.process step; t = tokens generated so far."""
@@ -145,31 +131,49 @@ def beam_decode_from_sequence(llm_cfg, llm_params: Dict[str, Any], seq: torch.Te
         return _process_logits(logprobs.reshape(B * K, V), run_toks.reshape(B * K, Tmax),
                                t, gen).reshape(B, K, V)
 
-    # t = 0: every beam shares the prefill's logits; no cache reorder (the
-    # beam rows are copies)
-    state = (run_scores, run_toks, hyp_scores, hyp_toks, hyp_lens, batch_done)
-    logprobs0 = torch.log_softmax(first_logits.float(), dim=-1)[:, None].expand(B, K, V)
-    scores0 = processors(logprobs0, run_toks, 0) + run_scores[..., None]
-    state, tok, _ = select(state, scores0, 0)
-    mark()
+    with span("prefill"):
+        mark()
+        lengths = lengths.to(device=dev, dtype=torch.int32)
+        first_logits, cache = prefill(llm_cfg, llm_params, seq, lengths, cache_len, lora,
+                                      lora_scaling, dt, gen.kv_int8)
+        # B rows → B·K rows, beam-major within each sample (scale planes too)
+        cache = {name: c.repeat_interleave(K, dim=1) for name, c in cache.items()}
+
+        ar_k = torch.arange(K, device=dev)
+        run_scores = torch.where(ar_k == 0, 0.0, NEG).float()[None].repeat(B, 1)  # (B, K)
+        run_toks = torch.full((B, K, Tmax), gen.pad_token_id, dtype=torch.int32, device=dev)
+        hyp_scores = torch.full((B, K), float("-inf"), device=dev)
+        hyp_toks = torch.full((B, K, Tmax), gen.pad_token_id, dtype=torch.int32, device=dev)
+        hyp_lens = torch.zeros((B, K), dtype=torch.int32, device=dev)
+        batch_done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        rank = torch.arange(2 * K, device=dev)
+
+        # t = 0: every beam shares the prefill's logits; no cache reorder (the
+        # beam rows are copies)
+        state = (run_scores, run_toks, hyp_scores, hyp_toks, hyp_lens, batch_done)
+        logprobs0 = torch.log_softmax(first_logits.float(), dim=-1)[:, None].expand(B, K, V)
+        scores0 = processors(logprobs0, run_toks, 0) + run_scores[..., None]
+        state, tok, _ = select(state, scores0, 0)
+        mark()
 
     cur_len = lengths.repeat_interleave(K)  # (B·K,) append position of the next row
     base = (torch.arange(B, device=dev) * K)[:, None]
-    for t in range(1, Tmax):
-        emb = embed_tokens(llm_params, tok.reshape(B * K, 1), dtype=dt)
-        hidden, cache = decode_step(llm_cfg, llm_params, emb, cache, cur_len, lora,
-                                    lora_scaling, gen.use_flash_decode)
-        logits = lm_logits(llm_cfg, llm_params, hidden)[:, 0].float()
-        logprobs = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
-        scores = processors(logprobs, state[1], t) + state[0][..., None]
-        state, tok, src_beam = select(state, scores, t)
-        # the cache rows follow the selected beams, one leaf at a time (the
-        # old leaf is freed as its copy replaces it)
-        flat_src = (src_beam + base).reshape(B * K)
-        for name in cache:
-            cache[name] = cache[name].index_select(1, flat_src)
-        cur_len = cur_len + 1
-        mark()
+    with span("decode"):
+        for t in range(1, Tmax):
+            emb = embed_tokens(llm_params, tok.reshape(B * K, 1), dtype=dt)
+            hidden, cache = decode_step(llm_cfg, llm_params, emb, cache, cur_len, lora,
+                                        lora_scaling, gen.use_flash_decode)
+            logits = lm_logits(llm_cfg, llm_params, hidden)[:, 0].float()
+            logprobs = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
+            scores = processors(logprobs, state[1], t) + state[0][..., None]
+            state, tok, src_beam = select(state, scores, t)
+            # the cache rows follow the selected beams, one leaf at a time (the
+            # old leaf is freed as its copy replaces it)
+            flat_src = (src_beam + base).reshape(B * K)
+            for name in cache:
+                cache[name] = cache[name].index_select(1, flat_src)
+            cur_len = cur_len + 1
+            mark()
 
     run_scores, run_toks, hyp_scores, hyp_toks, hyp_lens, batch_done = state
     # finalize: the surviving running beams become hypotheses (HF finalize)

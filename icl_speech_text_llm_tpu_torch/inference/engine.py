@@ -19,6 +19,11 @@ flash-decode kernel) or ``False`` (JAX's scanned-layer path: each layer's
 row appended first, then the plain masked attention over the cache).
 ``kv_int8`` keeps the cache in int8 with per-position f32 scales.
 
+Spans (``utils/perf.py:span``, where a profiler records): ``port/encode``
+around the family's ``sequence_fn``, ``port/prefill`` (the prefill and
+the first token) and ``port/decode`` (the decode loop) in each decoder,
+and ``port/h2d`` / ``port/d2h`` around ``SalmonnEngine``'s copies.
+
 Under a mesh (any call inside ``parallel/sharding.py:shard_context``;
 ``SalmonnEngine.shard``) the parameters are the rank's
 blocks and the batch its rows over (dp, fsdp): the encoders and the
@@ -53,6 +58,7 @@ from ..models.llama import (
 )
 from ..ops.mel import log_mel_spectrogram, pad_or_trim, wavs_to_float
 from ..parallel.sharding import shard_context
+from ..utils.perf import StepEvents, device_events, span
 from ..utils.tokenization import Tokenizer
 
 
@@ -80,23 +86,6 @@ class GenerationConfig:
     @property
     def needs_history(self) -> bool:
         return self.repetition_penalty != 1.0 or self.min_new_tokens > 0
-
-
-class StepEvents:
-    """CUDA events at the start of the prefill, after it, and after each
-    decode step; ``millis()`` is read once the tokens are on the host, so
-    timing adds no synchronisation. → [prefill ms, step 1 ms, …]."""
-
-    def __init__(self):
-        self.events: List[torch.cuda.Event] = []
-
-    def mark(self) -> None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.events.append(ev)
-
-    def millis(self) -> List[float]:
-        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
 
 
 def prefill(llm_cfg, llm_params: Dict[str, Any], seq: torch.Tensor, lengths: torch.Tensor,
@@ -185,40 +174,42 @@ def decode_from_sequence(llm_cfg, llm_params: Dict[str, Any], seq: torch.Tensor,
     processors) → (B, max_new_tokens) int32 token ids; ``events`` (CUDA)
     marks the prefill and each decode step."""
     mark = events.mark if events is not None else (lambda: None)
-    mark()
-    B, L, _ = seq.shape
-    lengths = lengths.to(device=seq.device, dtype=torch.int32)
-    cache_len = -(-(L + gen.max_new_tokens) // 128) * 128
-    logits, cache = prefill(llm_cfg, llm_params, seq, lengths, cache_len, lora,
-                            lora_scaling, dt, gen.kv_int8)
-    rng = sampling_generator(gen, seq.device)
-    history = None
-    if gen.needs_history:
-        history = torch.full((B, gen.max_new_tokens), gen.pad_token_id, dtype=torch.int32,
-                             device=seq.device)
-        logits = _process_logits(logits, history, 0, gen)
-    tok = _sample_token(logits, rng, gen).to(torch.int32)
-    if history is not None:
-        history[:, 0] = tok
-    mark()
+    with span("prefill"):
+        mark()
+        B, L, _ = seq.shape
+        lengths = lengths.to(device=seq.device, dtype=torch.int32)
+        cache_len = -(-(L + gen.max_new_tokens) // 128) * 128
+        logits, cache = prefill(llm_cfg, llm_params, seq, lengths, cache_len, lora,
+                                lora_scaling, dt, gen.kv_int8)
+        rng = sampling_generator(gen, seq.device)
+        history = None
+        if gen.needs_history:
+            history = torch.full((B, gen.max_new_tokens), gen.pad_token_id, dtype=torch.int32,
+                                 device=seq.device)
+            logits = _process_logits(logits, history, 0, gen)
+        tok = _sample_token(logits, rng, gen).to(torch.int32)
+        if history is not None:
+            history[:, 0] = tok
+        mark()
     done = tok == gen.eos_token_id
     toks = [tok]
     cur_len = lengths
-    for t in range(1, gen.max_new_tokens):
-        emb = embed_tokens(llm_params, tok[:, None], dtype=dt)
-        hidden, cache = decode_step(llm_cfg, llm_params, emb, cache, cur_len, lora,
-                                    lora_scaling, gen.use_flash_decode)
-        logits = lm_logits(llm_cfg, llm_params, hidden)[:, 0]
-        if history is not None:
-            logits = _process_logits(logits, history, t, gen)
-        nxt = _sample_token(logits, rng, gen)
-        tok = torch.where(done, torch.full_like(nxt, gen.pad_token_id), nxt).to(torch.int32)
-        if history is not None:
-            history[:, t] = tok
-        done = done | (tok == gen.eos_token_id)
-        toks.append(tok)
-        cur_len = cur_len + 1
-        mark()
+    with span("decode"):
+        for t in range(1, gen.max_new_tokens):
+            emb = embed_tokens(llm_params, tok[:, None], dtype=dt)
+            hidden, cache = decode_step(llm_cfg, llm_params, emb, cache, cur_len, lora,
+                                        lora_scaling, gen.use_flash_decode)
+            logits = lm_logits(llm_cfg, llm_params, hidden)[:, 0]
+            if history is not None:
+                logits = _process_logits(logits, history, t, gen)
+            nxt = _sample_token(logits, rng, gen)
+            tok = torch.where(done, torch.full_like(nxt, gen.pad_token_id), nxt).to(torch.int32)
+            if history is not None:
+                history[:, t] = tok
+            done = done | (tok == gen.eos_token_id)
+            toks.append(tok)
+            cur_len = cur_len + 1
+            mark()
     return torch.stack(toks, dim=1)
 
 
@@ -246,7 +237,8 @@ def generate_batch(cfg, gen: GenerationConfig, params: Dict[str, Any],
     ``batch``: text_tokens (B, L_text), gather_idx (B, L_seq), seq_lengths
     (B,), wavs (B, n_slots, n_samples) [, audio_lengths], all on the
     model's device. ``num_beams > 1`` decodes with beam search."""
-    seq = sequence_fn(cfg, params, batch)
+    with span("encode"):
+        seq = sequence_fn(cfg, params, batch)
     scaling = cfg.lora.scaling if cfg.lora is not None else 1.0
     decode = decode_from_sequence
     if gen.num_beams > 1:
@@ -283,7 +275,9 @@ class SalmonnEngine:
     """Host-side wrapper: ships a packed batch to the device, generates, and
     decodes rows to strings (API of the JAX package's SalmonnEngine). On a
     CUDA device ``timings`` collects each batch's [prefill ms, decode step
-    ms, …] (CUDA events). ``sequence_fn`` builds the family's prompt
+    ms, …] and ``encode_timings`` each batch's ms from the start of its
+    ``sequence_fn`` to the start of its prefill (CUDA events, read once the
+    tokens are on the host). ``sequence_fn`` builds the family's prompt
     embeddings (``generate_batch``). ``shard``: a sharded mesh's shard
     context (the params then the rank's blocks, as a sharded training loop
     sets them), under which every batch runs; every tp rank returns the
@@ -300,19 +294,28 @@ class SalmonnEngine:
                                            pad_token_id=tokenizer.pad_token_id)
         self.device = torch.device(device)
         self.timings: List[List[float]] = []
+        self.encode_timings: List[float] = []
 
     def generate_tokens(self, packed: PackedBatch, audio: Dict[str, np.ndarray]) -> np.ndarray:
         batch = {
             "text_tokens": packed.text_tokens, "gather_idx": packed.gather_idx,
             "seq_lengths": packed.seq_lengths, **audio,
         }
-        batch = {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
-        events = StepEvents() if self.device.type == "cuda" else None
+        with span("h2d"):
+            batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                     for k, v in batch.items()}
+        events = device_events(self.device)
+        if events is not None:
+            events.mark()  # the encode's start; the decoder's first mark ends it
         with shard_context(self.shard):
             toks = generate_batch(self.cfg, self.gen, self.params, batch, self.sequence_fn,
-                                  events).cpu().numpy()
+                                  events)
+        with span("d2h"):
+            toks = toks.cpu().numpy()
         if events is not None:
-            self.timings.append(events.millis())
+            encode_ms, *step_ms = events.millis()
+            self.encode_timings.append(encode_ms)
+            self.timings.append(step_ms)
         return toks
 
     def generate(self, packed: PackedBatch, audio: Dict[str, np.ndarray]) -> List[str]:

@@ -71,13 +71,14 @@ class ThroughputTracker:
 def run_inference(engine: SalmonnEngine, dataset, pack_cfg: PackConfig,
                   settings: InferenceSettings) -> Dict[str, Any]:
     """Generate predictions over ``dataset`` and clean them per task. On a
-    CUDA device the perf summary adds the prefill and decode-step times of
-    the engine's CUDA events and the run's peak device memory (counted from
+    CUDA device the perf summary adds the encode, prefill and decode-step
+    times of the engine's CUDA events and the run's peak device memory (counted from
     the start of this call, so the model build is not in it)."""
     cuda = engine.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(engine.device)
         engine.timings.clear()
+        engine.encode_timings.clear()
     tracker = ThroughputTracker()
     results: List[Dict[str, Any]] = []
     n = len(dataset)
@@ -106,6 +107,7 @@ def run_inference(engine: SalmonnEngine, dataset, pack_cfg: PackConfig,
             })
     summary = tracker.summary()
     if cuda:
+        summary["encode_ms"] = list(engine.encode_timings)
         summary["prefill_ms"] = [t[0] for t in engine.timings]
         summary["decode_step_ms"] = [ms for t in engine.timings for ms in t[1:]]
         summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated(engine.device)

@@ -6,8 +6,10 @@ to the model's device and stepped; each epoch ends with generation-based
 validation on the current trainable weights and a trainable-only checkpoint
 ``epoch_{n}_loss_{x:.4f}``. A batch whose step raises is skipped, as in the
 JAX package, and counted: ``train`` returns the count with the state.
-``StepTimer`` records per-step seconds (the device synchronised on CUDA),
-examples/s and each step's kernel launches.
+``StepTimer`` records per-step seconds on the host's clock, examples/s and
+each step's kernel launches, and on CUDA with no mesh each step's device
+interval from its phase events, read after the loop; nothing in it
+synchronises.
 
 With a ``mesh`` (data parallelism over its ``dp`` group) every rank draws
 the same per-epoch permutation and collates only its contiguous
@@ -144,27 +146,25 @@ def validate(engine, val_dataset, pack_cfg: PackConfig, dataset_types: List[Data
 
 
 class StepTimer:
-    """Per-step wall seconds (host clock, the device synchronised on CUDA so
-    the step's kernels are done), examples/s, and each step's launches of
-    every kernel wrapper."""
+    """Per-step seconds on the host's clock, examples/s, and each step's
+    launches of every kernel wrapper, with no synchronisation: the step's
+    own ``.item()`` reads hold the host to the device's pace.
+    ``summary()`` adds ``device_step_seconds``, each timed step's device
+    interval from forward through update (``step_fn.timings()``), where the
+    step marks one (CUDA, no mesh)."""
 
-    def __init__(self, device: torch.device):
-        self.cuda = torch.device(device).type == "cuda"
+    def __init__(self, step_fn: Callable):
+        self._timings = getattr(step_fn, "timings", None)
+        self._first = len(self._timings()) if self._timings is not None else 0
         self.step_seconds: List[float] = []
         self.launches: List[Dict[str, int]] = []
         self.examples = 0
 
-    def _sync(self):
-        if self.cuda:
-            torch.cuda.synchronize()
-
     def start(self):
-        self._sync()
         self._counts = kernels.launch_counts()
         self._t0 = time.perf_counter()
 
     def stop(self, examples: int):
-        self._sync()
         self.step_seconds.append(time.perf_counter() - self._t0)
         now = kernels.launch_counts()
         self.launches.append({k: now[k] - self._counts[k] for k in now})
@@ -172,13 +172,17 @@ class StepTimer:
 
     def summary(self) -> Dict[str, Any]:
         total = sum(self.step_seconds)
-        return {"steps": len(self.step_seconds), "examples": self.examples,
-                "total_seconds": total,
-                "examples_per_sec": self.examples / total if total else 0.0,
-                "p50_step_seconds": (statistics.median(self.step_seconds)
-                                     if self.step_seconds else 0.0),
-                "step_seconds": list(self.step_seconds),
-                "launches_per_step": list(self.launches)}
+        out = {"steps": len(self.step_seconds), "examples": self.examples,
+               "total_seconds": total,
+               "examples_per_sec": self.examples / total if total else 0.0,
+               "p50_step_seconds": (statistics.median(self.step_seconds)
+                                    if self.step_seconds else 0.0),
+               "step_seconds": list(self.step_seconds),
+               "launches_per_step": list(self.launches)}
+        device = self._timings()[self._first:] if self._timings is not None else []
+        if device:
+            out["device_step_seconds"] = [sum(ms) / 1e3 for ms in device]
+        return out
 
 
 @dataclass
@@ -236,7 +240,7 @@ def train(model, state: TrainState, frozen: Dict[str, Any], step_fn: Callable,
     sharded = is_sharded(mesh)
     if sharded:
         model.engine.shard = context_of(mesh)
-    timer = StepTimer(device)
+    timer = StepTimer(step_fn)
     result = TrainResult(state, model)
     start_epoch = _resume(state, settings.resume_from, mesh) if settings.resume_from else 0
     last_loss = float("nan")

@@ -59,6 +59,14 @@ batch axes as above.
 PyTorch idiom: the trainable leaves are f32 tensors that require grad, the
 step updates them and the optimizer state in place (no second copy of the
 weights) and returns the same ``TrainState``.
+
+Phases: ``port/step.forward`` (the loss), ``port/step.backward``
+(``torch.autograd.grad``) and ``port/step.update`` (the finiteness check,
+the norm, the ``.item()`` reads, accumulation, clipping and AdamW) are
+spans on every path (``utils/perf.py:span``, where a profiler records).
+On CUDA with no mesh the step also marks CUDA events at their edges:
+``step.timings()`` lists each step's [forward ms, backward ms, update ms],
+read once the loop is over.
 """
 
 from __future__ import annotations
@@ -83,6 +91,7 @@ from ..parallel.sharding import (
     tree_paths,
 )
 from ..parallel import collectives
+from ..utils.perf import StepEvents, device_events, span
 
 #: Subtrees that train by default (everything else is frozen), as in the JAX
 #: package: Whisper/BEATs/LLM frozen, Q-Former and LoRA train.
@@ -225,15 +234,23 @@ def init_train_state(params: Dict[str, Any], optimizer: AdamW,
 
 
 def _loss_and_grads(cfg, loss_fn, remat, state: TrainState, frozen: Dict[str, Any],
-                    batch: Dict[str, torch.Tensor], weight=None, **kw):
+                    batch: Dict[str, torch.Tensor], weight=None,
+                    events: Optional[StepEvents] = None, **kw):
     """The loss (× ``weight``) and its gradients over the trainable leaves;
-    ``kw`` the loss function's ``pipeline`` / ``sp``."""
+    ``events`` marked after each; ``kw`` the loss function's ``pipeline`` /
+    ``sp``."""
     leaves = tree_leaves(state.trainable)
-    loss = loss_fn(cfg, merge_params(frozen, state.trainable), batch, remat=remat, **kw)
-    if weight is not None:
-        loss = loss * weight
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    with span("step.forward"):
+        loss = loss_fn(cfg, merge_params(frozen, state.trainable), batch, remat=remat, **kw)
+        if weight is not None:
+            loss = loss * weight
+    if events is not None:
+        events.mark()
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    if events is not None:
+        events.mark()
     return loss.detach(), grads
 
 
@@ -333,7 +350,9 @@ def make_train_step(cfg: SalmonnConfig, optimizer: AdamW,
                     pipeline=None, sp=None) -> Callable:
     """Build the step: (state, frozen, batch) → (state, metrics) with metrics
     ``loss``, ``grad_norm`` (of the micro-batch gradients, before clipping),
-    ``skipped_nonfinite`` and ``step`` (the micro-step it ran as). With a
+    ``skipped_nonfinite`` and ``step`` (the micro-step it ran as); its
+    ``timings()`` the phases' device ms of each step that ran on CUDA with
+    no mesh (module docstring), waiting for the last step's update. With a
     ``mesh`` the batch is this rank's rows of the global batch, and the
     loss, gradients and skip are the global batch's (module docstring); a
     mesh with fsdp, tp or pp > 1 takes ``state`` and ``frozen`` as the
@@ -356,26 +375,43 @@ def make_train_step(cfg: SalmonnConfig, optimizer: AdamW,
                              "sequence")
         mesh, kw = sp[0], {"sp": sp}
     ctx = context_of(mesh)
+    phases: List[StepEvents] = []
 
     def step(state: TrainState, frozen: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         sharded = sp is None and is_sharded(mesh)
         norm_fn = sharded_norm_fn(state.trainable, ctx) if sharded else global_norm
         if ctx is None:
-            loss, grads = _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch)
+            events = device_events(tree_leaves(state.trainable)[0].device)
+            if events is not None:
+                events.mark()
+            loss, grads = _loss_and_grads(cfg, loss_fn, remat, state, frozen, batch,
+                                          events=events)
             nonfinite = False
         else:
+            events = None
             loss, grads, nonfinite = _mesh_loss_and_grads(cfg, loss_fn, remat, ctx, state,
                                                           frozen, batch, **kw)
-        ok = not nonfinite and bool(torch.isfinite(loss))
-        norm = norm_fn(grads)
-        metrics = {"loss": loss.item(), "grad_norm": norm.item(),
-                   "skipped_nonfinite": 0.0 if ok else 1.0, "step": state.step}
-        if ok:
-            applied = optimizer.accumulate(grads, state.opt_state)
-            if applied is not None:  # the micro-step's norm clips unless it was accumulated
-                optimizer.apply(applied, state.opt_state, tree_leaves(state.trainable),
-                                norm if optimizer.s.grad_accum_steps == 1 else norm_fn(applied))
+        with span("step.update"):
+            ok = not nonfinite and bool(torch.isfinite(loss))
+            norm = norm_fn(grads)
+            metrics = {"loss": loss.item(), "grad_norm": norm.item(),
+                       "skipped_nonfinite": 0.0 if ok else 1.0, "step": state.step}
+            if ok:
+                applied = optimizer.accumulate(grads, state.opt_state)
+                if applied is not None:  # the micro-step's norm clips unless it was accumulated
+                    optimizer.apply(applied, state.opt_state, tree_leaves(state.trainable),
+                                    norm if optimizer.s.grad_accum_steps == 1
+                                    else norm_fn(applied))
+        if events is not None:
+            events.mark()
+            phases.append(events)
         state.step += 1
         return state, metrics
 
+    def timings() -> List[List[float]]:
+        if phases:
+            phases[-1].events[-1].synchronize()
+        return [events.millis() for events in phases]
+
+    step.timings = timings
     return step

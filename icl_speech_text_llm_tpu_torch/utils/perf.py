@@ -1,4 +1,4 @@
-"""Performance tracking, timers and the profiler switch.
+"""Performance tracking, spans, device intervals and the profiler switch.
 
 Counterpart of ``icl_speech_text_llm_tpu/utils/perf.py`` (ref:
 utils/performance_utils.py:15-177, 336-375):
@@ -7,26 +7,33 @@ utils/performance_utils.py:15-177, 336-375):
   rolling loss, on the host clock. The symbol trainer reads its summary
   after every schedule step; the loss it is given is a Python float, so
   each update follows the device's step.
-- ``timer`` / ``time_function``: host wall time of a block or a call,
-  logged (a CUDA caller synchronises inside the block to time the device).
+- ``span(name)``: a range named ``port/<name>`` on the profiler's
+  timeline, at a layer edge of the port (the collate, the engine's copies,
+  encode, prefill and decode loop, the train step's phases), where a
+  ``torch.profiler`` is recording on this thread. With no profiler on, it
+  is one shared null context and records nothing.
+- ``StepEvents`` / ``device_events``: device intervals between CUDA
+  events, read once the host holds the results, so timing adds no
+  synchronisation.
 - ``torch_profile(outdir)``: a ``torch.profiler`` trace (CPU activity, and
   CUDA activity where a card is present) written as a Chrome trace into
   ``outdir``; the JAX package's ``jax_profile``.
 - ``log_system_info``: host memory, the torch and CUDA versions and the
   cards' names, where the JAX package logs its backend.
 
-``enable_compilation_cache`` (the XLA cache, TPU only) has no counterpart.
+``enable_compilation_cache`` (the XLA cache, TPU only) has no counterpart;
+nor have ``timer`` and ``time_function``, whose host clock times the
+enqueue of CUDA work, not the work.
 """
 
 from __future__ import annotations
 
 import contextlib
-import functools
 import logging
 import os
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -84,25 +91,44 @@ class PerformanceTracker:
         )
 
 
-@contextlib.contextmanager
-def timer(name: str, log=True):
-    """(ref: utils/performance_utils.py:130-150)"""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if log:
-        logger.info(f"{name} took {dt:.3f}s")
+SPAN_PREFIX = "port/"
+_NO_SPAN = contextlib.nullcontext()
 
 
-def time_function(fn):
-    """(ref: utils/performance_utils.py:153-177)"""
+def span(name: str):
+    """``port/<name>`` on the profiler's timeline around the block, where a
+    ``torch.profiler`` records this thread; else a shared null context.
 
-    @functools.wraps(fn)
-    def wrapped(*a, **kw):
-        with timer(fn.__name__):
-            return fn(*a, **kw)
+    The range is of the function scope, drawn on the host's timeline only:
+    a ``record_function`` range (user scope) is drawn a second time over
+    the kernels it launched, as a CUDA-device event, which a reader of the
+    trace would count as device work."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
 
-    return wrapped
+
+class StepEvents:
+    """CUDA events marked on the current stream; ``millis()`` gives the ms
+    between each mark and the next. Read once the host holds what the
+    marked work made, so timing adds no synchronisation."""
+
+    def __init__(self):
+        self.events: List[torch.cuda.Event] = []
+
+    def mark(self) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+
+    def millis(self) -> List[float]:
+        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+
+def device_events(device) -> Optional[StepEvents]:
+    """A ``StepEvents`` for work on ``device`` where it is a CUDA device,
+    else None: the CPU's work is timed by the host's clock."""
+    return StepEvents() if torch.device(device).type == "cuda" else None
 
 
 @contextlib.contextmanager

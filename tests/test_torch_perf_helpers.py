@@ -1,6 +1,7 @@
-"""The host helpers of the port's ``utils/perf.py`` (``timer``,
-``time_function``, ``log_system_info``, ``torch_profile``) and the logging
-setup, on the CPU, against the JAX package's where they have one."""
+"""The host helpers of the port's ``utils/perf.py`` (``log_system_info``,
+``torch_profile``) and the logging setup, on the CPU, and the JAX
+package's ``timer`` and ``time_function``, which the port leaves out (its
+spans and CUDA events take their place: ``tests/test_torch_tracing.py``)."""
 
 import json
 import logging
@@ -16,7 +17,7 @@ from icl_speech_text_llm_tpu_torch.utils.logging_utils import setup_logging
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("perf", [jperf, tperf], ids=["jax", "port"])
+@pytest.mark.parametrize("perf", [jperf], ids=["jax"])
 def test_timer_logs_the_block_s_seconds(perf, caplog):
     with caplog.at_level(logging.INFO, logger=perf.logger.name):
         with perf.timer("block"):
@@ -28,7 +29,7 @@ def test_timer_logs_the_block_s_seconds(perf, caplog):
     assert float(lines[0][len("block took "):-1]) >= 0.0
 
 
-@pytest.mark.parametrize("perf", [jperf, tperf], ids=["jax", "port"])
+@pytest.mark.parametrize("perf", [jperf], ids=["jax"])
 def test_time_function_wraps_and_logs_by_name(perf, caplog):
     @perf.time_function
     def add(a, b=1):
@@ -53,8 +54,10 @@ def test_log_system_info_names_torch_and_the_devices(caplog):
 def test_torch_profile_writes_a_chrome_trace(tmp_path):
     out = tmp_path / "trace"
     with tperf.torch_profile(str(out)) as prof:
-        x = torch.randn(64, 64)
-        (x @ x).sum()
+        with tperf.span("outer"):
+            x = torch.randn(64, 64)
+            with tperf.span("inner"):
+                (x @ x).sum()
     assert prof is not None
     files = os.listdir(out)
     assert len(files) == 1 and files[0].startswith(f"trace_{os.getpid()}_")
@@ -62,6 +65,10 @@ def test_torch_profile_writes_a_chrome_trace(tmp_path):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("mm" in n for n in names), sorted(names)[:20]
+    ranges = {e["name"]: e for e in trace["traceEvents"] if e.get("name", "").startswith("port/")}
+    assert set(ranges) == {"port/outer", "port/inner"}
+    outer, inner = ranges["port/outer"], ranges["port/inner"]
+    assert outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
 
 
 def test_torch_profile_without_a_dir_traces_nothing(tmp_path):
