@@ -1682,12 +1682,14 @@ def _qwen_kernel_rows(report, randn, stat_errs, valid_rows_err):
     """K1, K2 and K5 + K6 at the shapes phase qwen gives them, from its first
     batch (``_qwen_batches``): K1 the Qwen2-7B prefill (4, 28, 2048, 128)
     over 4 kv heads (n_rep 7) with the prompts' lengths; K2 the tower's 24
-    clips (24, 20, 1500, 64) with each clip's frame count as its key length
-    (also checked at 250, a 5 s clip's frames); K5 + K6 K1's shape. Each
+    clips over the T' rows the tower runs (``tower_frames``: 256 for clips
+    of 50-150 frames), (24, 20, 256, 64), with each clip's frame count as
+    its key length (also checked at T' − 1, the most frames a clip of that
+    bucket holds); K5 + K6 K1's shape. Each
     bound counts the rows the result holds: the query rows below each
     length (the rows past it are padding that no consumer reads: K1, K5
     and K6 are compared below the lengths, K2 on every row, as both sides
-    compute them) and the keys below it, not all 1500 or 2048; the share
+    compute them) and the keys below it, not all T' or 2048; the share
     of the bound over every query row the kernel computes is printed beside
     it. The library calls are SDPA with the same masks (``enable_gqa`` for
     n_rep 7) and its backward. Rows report run (a)'s launches (K1, K2) and
@@ -1695,14 +1697,18 @@ def _qwen_kernel_rows(report, randn, stat_errs, valid_rows_err):
     import torch
     import torch.nn.functional as F
 
-    from icl_speech_text_llm_tpu_torch.models.qwen_audio import audio_feat_lengths
+    from icl_speech_text_llm_tpu_torch.models.qwen_audio import (
+        audio_feat_lengths,
+        host_tower_frames,
+    )
     from icl_speech_text_llm_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
     seq_lens, clip_samples = _qwen_batches(4)[0]
     frames = [int(audio_feat_lengths(n)) for n in clip_samples]
+    tower_rows = host_tower_frames(clip_samples)
     print(f"  qwen2-audio-7b shapes: prompt positions {seq_lens} of {QWEN_SEQ[0]}, clip "
-          f"frames {frames} of 1500", flush=True)
+          f"frames {frames} of 1500, the tower runs {tower_rows}", flush=True)
 
     def qwen_row(name, errs, ms, plain_ms, bound, lib_ms, every_row):
         print(f"  {name} qwen2-audio-7b: {100 * bound[0] / ms:.1f}% of its bound over the "
@@ -1793,22 +1799,23 @@ def _qwen_kernel_rows(report, randn, stat_errs, valid_rows_err):
     del q, k, v, do, o, m, l, dq, dk, dv, delta, args, args_kv
     torch.cuda.empty_cache()
 
-    # K2: the audio tower, each clip's keys below its frame count
-    B, H, S, D = len(frames), 20, 1500, 64
+    # K2: the audio tower over the rows it runs, each clip's keys below its
+    # frame count
+    B, H, S, D = len(frames), 20, tower_rows, 64
     lengths = torch.tensor(frames, dtype=torch.int32, device=dev)
     q, k, v = randn(B, H, S, D), randn(B, H, S, D), randn(B, H, S, D)
     # every query row compared: both sides compute the rows past a clip's
     # frames over the same keys
     errs = stat_errs(fa.flash_attention_noncausal(q, k, v, lengths),
                      fa.flash_attention_plain(q, k, v, lengths, causal=False), [S] * B)
-    five_s = torch.full((B,), 250, dtype=torch.int32, device=dev)  # 5 s clips' frames
-    errs += [(f"5 s clips (250 keys) {what}", e, tol) for what, e, tol in stat_errs(
-        fa.flash_attention_noncausal(q, k, v, five_s),
-        fa.flash_attention_plain(q, k, v, five_s, causal=False), [S] * B)]
+    edge = torch.full((B,), S - 1, dtype=torch.int32, device=dev)  # the bucket's longest
+    errs += [(f"clips of {S - 1} frames {what}", e, tol) for what, e, tol in stat_errs(
+        fa.flash_attention_noncausal(q, k, v, edge),
+        fa.flash_attention_plain(q, k, v, edge, causal=False), [S] * B)]
     key_mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
     # valid: q, k, v and o rows below each clip's frames, m and l of those
     # rows, every such query row against its clip's keys; every row: all
-    # 1500 query rows of q, o, m and l against the clip's keys
+    # S query rows of q, o, m and l against the clip's keys
     n_valid = sum(frames)
     bound = _bound(4 * 2 * H * D * n_valid + 2 * 4 * H * n_valid,
                    4.0 * D * H * sum(n * n for n in frames))

@@ -56,6 +56,7 @@ from ..models.llama import (
     init_kv_cache,
     lm_logits,
 )
+from ..models.qwen_audio import host_tower_frames
 from ..ops.mel import log_mel_spectrogram, pad_or_trim, wavs_to_float
 from ..parallel.sharding import shard_context
 from ..utils.perf import StepEvents, device_events, span
@@ -304,6 +305,8 @@ class SalmonnEngine:
         with span("h2d"):
             batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
                      for k, v in batch.items()}
+        if "audio_lengths" in audio:  # Qwen2-Audio's tower frames, from the host copy
+            batch["tower_frames"] = host_tower_frames(audio["audio_lengths"])
         events = device_events(self.device)
         if events is not None:
             events.mark()  # the encode's start; the decoder's first mark ends it

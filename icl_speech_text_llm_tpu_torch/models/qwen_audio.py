@@ -7,7 +7,9 @@ formulas the host packer and the device mask share, ``encode_audio``,
 ``qwen_sequence`` (the same one-gather assembly as SALMONN, 750 audio
 positions a slot of which each clip splices ``audio_output_length(n)``),
 ``qwen_audio_train_loss`` and ``qwen_audio_generate``. The tower's
-self-attention is K2 with each clip's valid frame count as its key length.
+self-attention is K2 with each clip's valid frame count as its key length,
+and the tower runs only up to one frame past each batch's longest clip
+(``tower_frames``), not the 30-s pad.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.mel import log_mel_spectrogram, pad_or_trim, wavs_to_float
 from .common import dense_init, layer_norm, linear
@@ -108,33 +112,73 @@ def init_qwen_audio(cfg: QwenAudioConfig, gen: torch.Generator, device, dtype=to
     return params
 
 
+#: the tower runs post-conv frames in multiples of this (at most 12 shapes
+#: over a 30-s pad)
+TOWER_BUCKET = 128
+
+
+def tower_frames(frame_lengths, n_frames: int = 1500) -> int:
+    """Post-conv frames the tower runs for clips of ``frame_lengths`` valid
+    frames out of ``n_frames``: one past the longest clip's, rounded up to
+    ``TOWER_BUCKET``, at most ``n_frames``. The frame past the longest keeps
+    every valid frame exact: a cut mel's last post-conv frame reads, through
+    conv2's stride-2 window and conv1's, the mel frame just past the cut
+    (zero there, a pad frame in the whole mel), so only that frame differs.
+    ``frame_lengths`` a numpy array or a tensor; a device tensor costs a
+    sync (``host_tower_frames`` reads the host copy instead)."""
+    longest = int(frame_lengths.max())
+    return min(n_frames, -(-(longest + 1) // TOWER_BUCKET) * TOWER_BUCKET)
+
+
+def host_tower_frames(audio_lengths) -> int:
+    """``tower_frames`` of a packed batch's host ``audio_lengths`` (raw
+    samples a slot): the batch's ``"tower_frames"`` entry, which spares
+    ``encode_batch_audio`` its read of the device copy."""
+    return tower_frames(audio_feat_lengths(np.asarray(audio_lengths)))
+
+
 def encode_audio(cfg: QwenAudioConfig, params: Dict[str, Any], mels: torch.Tensor,
-                 sample_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 sample_lengths: Optional[torch.Tensor] = None,
+                 run_frames: Optional[int] = None) -> torch.Tensor:
     """(N, n_mels, 3000) mel → (N, 750, llm_dim) audio positions, in HF's
     order: the tower's layers, the stride-2 average pool, THEN the final LN,
     then the projector. ``sample_lengths`` (N,) valid raw samples a clip:
     the tower's keys past ``audio_feat_lengths(n)`` are masked, and only
     positions below ``audio_output_length(n)`` carry meaning (the packed
-    gather splices that many). The tower (``encoder/…``) matches no
+    gather splices that many). With them the tower runs only the mel's
+    first 2T' frames, T' = ``tower_frames`` (one frame past the batch's
+    longest clip, in buckets of 128; 1500 with a 30-s or missing clip), and
+    the positions from T'/2 to 750 are zeros: every spliced position is the
+    30-s tower's. The mel is computed over the 30-s pad all the same, so its
+    clamp is unchanged. ``run_frames``: T' as the caller read it from a
+    host copy of the lengths (``host_tower_frames``); when None it is read
+    from ``sample_lengths``, one sync if they are on the device. Without
+    lengths all 1500 frames run. The tower (``encoder/…``) matches no
     sharding rule: under a mesh it stays whole and runs unsharded, as in
     JAX."""
     dt = cfg.compute_dtype
-    frames = None if sample_lengths is None else audio_feat_lengths(sample_lengths.long())
+    n_frames = (mels.shape[-1] - 1) // 2 + 1  # post-conv frames of the whole mel
+    run, frames = n_frames, None
+    if sample_lengths is not None:
+        frames = audio_feat_lengths(sample_lengths.long())
+        run = tower_frames(frames, n_frames) if run_frames is None else run_frames
     with shard_context(None):
-        feats = whisper_encode(cfg.encoder, params["encoder"], mels, dtype=dt,
+        feats = whisper_encode(cfg.encoder, params["encoder"], mels[..., :2 * run], dtype=dt,
                                apply_ln_post=False, frame_lengths=frames)
     N, T, D = feats.shape
     s = cfg.pool_stride
     pooled = feats[:, :(T // s) * s].reshape(N, T // s, s, D).mean(dim=2)
     ln = params["encoder"]["ln_post"]
     pooled = layer_norm(pooled, ln["w"], ln["b"])
-    return linear(pooled, params["projector"]["w"], params["projector"]["b"])
+    out = linear(pooled, params["projector"]["w"], params["projector"]["b"])
+    return F.pad(out, (0, 0, 0, n_frames // s - T // s))
 
 
 def encode_batch_audio(cfg: QwenAudioConfig, params: Dict[str, Any],
                        batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """A packed batch's clips (wavs (B, n_slots, n), audio_lengths (B,
-    n_slots) when packed with ``audio_len_fn``) → (B, n_slots, 750, llm_dim)."""
+    n_slots) when packed with ``audio_len_fn``, and the host's
+    ``tower_frames`` where the caller has it) → (B, n_slots, 750, llm_dim)."""
     B = batch["text_tokens"].shape[0]
     wavs = wavs_to_float(batch["wavs"])
     n_slots = wavs.shape[1]
@@ -143,7 +187,8 @@ def encode_batch_audio(cfg: QwenAudioConfig, params: Dict[str, Any],
     lengths = batch.get("audio_lengths")
     if lengths is not None:
         lengths = lengths.reshape(B * n_slots)
-    return encode_audio(cfg, params, mels, lengths).reshape(B, n_slots, -1, cfg.llm.dim)
+    return encode_audio(cfg, params, mels, lengths, batch.get("tower_frames")).reshape(
+        B, n_slots, -1, cfg.llm.dim)
 
 
 def qwen_sequence(cfg: QwenAudioConfig, params: Dict[str, Any],

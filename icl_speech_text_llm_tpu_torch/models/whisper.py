@@ -2,12 +2,14 @@
 
 Counterpart of ``icl_speech_text_llm_tpu/models/whisper.py``: conv1(k3,s1)
 → gelu → conv2(k3,s2) → gelu → +sinusoid positions → N pre-LN blocks (MHA
-with biases, GELU MLP) → final LN; (B, n_mels, 3000) mel in, (B, 1500, dim)
-out. Self-attention goes through the non-causal flash op over the 1500 real
-frames: the kernel masks the ragged last tile itself, so the 1500→1536
-padding of the Pallas path is gone. Qwen2-Audio's tower passes each clip's
-valid frame count (K2's key lengths) and takes the states before the final
-LN.
+with biases, GELU MLP) → final LN; (B, n_mels, 2T) mel in, (B, T, dim) out:
+SALMONN's 3000 mel frames give 1500. Self-attention goes through the
+non-causal flash op over the T real frames: the kernel masks the ragged
+last tile itself, so the 1500→1536 padding of the Pallas path is gone.
+Qwen2-Audio's tower passes each clip's valid frame count (K2's key
+lengths), a mel cut short to its batch's longest clip
+(``models/qwen_audio.py:encode_audio``), and takes the states before the
+final LN.
 
 Under a mesh (``parallel/sharding.py``) the blocks' wq/wk/wv/w1 are
 column-parallel and wo/w2 row-parallel over tp, FSDP-sharded leaves are
@@ -133,12 +135,16 @@ def _block_forward(cfg: WhisperEncoderConfig, blk, x: torch.Tensor,
 def whisper_encode(cfg: WhisperEncoderConfig, params: Dict[str, Any], mel: torch.Tensor,
                    dtype=torch.float32, apply_ln_post: bool = True,
                    frame_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mel (B, n_mels, 3000) → (B, 1500, dim) encoder states.
+    """Mel (B, n_mels, 2T) → (B, T, dim) encoder states: the 30-s mel's
+    3000 frames give 1500, a mel cut to its first 2T frames the first T
+    positions (the table's first T rows).
 
     ``apply_ln_post=False`` returns the states before the final LN
     (Qwen2-Audio pools first). ``frame_lengths`` (B,) masks self-attention
     keys past each clip's valid post-conv frames (Qwen2-Audio's
-    ``feature_attention_mask``); rows past a clip's length are garbage."""
+    ``feature_attention_mask``); rows past a clip's length are garbage.
+    Without it every row attends every frame, so a cut mel would change
+    the rows it keeps: SALMONN passes the whole 3000."""
     x = mel.to(dtype).transpose(1, 2)
     x = gelu(conv1d(x, params["conv1"]["w"], params["conv1"]["b"], 1))
     x = gelu(conv1d(x, params["conv2"]["w"], params["conv2"]["b"], 2))

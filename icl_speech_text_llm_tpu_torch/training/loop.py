@@ -43,6 +43,7 @@ from ..data.collate import collate_icl_batch
 from ..data.packing import PackConfig
 from ..data.pipeline import PrefetchIterator
 from ..evaluation import evaluate_predictions
+from ..models.qwen_audio import host_tower_frames
 from ..parallel.multihost import gather_predictions, process_index, shard_indices
 from ..parallel.sharding import (
     batch_shard,
@@ -88,8 +89,11 @@ def batch_arrays(batch) -> Dict[str, np.ndarray]:
     return {k: np.asarray(v) for k, v in arrays.items()}
 
 
-def _device_batch(batch, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch_arrays(batch).items()}
+def _device_batch(batch, device) -> Dict[str, Any]:
+    out = {k: torch.as_tensor(v, device=device) for k, v in batch_arrays(batch).items()}
+    if "audio_lengths" in batch.audio:  # Qwen2-Audio's tower frames, from the host copy
+        out["tower_frames"] = host_tower_frames(batch.audio["audio_lengths"])
+    return out
 
 
 def iter_batches(dataset, batch_size: int, tokenizer, pack_cfg: PackConfig, order,

@@ -23,7 +23,9 @@ give the same bits on two calls, in one kernel launch. The symbol
 adapter's loss at salmonn-bench widths (one layer a stack) runs the
 encoders and the decoder through the kernels, K5 and K6 included, and is
 held to the f32 CPU path: the loss within 1e-2 relative, the LoRA and
-``input_mlp`` gradients within 5e-2 × max |plain gradient|.
+``input_mlp`` gradients within 5e-2 × max |plain gradient|. Qwen2-Audio-7B's
+tower run to its batch's longest clip is held to the same tower over the
+30-s mel within 2e-2 × max |30-s tower| at every spliced position.
 """
 
 import numpy as np
@@ -992,3 +994,47 @@ def _tree_to_device(tree, device, dtype):
     if isinstance(tree, dict):
         return {k: _tree_to_device(v, device, dtype) for k, v in tree.items()}
     return tree.detach().to(device, dtype if tree.dtype == torch.bfloat16 else tree.dtype).clone()
+
+
+@pytest.mark.cuda
+def test_cuda_qwen_tower_to_the_longest_clip_matches_the_30s_tower(cuda_device):
+    """Qwen2-Audio-7B's tower (32 × 1280 over 128 mels) in bf16 on 8 clips
+    of 2-10 s: ``encode_audio`` runs 512 post-conv frames (one past the
+    longest clip's 500, in buckets of 128) and matches the same tower over
+    the whole 3000-frame mel at every spliced position within 2e-2 × max
+    |30-s tower| there; zeros from position 256; K2 runs."""
+    from icl_speech_text_llm_tpu_torch.models import qwen_audio as tqa
+    from icl_speech_text_llm_tpu_torch.models.common import layer_norm, linear
+    from icl_speech_text_llm_tpu_torch.models.whisper import whisper_encode
+    from icl_speech_text_llm_tpu_torch.ops.mel import log_mel_spectrogram
+
+    cfg = tqa.qwen2_audio_7b()
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    params = tqa.init_qwen_audio(cfg, gen, cuda_device, torch.bfloat16, skip_llm=True)
+    n = [32000, 56000, 80000, 96000, 115200, 128000, 145600, 160000]
+    rng = np.random.RandomState(8)
+    wavs = np.zeros((len(n), 480000), np.float32)
+    for i, x in enumerate(n):
+        wavs[i, :x] = rng.randn(x) * 0.1
+    mels = log_mel_spectrogram(torch.from_numpy(wavs).to(cuda_device), cfg.encoder.n_mels)
+    lengths = torch.tensor(n, device=cuda_device)
+    assert tqa.host_tower_frames(np.array(n)) == 512
+    with torch.inference_mode():
+        before = kernels.launch_counts()["flash_attention_noncausal"]
+        got = tqa.encode_audio(cfg, params, mels, lengths)
+        assert kernels.launch_counts()["flash_attention_noncausal"] - before == 32
+        feats = whisper_encode(cfg.encoder, params["encoder"], mels, dtype=torch.bfloat16,
+                               apply_ln_post=False,
+                               frame_lengths=tqa.audio_feat_lengths(lengths))
+        pooled = feats.reshape(len(n), 750, 2, -1).mean(dim=2)
+        ln = params["encoder"]["ln_post"]
+        full = linear(layer_norm(pooled, ln["w"], ln["b"]), params["projector"]["w"],
+                      params["projector"]["b"])
+    assert got.shape == full.shape == (len(n), 750, cfg.llm.dim)
+    assert torch.all(got[:, 256:] == 0)
+    for i, x in enumerate(n):
+        m = int(tqa.audio_output_length(x))
+        want = full[i, :m].float()
+        gap = (got[i, :m].float() - want).abs().max().item()
+        print(f"clip {x} samples, {m} positions: max gap {gap:.4g} of max {want.abs().max():.4g}")
+        assert torch.isfinite(want).all() and gap <= 2e-2 * want.abs().max().item()

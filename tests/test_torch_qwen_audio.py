@@ -405,6 +405,152 @@ def test_encode_audio_with_variable_clip_lengths_and_assembly_match_jax(tiny_par
     np.testing.assert_allclose(got_seq.numpy(), want_seq, rtol=1e-4, atol=1e-4)
 
 
+def _tower_30s(tcfg, tparams, mels, frames):
+    """The port's tower over the whole 3000-frame mel: ``whisper_encode``
+    with the key mask, the pool, ``ln_post`` and the projector."""
+    feats = twhisper.whisper_encode(tcfg.encoder, tparams["encoder"], mels,
+                                    apply_ln_post=False, frame_lengths=frames)
+    N, T, D = feats.shape
+    pooled = feats.reshape(N, T // 2, 2, D).mean(dim=2)
+    ln = tparams["encoder"]["ln_post"]
+    pooled = twhisper.layer_norm(pooled, ln["w"], ln["b"])
+    return twhisper.linear(pooled, tparams["projector"]["w"], tparams["projector"]["b"])
+
+
+def _clip_samples(frames):
+    """Raw sample counts whose clips hold these valid post-conv frames."""
+    n = [(2 * f - 1) * 160 for f in frames]
+    assert [int(tqa.audio_feat_lengths(x)) for x in n] == list(frames)
+    return n
+
+
+# (valid post-conv frames a clip) → post-conv frames the tower runs
+_TRIM_CASES = {
+    "longest_1s": ([50, 25], 128),
+    "longest_3s": ([150, 50, 100], 256),
+    "receptive_edge": ([127, 3], 128),  # the last valid frame at T' − 2, the + 1 frame at T' − 1
+    "below_a_bucket": ([126, 64], 128),
+    "above_a_bucket": ([128, 126], 256),  # without the + 1 frame: 128, and frame 127 off
+    "clip_of_30s": ([1500, 50], 1500),
+}
+
+
+def _record_tower(monkeypatch):
+    """Wrap ``encode_audio``'s tower (``whisper_encode``) → the mel frames
+    each call got and the rows it returned."""
+    seen = []
+    encode = tqa.whisper_encode
+
+    def recorded(cfg, params, mel, *a, **k):
+        out = encode(cfg, params, mel, *a, **k)
+        seen.append((mel.shape[-1], out.shape[1]))
+        return out
+
+    monkeypatch.setattr(tqa, "whisper_encode", recorded)
+    return seen
+
+
+@pytest.mark.parametrize("case", list(_TRIM_CASES))
+def test_encode_audio_runs_to_the_longest_clip_and_matches_jax_and_the_30s_tower(
+        tiny_params, monkeypatch, case):
+    """``encode_audio`` runs the tower over one frame past the batch's
+    longest clip in buckets of 128: at every spliced position within 1e-4 of
+    JAX's ``encode_audio`` and of the port's own tower over the whole
+    3000-frame mel; zeros from T'/2 to 750; the tower gets 2T' mel frames
+    and returns T' rows, whether T' is read from the lengths on the device
+    or given from the host copy (``host_tower_frames``), with the same
+    output."""
+    frames, run = _TRIM_CASES[case]
+    cfg, tcfg = jqa.qwen2_audio_tiny(), tqa.qwen2_audio_tiny()
+    tparams = params_from_numpy(tiny_params, device="cpu")
+    n = np.array(_clip_samples(frames), np.int32)
+    rng = np.random.RandomState(16)
+    wavs = np.zeros((len(n), 480000), np.float32)
+    for i, x in enumerate(n):
+        wavs[i, :x] = rng.randn(x) * 0.1
+    mels = tlog_mel(torch.from_numpy(wavs), tcfg.encoder.n_mels)
+    want = np.asarray(jqa.encode_audio(cfg, _jnp(tiny_params),
+                                       jlog_mel(jnp.asarray(wavs), cfg.encoder.n_mels),
+                                       jnp.asarray(n)))
+    full = _tower_30s(tcfg, tparams, mels, torch.tensor(frames))
+    assert tqa.tower_frames(torch.tensor(frames)) == run == tqa.host_tower_frames(n)
+    seen = _record_tower(monkeypatch)
+    got = tqa.encode_audio(tcfg, tparams, mels, torch.from_numpy(n))
+    given = tqa.encode_audio(tcfg, tparams, mels, torch.from_numpy(n), tqa.host_tower_frames(n))
+    assert seen == [(2 * run, run)] * 2
+    assert torch.equal(got, given)
+    assert got.shape == want.shape == full.shape == (len(n), 750, tcfg.llm.dim)
+    for i, x in enumerate(n):
+        m = int(tqa.audio_output_length(x))
+        np.testing.assert_allclose(got[i, :m].numpy(), want[i, :m], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got[i, :m].numpy(), full[i, :m].numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    assert torch.all(got[:, run // 2:] == 0)
+
+
+def test_encode_audio_without_lengths_and_salmonns_whisper_run_every_frame(tiny_params,
+                                                                           monkeypatch):
+    """No ``sample_lengths``: no key mask, so all 1500 frames run and every
+    position matches JAX's; SALMONN's Whisper path (no key mask either) runs
+    1500 frames a clip and matches JAX's ``whisper_encode``."""
+    from icl_speech_text_llm_tpu.models import salmonn as jsalmonn
+    from icl_speech_text_llm_tpu_torch.models import salmonn as tsalmonn
+
+    cfg, tcfg = jqa.qwen2_audio_tiny(), tqa.qwen2_audio_tiny()
+    rng = np.random.RandomState(17)
+    wavs = np.zeros((2, 480000), np.float32)
+    wavs[0, :16000] = rng.randn(16000) * 0.1
+    wavs[1, :40000] = rng.randn(40000) * 0.1
+    want = np.asarray(jqa.encode_audio(cfg, _jnp(tiny_params),
+                                       jlog_mel(jnp.asarray(wavs), cfg.encoder.n_mels)))
+    seen = _record_tower(monkeypatch)
+    got = tqa.encode_audio(tcfg, params_from_numpy(tiny_params, device="cpu"),
+                           tlog_mel(torch.from_numpy(wavs), tcfg.encoder.n_mels))
+    assert seen == [(3000, 1500)]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+    scfg = jsalmonn.salmonn_tiny()
+    sparams = _np(jsalmonn.init_salmonn(jax.random.PRNGKey(0), scfg))
+    mel80 = jlog_mel(jnp.asarray(wavs))
+    want = np.asarray(jwhisper.whisper_encode(scfg.whisper, _jnp(sparams["whisper"]), mel80))
+    got = tsalmonn.encoder_features(tsalmonn.salmonn_tiny(),
+                                    params_from_numpy(sparams, device="cpu"),
+                                    tlog_mel(torch.from_numpy(wavs)))
+    assert got.shape == want.shape == (2, 1500, scfg.whisper.dim)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_the_engine_and_the_train_loop_pass_the_tower_frames_from_the_host(
+        tiny_params, monkeypatch):
+    """``SalmonnEngine.generate_tokens`` and the train loop's device batch
+    carry ``host_tower_frames`` of the packed lengths, so ``encode_audio``
+    gets T' without reading the lengths' device copy; it equals what that
+    read gives."""
+    from icl_speech_text_llm_tpu_torch.training.loop import _device_batch
+
+    tok = get_tokenizer()
+    tb = collate_icl_batch(_samples()[0], tok, _pack(PackConfig))
+    lengths = tb.audio["audio_lengths"]
+    run = tqa.host_tower_frames(lengths)
+    assert run == tqa.tower_frames(tqa.audio_feat_lengths(torch.from_numpy(lengths).long()))
+    assert _device_batch(tb, "cpu")["tower_frames"] == run
+    given = []
+    encode = tqa.encode_audio
+
+    def recorded(cfg, params, mels, sample_lengths=None, run_frames=None):
+        given.append(run_frames)
+        return encode(cfg, params, mels, sample_lengths, run_frames)
+
+    monkeypatch.setattr(tqa, "encode_audio", recorded)
+    engine = tengine.SalmonnEngine(
+        tqa.qwen2_audio_tiny(), params_from_numpy(tiny_params, device="cpu"), tok,
+        tengine.GenerationConfig(max_new_tokens=2, eos_token_id=tok.eos_token_id,
+                                 pad_token_id=tok.pad_token_id),
+        device="cpu", sequence_fn=tqa.qwen_sequence)
+    engine.generate_tokens(tb, tb.audio)
+    assert given == [run]
+
+
 def test_train_loss_and_lora_gradients_match_jax(tiny_params, batches):
     """The loss within 1e-5 and every LoRA gradient within 1e-4 × max |g|
     (the ROADMAP bounds); nothing but the LoRA trains."""
