@@ -123,9 +123,16 @@ def power_limit() -> Optional[str]:
 # ---- shares ----------------------------------------------------------------------
 
 
-def load_opmap(path: str = OPMAP) -> Dict[str, List[str]]:
+def load_opmap(path: str = OPMAP, extra: Optional[Dict[str, List[str]]] = None
+               ) -> Dict[str, List[str]]:
+    """``opmap.json``'s operations and a family's ``extra`` ones, which add
+    operations and may not redefine one of the file's."""
     with open(path) as f:
-        return json.load(f)["ops"]
+        ops = json.load(f)["ops"]
+    clash = sorted(set(ops) & set(extra or {}))
+    if clash:
+        raise ValueError(f"a family may add operations to {path}, not redefine {clash}")
+    return {**ops, **(extra or {})}
 
 
 def share(ops: Iterable[str], work: Dict[str, Dict[str, float]],

@@ -1,14 +1,19 @@
 """Finds everything one cell needs by the names in ``BENCHMARK.json``:
 
 - the configuration: the file its entry names;
+- the model family that the configuration names (``"family"``): the
+  harness's side ``benchlib/families/<family>.py``, through which the
+  drivers reach the port's model, and the reference's side
+  ``reference/families/<family>.py``; the operations of the roofline
+  map, ``opmap.json``'s with those the family adds;
 - the traffic mix: ``traffic/<traffic>.json``, whose ``loop`` names the
   driver ``drivers/<loop>.py``;
 - the limits of ``correct``: ``limits/<cell>.json``;
 - each metric the cell reports: ``metrics/<metric>.py``, whose ``read``
   takes the run's record and returns a number or None.
 
-A cell, a configuration, a traffic mix or a metric is added by adding
-files and entries; no file here names one.
+A cell, a configuration, a model family, a traffic mix or a metric is
+added by adding files and entries; no file here names one.
 """
 
 from __future__ import annotations
@@ -16,9 +21,12 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 from dataclasses import dataclass
 from types import ModuleType
-from typing import Dict, List
+from typing import Dict, List, Tuple
+
+from . import roofline
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(HERE)
@@ -58,6 +66,9 @@ class Cell:
     name: str
     entry: Dict
     config: Dict
+    family: ModuleType
+    reference: ModuleType
+    opmap: Dict[str, List[str]]
     traffic: Dict
     limits: Dict
     driver: ModuleType
@@ -72,6 +83,14 @@ def _applies(metric: Dict, cell: str, reported: set) -> bool:
     return metric.get("moves") is None or metric["moves"] in reported
 
 
+def families(name: str, bench: str = HERE) -> Tuple[ModuleType, ModuleType]:
+    """(harness side, reference side) of the model family ``name``."""
+    if not re.fullmatch(r"[A-Za-z0-9_]{1,64}", name):
+        raise ValueError(f"family {name!r}: letters, digits and _ only")
+    return (load_module(os.path.join(bench, "benchlib", "families", name + ".py")),
+            load_module(os.path.join(bench, "reference", "families", name + ".py")))
+
+
 def load(workload: str, root: str = ROOT, bench: str = HERE) -> Cell:
     """The cell ``workload`` of ``<root>/BENCHMARK.json``, its files read
     from ``bench``."""
@@ -82,6 +101,8 @@ def load(workload: str, root: str = ROOT, bench: str = HERE) -> Cell:
     entry = cells[workload]
     configs = {c["name"]: c for c in spec["configs"]}
     config = _json(os.path.join(root, configs[entry["config"]]["file"]))
+    family, reference = families(config["family"], bench)
+    opmap = roofline.load_opmap(os.path.join(bench, "opmap.json"), family.OPS)
     traffic = _json(os.path.join(bench, "traffic", entry["traffic"] + ".json"))
     limits_path = os.path.join(bench, "limits", workload + ".json")
     limits = _json(limits_path) if os.path.isfile(limits_path) else {}
@@ -97,5 +118,5 @@ def load(workload: str, root: str = ROOT, bench: str = HERE) -> Cell:
 
     e2e = metrics("end_to_end", set())
     per_layer = metrics("per_layer", {m.name for m in e2e})
-    return Cell(workload, entry, config, traffic, limits, driver, e2e, per_layer,
-                int(spec["run_seconds"]))
+    return Cell(workload, entry, config, family, reference, opmap, traffic, limits, driver, e2e,
+                per_layer, int(spec["run_seconds"]))

@@ -2,24 +2,23 @@
 operation's flops and bytes for the roofline shares, and the model flops
 for the shares of the peak (``mfu``).
 
-Model flops count the work the model needs and no more: the tower's 1500
-frames a clip (the model pads each clip to 30 s) with attention over each
-clip's valid keys, the decoder's real prompt positions (not padding), the
-decode steps, the LoRA products. Training adds the backward's activation
-gradients, the LoRA weight gradients and the attention backward;
-recomputation is not counted.
+Model flops count the work the model needs and no more. Here, the
+decoder's, which every family's counts (``benchlib/families/<family>.py``,
+with the work of its audio side) share: the real prompt positions (not
+padding), the decode steps, the LoRA products. Training adds the
+backward's activation gradients, the LoRA weight gradients and the
+attention backward; recomputation is not counted.
+
+``n``, the decoder's sizes: D (hidden), L (layers), H and Hkv (query and KV
+heads), hd (head size), F (FFN) and V (vocabulary). ``cfg``, the
+configuration file, gives its ``lora`` and ``quant``.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Sequence
 
-from reference.model import audio_frames
-
 from . import roofline as R
-from .weights import dims
-
-TOWER_FRAMES = 1500
 
 
 def _linear_params(n: Dict) -> int:
@@ -41,23 +40,8 @@ def _products(n: Dict):
     return [(D, q), (D, kv), (D, kv), (q, D), (D, F), (D, F), (F, D)]
 
 
-def tower(cfg: Dict, work: R.Work, clip_frames: Sequence[int]) -> None:
-    """The tower over clips with these valid frame counts (forward)."""
-    n = dims(cfg)
-    d, ffn, H, Le = n["d"], n["enc_ffn"], n["enc_heads"], n["enc_layers"]
-    T = TOWER_FRAMES
-    per_clip = (2.0 * 2 * T * 3 * n["mels"] * d + 2.0 * T * 3 * d * d
-                + Le * 2.0 * T * (4 * d * d + 2 * d * ffn)
-                + 2.0 * (T // n["pool"]) * d * n["D"])
-    for f in clip_frames:
-        work.model_flops += per_clip + Le * 4.0 * d * T * f
-        fl, by = R.attention_fwd(H, H, d // H, f, f * f, f)
-        work.add("tower_attention", Le * fl, Le * by)
-
-
-def decoder_prefill(cfg: Dict, work: R.Work, prompts: Sequence[int]) -> None:
+def decoder_prefill(cfg: Dict, n: Dict, work: R.Work, prompts: Sequence[int]) -> None:
     """The causal prefill of prompts of these lengths, logits at the last."""
-    n = dims(cfg)
     per_pos = 2.0 * n["L"] * (_linear_params(n) + _lora_params(cfg, n))
     for P in prompts:
         fl, by = R.attention_fwd(n["H"], n["Hkv"], n["hd"], P, R.causal_pairs(P), P)
@@ -65,10 +49,9 @@ def decoder_prefill(cfg: Dict, work: R.Work, prompts: Sequence[int]) -> None:
         work.add("prefill_attention", n["L"] * fl, n["L"] * by)
 
 
-def decode(cfg: Dict, work: R.Work, prompts: Sequence[int], new_tokens: int) -> None:
+def decode(cfg: Dict, n: Dict, work: R.Work, prompts: Sequence[int], new_tokens: int) -> None:
     """``new_tokens`` tokens for every row: the first from the prefill's
     logits, then ``new_tokens - 1`` cached steps over the whole batch."""
-    n = dims(cfg)
     quant = cfg.get("quant")
     per_row = 2.0 * n["L"] * (_linear_params(n) + _lora_params(cfg, n)) + 2.0 * n["D"] * n["V"]
     attn = R.decode_attention_q8 if quant and quant.get("kv_int8") else R.decode_attention_bf16
@@ -89,12 +72,11 @@ def decode(cfg: Dict, work: R.Work, prompts: Sequence[int], new_tokens: int) -> 
                 work.add("qmatmul", fl, by)
 
 
-def train_step(cfg: Dict, work: R.Work, positions: Sequence[int]) -> None:
+def train_step(cfg: Dict, n: Dict, work: R.Work, positions: Sequence[int]) -> None:
     """The decoder's forward and backward over sequences of these real
     lengths (prompt and completion), with the frozen weights' activation
     gradients, the LoRA weight gradients and the lm_head at every real
     position."""
-    n = dims(cfg)
     lin, lora = _linear_params(n), _lora_params(cfg, n)
     for P in positions:
         fl, by = R.attention_fwd(n["H"], n["Hkv"], n["hd"], P, R.causal_pairs(P), P)
@@ -105,16 +87,3 @@ def train_step(cfg: Dict, work: R.Work, positions: Sequence[int]) -> None:
                              + 2.0 * P * n["L"] * lora * 3  # forward, dX, dW
                              + n["L"] * (fl + bfl)
                              + 2.0 * P * n["D"] * n["V"] * 2)
-
-
-def eval_batch(cfg: Dict, work: R.Work, clip_samples: Sequence[int],
-               prompts: Sequence[int], new_tokens: int) -> None:
-    tower(cfg, work, [audio_frames(s) for s in clip_samples])
-    decoder_prefill(cfg, work, prompts)
-    decode(cfg, work, prompts, new_tokens)
-
-
-def train_batch(cfg: Dict, work: R.Work, clip_samples: Sequence[int],
-                positions: Sequence[int]) -> None:
-    tower(cfg, work, [audio_frames(s) for s in clip_samples])
-    train_step(cfg, work, positions)

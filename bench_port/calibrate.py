@@ -2,7 +2,8 @@
 process on the card: for each seed, a short run of the program judged by
 the reference (the lower reading is the largest over the seeds), and on
 the control seeds also the control, the reference in the nearest
-precision below the configuration's (the upper reading is the smallest).
+precision below the one the configuration states (the upper reading is
+the smallest).
 
     python3 bench_port/calibrate.py --workload <cell> --seeds 1,2,... \
         --control-seeds 1,2,3 --seconds 3 [--out <file.jsonl>]
@@ -47,7 +48,8 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         out = cell.driver.run(cell, seed, args.seconds, False, "cuda", t0,
-                              control=ref_model.control(cell.config) if seed in controls else None)
+                              control=ref_model.control(cell.config) if seed in controls
+                              else None)
         row = {"workload": cell.name, "seed": seed, "correct": out["correct"],
                "checks": {k: c["value"] for k, c in out["checks"].items()},
                "control": out.get("control_checks"), "setup_s": out["record"]["setup_s"],

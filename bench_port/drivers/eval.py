@@ -1,6 +1,7 @@
 """The ICL evaluation loop: batches back to back (a closed loop) through the
 port's prompt builder, ``collate_icl_batch``, ``SalmonnEngine.
-generate_tokens`` and ``decode_rows``, greedy.
+generate_tokens`` and ``decode_rows``, greedy. The model, its prompts, its
+work and its reference are the cell's family's (``benchlib/spec.py``).
 
 Set-up draws the weights, lets the port quantize them where the
 configuration says so, builds the model and runs one warm-up batch of the
@@ -18,8 +19,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from benchlib import port, portcfg, roofline, traffic as gen_traffic, trace as tr, weights
-from benchlib import work as W
+from benchlib import port, roofline, traffic as gen_traffic, trace as tr, weights
 from reference import check, model as ref_model
 from reference.text import Tokenizer
 
@@ -28,26 +28,10 @@ EOS = 2
 
 def build(cell, seed: int, device):
     """The port's model for the cell, its weights drawn from ``seed``."""
-    from icl_speech_text_llm_tpu_torch.inference.engine import GenerationConfig
-    from icl_speech_text_llm_tpu_torch.models.factory import QwenAudioModel
-    from icl_speech_text_llm_tpu_torch.ops.quant import quantize_decoder
-    from icl_speech_text_llm_tpu_torch.utils.tokenization import get_tokenizer
-
-    cfg, spec = cell.config, cell.traffic
-    pc = portcfg.port_config(cfg)
-    dt = portcfg.DTYPES[cfg["torch_dtype"]]
-    params = weights.make(cfg, seed, device, dtype=dt, lora_dtype=dt)
-    q = cfg.get("quant")
-    if q:
-        if q["lm_head_bits"] not in (None, 8):
-            raise ValueError("the port's quantize_decoder makes the lm_head int8 or leaves it")
-        quantize_decoder(params["llm"], include_lm_head=q["lm_head_bits"] == 8,
-                         bits=q["weight_bits"], group=q["group"])
-    tok = get_tokenizer()
-    gen = GenerationConfig(max_new_tokens=spec["max_new_tokens"], eos_token_id=tok.eos_token_id,
-                           pad_token_id=tok.pad_token_id, kv_int8=bool(q and q["kv_int8"]),
-                           use_flash_decode=True if q and q.get("flash_decode") else "xla")
-    return QwenAudioModel(pc, params, tok, port.pack_config(spec, pc), gen, device)
+    cfg = cell.config
+    dt = weights.DTYPES[cfg["torch_dtype"]]
+    params = weights.make(cell.family.leaf_plan(cfg), seed, device, dt, dt)
+    return cell.family.eval_model(cfg, cell.traffic, params, device)
 
 
 def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
@@ -68,7 +52,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
 
     def one(batch):
         with tr.span("collate"):
-            packed = collate_icl_batch(port.samples(traffic, batch), engine.tokenizer,
+            packed = collate_icl_batch(cell.family.samples(traffic, batch), engine.tokenizer,
                                        model.pack_cfg)
         with tr.span("generate"):
             toks = engine.generate_tokens(packed, packed.audio)
@@ -109,7 +93,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         batch = traffic.batch(i)
         prompts = []
         for r, req in enumerate(batch):
-            positions, text = check.prompt_length(spec["task"], req, tok)
+            positions, text = cell.reference.prompt_length(spec["task"], req, tok)
             if positions > spec["seq_len"] or text > spec["text_len"]:
                 raise RuntimeError(f"request {req.key} needs {positions} positions and {text} "
                                    f"text tokens: over the traffic's budget")
@@ -118,7 +102,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
             lengths.append(positions)
         clips = [c[1] for req in batch
                  for c in [e.clip for e in req.examples if e.clip] + [req.main_clip]]
-        W.eval_batch(cfg, work, clips, prompts, spec["max_new_tokens"])
+        cell.family.eval_work(cfg, work, clips, prompts, spec["max_new_tokens"])
 
     rng = np.random.Generator(np.random.PCG64([seed, 1]))
     longest = int(np.argmax(lengths))
@@ -126,10 +110,11 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     n = min(spec["reference_requests"], len(served)) - 1
     picked = [longest] + sorted(rng.choice(others, n, replace=False).tolist())
     ref_model.full_precision()
-    tree = weights.make(cfg, seed, device, dtype=portcfg.DTYPES[cfg["torch_dtype"]],
-                        lora_dtype=portcfg.DTYPES[cfg["torch_dtype"]])
-    results = check.served_gaps(cfg, tree, spec["task"], [served[j] for j in picked],
-                                traffic.wav, device, EOS, ref_model.stated(cfg), control)
+    dt = weights.DTYPES[cfg["torch_dtype"]]
+    tree = weights.make(cell.family.leaf_plan(cfg), seed, device, dt, dt)
+    results = check.served_gaps(cell.reference.Plain(cfg, tree), spec["task"],
+                                [served[j] for j in picked], traffic.wav, device, EOS,
+                                ref_model.stated(cfg), control)
     limit = cell.limits.get("max_logit_gap")
     worst = [max(r["gaps"]) for r in results]
     value = max(worst)
@@ -139,7 +124,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         "loop": "eval", "setup_s": setup_s, "window_s": window_s, "utterances": utterances,
         "batches": len(done), "peak_bytes": peak, "step_ms": timings, "syncs": syncs[0],
         "launches": launches, "work": work.as_dict(), "model_flops": work.model_flops,
-        "trace": summary,
+        "opmap": cell.opmap, "trace": summary,
     }
     out = {"record": record, "correct": limit is not None and failed == 0,
            "attempted": utterances, "failed": failed,

@@ -30,8 +30,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchlib import port, portcfg, roofline, traffic as gen_traffic, trace as tr, weights
-from benchlib import work as W
+from benchlib import port, roofline, traffic as gen_traffic, trace as tr, weights
 from reference import check, model as ref_model
 from reference.text import Tokenizer
 
@@ -93,23 +92,22 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         init_train_state,
         make_train_step,
     )
-    from icl_speech_text_llm_tpu_torch.models.qwen_audio import qwen_audio_train_loss
     from icl_speech_text_llm_tpu_torch.utils.tokenization import get_tokenizer
 
     cuda = torch.device(device).type == "cuda"
-    spec, cfg = cell.traffic, cell.config
+    spec, cfg, family, ref = cell.traffic, cell.config, cell.family, cell.reference
     traffic = gen_traffic.generate(spec, seed)
-    pc = portcfg.port_config(cfg)
-    dt = portcfg.DTYPES[cfg["torch_dtype"]]
+    pc = family.port_config(cfg)
+    dt = weights.DTYPES[cfg["torch_dtype"]]
     o = spec["optimizer"]
     optimizer = AdamW(OptimizerSettings(learning_rate=o["learning_rate"],
                                         weight_decay=o["weight_decay"],
                                         max_grad_norm=o["max_grad_norm"], b1=o["b1"], b2=o["b2"]))
-    state, frozen = init_train_state(weights.make(cfg, seed, device, dtype=dt), optimizer,
-                                     trainable_keys=("lora",))
-    step = make_train_step(pc, optimizer, loss_fn=qwen_audio_train_loss, remat=spec["remat"])
+    state, frozen = init_train_state(weights.make(family.leaf_plan(cfg), seed, device, dt),
+                                     optimizer, trainable_keys=("lora",))
+    step = make_train_step(pc, optimizer, loss_fn=family.train_loss(), remat=spec["remat"])
     tok = get_tokenizer()
-    pack = port.pack_config(spec, pc)
+    pack = family.pack_config(spec, pc)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
 
@@ -120,7 +118,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
 
     def one(i):
         with tr.span("collate"):
-            b = collate_icl_batch(port.samples(traffic, traffic.batch(i)), tok, pack)
+            b = collate_icl_batch(family.samples(traffic, traffic.batch(i)), tok, pack)
             arrays = {"text_tokens": b.text_tokens, "gather_idx": b.gather_idx,
                       "seq_mask": b.seq_mask, "shifted_labels": b.labels_shifted, **b.audio}
             batch = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in arrays.items()}
@@ -164,25 +162,25 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     work = roofline.Work()
     for i in range(n_setup, n_setup + len(metrics)):
         batch = traffic.batch(i)
-        positions = [check.prompt_length(spec["task"], r, text_tok)[0]
+        positions = [ref.prompt_length(spec["task"], r, text_tok)[0]
                      + len(text_tok.encode(r.label)) for r in batch]
         if max(positions) > spec["seq_len"]:
             raise RuntimeError("a training example is over the traffic's budget")
         clips = [c[1] for r in batch
                  for c in [e.clip for e in r.examples if e.clip] + [r.main_clip]]
-        W.train_batch(cfg, work, clips, positions)
+        family.train_work(cfg, work, clips, positions)
 
     ref_model.full_precision()
-    tree = weights.make(cfg, seed, device, dtype=dt)
+    plain = ref.Plain(cfg, weights.make(family.leaf_plan(cfg), seed, device, dt))
     first = [traffic.batch(i) for i in range(n_ref)]
-    ref = check.train_steps(cfg, tree, spec["task"], first, traffic.wav, device, o,
-                            ref_model.stated(cfg))
+    followed = check.train_steps(plain, spec["task"], first, traffic.wav, device, o,
+                                 ref_model.stated(cfg))
     lower = None
     if control is not None:
-        lower = gaps(check.train_steps(cfg, tree, spec["task"], first, traffic.wav, device, o,
-                                       control), ref)
-    del tree
-    found = gaps(prog, ref)
+        lower = gaps(check.train_steps(plain, spec["task"], first, traffic.wav, device, o,
+                                       control), followed)
+    del plain
+    found = gaps(prog, followed)
     checks = {k: {"value": v, "limit": cell.limits.get(k)} for k, v in found.items()}
     correct = all(c["limit"] is not None and c["value"] <= c["limit"] for c in checks.values())
     steps = len(metrics)
@@ -190,7 +188,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         "loop": "train", "setup_s": setup_s, "window_s": window_s, "steps": steps,
         "examples": steps * spec["batch_size"], "peak_bytes": peak, "syncs": syncs[0],
         "launches": launches, "work": work.as_dict(), "model_flops": work.model_flops,
-        "trace": summary,
+        "opmap": cell.opmap, "trace": summary,
     }
     failed = sum(1 for m in metrics if m["skipped_nonfinite"])
     out = {"record": record, "correct": correct and failed == 0, "attempted": steps,

@@ -1,5 +1,6 @@
 """The attention's share of its roofline in evaluation: the tower's, the
-prefill's and the decode's, where their kernels ran (``opmap.json``)."""
+prefill's and the decode's, where their kernels ran (the run's ``opmap``:
+``opmap.json`` and the family's)."""
 
 from benchlib import roofline
 
@@ -9,4 +10,4 @@ OPS = ("tower_attention", "prefill_attention", "decode_attention")
 def read(rec):
     if rec["loop"] != "eval" or rec.get("trace") is None:
         return None
-    return roofline.share(OPS, rec["work"], rec["trace"]["kernel_s"], roofline.load_opmap())
+    return roofline.share(OPS, rec["work"], rec["trace"]["kernel_s"], rec["opmap"])

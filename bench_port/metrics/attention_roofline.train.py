@@ -1,5 +1,6 @@
 """The attention's share of its roofline in a training step: the tower's
-forward, the decoder's forward and backward (``opmap.json``)."""
+forward, the decoder's forward and backward (the run's ``opmap``:
+``opmap.json`` and the family's)."""
 
 from benchlib import roofline
 
@@ -9,4 +10,4 @@ OPS = ("tower_attention", "train_attention_fwd", "train_attention_bwd")
 def read(rec):
     if rec["loop"] != "train" or rec.get("trace") is None:
         return None
-    return roofline.share(OPS, rec["work"], rec["trace"]["kernel_s"], roofline.load_opmap())
+    return roofline.share(OPS, rec["work"], rec["trace"]["kernel_s"], rec["opmap"])

@@ -1,6 +1,13 @@
-"""The reference's side of ``correct``: each prompt built again from its
-raw fields, the plain model over it, and the numbers that the program's
-outputs are judged by.
+"""The reference's side of ``correct``, the same for every family: the
+plain model over each prompt built again from its raw fields, and the
+numbers that the program's outputs are judged by.
+
+The drivers hand these functions the plain model of the cell's family
+(``reference/families/<family>.py:Plain``): an object with ``prompt_embeds(task, request,
+wav, tok, device, precision)`` → (P, D) float32 embeddings of a request's
+prompt, ``embed(ids, device)``, ``decoder(x, lora, precision,
+cached_from=None, checkpointed=False)``, ``logits(hidden, precision)``
+and ``lora``, the tree's LoRA leaves ({target: {"a", "b"}}) or None.
 
 Served tokens: the reference runs once over a prompt and the tokens the
 program served after it, and reads, at each served token up to the first
@@ -20,32 +27,7 @@ import numpy as np
 import torch
 
 from . import model as M
-from .text import Tokenizer, qwen_segments
-
-
-def prompt_embeds(cfg: Dict, tree: Dict, task: Dict, request, wav: Callable, tok: Tokenizer,
-                  device, precision: M.Precision = M.Precision()) -> torch.Tensor:
-    """A request's prompt as (P, D) float32 embeddings: text segments and
-    clips in turn, each clip ``audio_positions(n)`` rows."""
-    examples = [{"label": e.label, "text": e.text} for e in request.examples]
-    segments = qwen_segments(task["template"], examples, task["fewshot_mode"])
-    clips = [e.clip for e in request.examples if e.clip is not None] + [request.main_clip]
-    audio = M.encode_clips(cfg, tree, [wav(c) for c in clips], device, precision)
-    parts = []
-    for i, seg in enumerate(segments):
-        parts.append(M.embed(tree, tok.encode(seg), device))
-        if i < len(audio):
-            parts.append(audio[i])
-    return torch.cat(parts, dim=0)
-
-
-def prompt_length(task: Dict, request, tok: Tokenizer) -> Tuple[int, int]:
-    """(positions, text tokens) of a request's prompt."""
-    examples = [{"label": e.label, "text": e.text} for e in request.examples]
-    segments = qwen_segments(task["template"], examples, task["fewshot_mode"])
-    clips = [e.clip for e in request.examples if e.clip is not None] + [request.main_clip]
-    text = sum(len(tok.encode(s)) for s in segments)
-    return text + sum(M.audio_positions(n) for _, n in clips), text
+from .text import Tokenizer
 
 
 def _gaps(ref: torch.Tensor, picks: torch.Tensor) -> List[float]:
@@ -55,7 +37,7 @@ def _gaps(ref: torch.Tensor, picks: torch.Tensor) -> List[float]:
 
 
 @torch.no_grad()
-def served_gaps(cfg: Dict, tree: Dict, task: Dict, served: Sequence[Tuple[object, np.ndarray]],
+def served_gaps(model, task: Dict, served: Sequence[Tuple[object, np.ndarray]],
                 wav: Callable, device, eos: int, precision: M.Precision = M.Precision(),
                 control: Optional[M.Precision] = None) -> List[Dict]:
     """For each (request, served tokens): ``gaps``, the reference's best
@@ -72,12 +54,11 @@ def served_gaps(cfg: Dict, tree: Dict, task: Dict, served: Sequence[Tuple[object
         for name, prec in (("gaps", precision), ("control_gaps", control)):
             if prec is None:
                 continue
-            prompt = prompt_embeds(cfg, tree, task, request, wav, tok, device, prec)
+            prompt = model.prompt_embeds(task, request, wav, tok, device, prec)
             P = prompt.shape[0]
-            x = torch.cat([prompt, M.embed(tree, tokens[:n - 1], device)]) if n > 1 else prompt
-            hidden = M.decoder(cfg, tree, x, tree.get("lora"), prec,
-                               cached_from=P if quant_kv else None)
-            rows[name] = M.logits(tree, hidden[P - 1:P - 1 + n], prec)
+            x = torch.cat([prompt, model.embed(tokens[:n - 1], device)]) if n > 1 else prompt
+            hidden = model.decoder(x, model.lora, prec, cached_from=P if quant_kv else None)
+            rows[name] = model.logits(hidden[P - 1:P - 1 + n], prec)
         ref = rows["gaps"]
         item = {"gaps": _gaps(ref, torch.tensor(tokens[:n], device=device)), "tokens": n}
         if control is not None:
@@ -95,7 +76,7 @@ def _lora_leaves(lora: Dict) -> List[Tuple[str, torch.Tensor]]:
     return [(f"{t}.{k}", lora[t][k]) for t in lora for k in ("a", "b")]
 
 
-def train_steps(cfg: Dict, tree: Dict, task: Dict, batches: Sequence[Sequence[object]],
+def train_steps(model, task: Dict, batches: Sequence[Sequence[object]],
                 wav: Callable, device, opt: Dict,
                 precision: M.Precision = M.Precision()) -> Dict:
     """The program's first ``len(batches)`` steps in float32: the token-mean
@@ -106,7 +87,7 @@ def train_steps(cfg: Dict, tree: Dict, task: Dict, batches: Sequence[Sequence[ob
     before and after)}."""
     tok = Tokenizer()
     lora = {t: {k: v.detach().float().clone().requires_grad_(True) for k, v in d.items()}
-            for t, d in tree["lora"].items()}
+            for t, d in model.lora.items()}
     named = _lora_leaves(lora)
     start = {name: p.detach().clone() for name, p in named}
     mu = {name: torch.zeros_like(p) for name, p in named}
@@ -117,15 +98,15 @@ def train_steps(cfg: Dict, tree: Dict, task: Dict, batches: Sequence[Sequence[ob
         with torch.no_grad():
             for request in batch:
                 completion = tok.encode(request.label)
-                prompt = prompt_embeds(cfg, tree, task, request, wav, tok, device, precision)
+                prompt = model.prompt_embeds(task, request, wav, tok, device, precision)
                 prepared.append((prompt, completion))
         count = sum(len(c) for _, c in prepared)
         total = 0.0
         for prompt, completion in prepared:
             P = prompt.shape[0]
-            x = torch.cat([prompt, M.embed(tree, completion, device)])
-            hidden = M.decoder(cfg, tree, x, lora, precision, checkpointed=True)
-            lg = M.logits(tree, hidden[P - 1:P - 1 + len(completion)], precision)
+            x = torch.cat([prompt, model.embed(completion, device)])
+            hidden = model.decoder(x, lora, precision, checkpointed=True)
+            lg = model.logits(hidden[P - 1:P - 1 + len(completion)], precision)
             nll = torch.nn.functional.cross_entropy(
                 lg, torch.tensor(completion, device=device), reduction="sum")
             (nll / count).backward()

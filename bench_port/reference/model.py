@@ -1,10 +1,11 @@
-"""Plain Qwen2-Audio in float32, written from the published model
-(transformers' ``Qwen2AudioForConditionalGeneration``: Whisper's log-mel,
-a Whisper encoder over 128 mel bins with each clip's keys masked past its
-frames, a stride-2 average pool, the final layer norm, a linear projector,
-then Qwen2: RMSNorm, rotary attention with grouped KV heads and q/k/v
-biases, SwiGLU). No kernels, no cache, no batching across prompts: one
+"""Plain building blocks in float32, written from the published models, that
+each family's reference (``reference/families/<family>.py``) puts
+together: Whisper's log-mel, its conv front end and encoder layers (each
+clip's keys optionally masked past its frames), and a decoder layer of
+RMSNorm, rotary attention with grouped KV heads and optional q/k/v
+biases, and SwiGLU. No kernels, no cache, no batching across prompts: one
 prompt at a time, the weights of one layer at a time cast to float32.
+Each block takes its sizes as arguments and names no model.
 
 Lower precisions are put in by ``Precision``: weight-only integer
 quantization (symmetric, round half to even, per output column or per
@@ -16,13 +17,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from benchlib.weights import dims
 
 SAMPLE_RATE = 16_000
 N_FFT, HOP = 400, 160
@@ -166,30 +165,31 @@ def audio_frames(n_samples: int) -> int:
     return (n_samples // HOP - 1) // 2 + 1
 
 
-def audio_positions(n_samples: int) -> int:
-    """Positions a clip takes in the prompt, after the stride-2 pool."""
-    return (audio_frames(n_samples) - 2) // 2 + 1
-
-
-def _layer_norm(x, w, b, eps=1e-5):
+def layer_norm(x, w, b, eps=1e-5):
     return F.layer_norm(x, (x.shape[-1],), w.float(), b.float(), eps)
 
 
-def _lin(x, w, b=None, spec=None, act=None):
+def lin(x, w, b=None, spec=None, act=None):
     y = act_quant(x, act) @ fake_quant(w.float(), spec)
     return y if b is None else y + b.float()
 
 
-def encode_clips(cfg: Dict, tree: Dict, wavs: Sequence[np.ndarray], device,
-                 precision: Precision = Precision()) -> List[torch.Tensor]:
-    """Raw clips → for each, its (audio_positions(n), D) prompt embeddings."""
-    n = dims(cfg)
-    enc, spec, act = tree["encoder"], precision.tower, precision.act
-    lens = [len(w) for w in wavs]
+def clip_batch(wavs: Sequence[np.ndarray], device) -> torch.Tensor:
+    """Raw clips → (N, 30 s) float32, each zero-padded."""
     batch = torch.zeros((len(wavs), CLIP_SAMPLES), dtype=torch.float32, device=device)
     for i, w in enumerate(wavs):
         batch[i, :len(w)] = torch.as_tensor(np.asarray(w, np.float32), device=device)
-    x = log_mel(batch, n["mels"]).transpose(1, 2)  # (N, 3000, mels)
+    return batch
+
+
+def whisper_encoder(enc: Dict, mel: torch.Tensor, heads: int, n_layers: int,
+                    precision: Precision = Precision(),
+                    lens: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """(N, 3000, mels) log-mel → (N, 1500, d): Whisper's two convolutions
+    (the second of stride 2) with GELU, the sinusoid positions and
+    ``n_layers`` pre-norm layers, before ``ln_post``. ``lens``: each clip's
+    samples, its keys masked past ``audio_frames``; None: every key."""
+    spec, act = precision.tower, precision.act
 
     def conv(x, p, stride):
         w = p["w"].float().permute(2, 1, 0)  # (out, in, 3)
@@ -198,47 +198,57 @@ def encode_clips(cfg: Dict, tree: Dict, wavs: Sequence[np.ndarray], device,
         return F.conv1d(act_quant(x, act).transpose(1, 2), w, p["b"].float(), stride=stride,
                         padding=1).transpose(1, 2)
 
-    x = F.gelu(conv(x, enc["conv1"], 1))
+    x = F.gelu(conv(mel, enc["conv1"], 1))
     x = F.gelu(conv(x, enc["conv2"], 2))
     x = x + enc["positions"].float()[None]
     N, T, d = x.shape
-    H = n["enc_heads"]
-    frames = torch.tensor([audio_frames(m) for m in lens], device=device)
-    key_ok = torch.arange(T, device=device)[None, :] < frames[:, None]  # (N, T)
+    H = heads
+    key_ok = None
+    if lens is not None:
+        frames = torch.tensor([audio_frames(m) for m in lens], device=x.device)
+        key_ok = torch.arange(T, device=x.device)[None, :] < frames[:, None]  # (N, T)
     blocks = enc["blocks"]
-    for l in range(n["enc_layers"]):
+    for l in range(n_layers):
         def p(*path):
             node = blocks
             for k in path:
                 node = node[k]
             return node[l]
 
-        h = _layer_norm(x, p("ln1", "w"), p("ln1", "b"))
-        q = _lin(h, p("attn", "wq"), p("attn", "bq"), spec, act)
-        k = _lin(h, p("attn", "wk"), None, spec, act)
-        v = _lin(h, p("attn", "wv"), p("attn", "bv"), spec, act)
+        h = layer_norm(x, p("ln1", "w"), p("ln1", "b"))
+        q = lin(h, p("attn", "wq"), p("attn", "bq"), spec, act)
+        k = lin(h, p("attn", "wk"), None, spec, act)
+        v = lin(h, p("attn", "wv"), p("attn", "bv"), spec, act)
         q, k, v = (t.view(N, T, H, d // H).transpose(1, 2) for t in (q, k, v))
         s = (q @ k.transpose(-1, -2)) / math.sqrt(d // H)
-        s = s.masked_fill(~key_ok[:, None, None, :], float("-inf"))
+        if key_ok is not None:
+            s = s.masked_fill(~key_ok[:, None, None, :], float("-inf"))
         o = (torch.softmax(s, dim=-1) @ v).transpose(1, 2).reshape(N, T, d)
-        x = x + _lin(o, p("attn", "wo"), p("attn", "bo"), spec, act)
-        h = _layer_norm(x, p("ln2", "w"), p("ln2", "b"))
-        x = x + _lin(F.gelu(_lin(h, p("mlp", "w1"), p("mlp", "b1"), spec, act)),
-                     p("mlp", "w2"), p("mlp", "b2"), spec, act)
-    s = n["pool"]
-    x = x[:, :(T // s) * s].reshape(N, T // s, s, d).mean(dim=2)
-    x = _layer_norm(x, enc["ln_post"]["w"], enc["ln_post"]["b"])
-    x = _lin(x, tree["projector"]["w"], tree["projector"]["b"], spec, act)
-    return [x[i, :audio_positions(m)] for i, m in enumerate(lens)]
+        x = x + lin(o, p("attn", "wo"), p("attn", "bo"), spec, act)
+        h = layer_norm(x, p("ln2", "w"), p("ln2", "b"))
+        x = x + lin(F.gelu(lin(h, p("mlp", "w1"), p("mlp", "b1"), spec, act)),
+                    p("mlp", "w2"), p("mlp", "b2"), spec, act)
+    return x
 
 
 # --------------------------------------------------------------------------
-# Qwen2
+# Decoder
 # --------------------------------------------------------------------------
 
 
-def embed(tree: Dict, ids: Sequence[int], device) -> torch.Tensor:
-    table = tree["llm"]["tok_embed"]
+@dataclass(frozen=True)
+class DecoderSizes:
+    layers: int
+    heads: int
+    kv_heads: int
+    head_dim: int
+    rms_eps: float
+    rope_theta: float
+    lora_scaling: float = 0.0  # alpha / rank
+
+
+def embed(table: torch.Tensor, ids: Sequence[int], device) -> torch.Tensor:
+    """Rows of the embedding table; ids past its end read its last row."""
     idx = torch.as_tensor(list(ids), dtype=torch.long, device=device).clamp(max=table.shape[0] - 1)
     return table[idx].float()
 
@@ -257,30 +267,30 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def decoder_layer(cfg: Dict, tree: Dict, l: int, x: torch.Tensor, lora: Optional[Dict],
+def decoder_layer(n: DecoderSizes, lay: Dict, l: int, x: torch.Tensor, lora: Optional[Dict],
                   precision: Precision, cached_from: Optional[int]) -> torch.Tensor:
-    """One Qwen2 layer over a whole prompt (T, D). ``cached_from``: queries
-    at or past it are decode steps, which read every earlier position's k/v
-    from a cache in ``precision.kv_bits`` and their own exactly."""
-    n, t = dims(cfg), cfg["text_config"]
-    lay = tree["llm"]["layers"]
+    """Layer ``l`` of the stacked layer leaves ``lay`` over a whole prompt
+    (T, D); a q, k or v bias is used where ``lay["attn"]`` holds one.
+    ``cached_from``: queries at or past it are decode steps, which read
+    every earlier position's k/v from a cache in ``precision.kv_bits`` and
+    their own exactly."""
     spec = precision.decoder
-    H, Hkv, hd = n["H"], n["Hkv"], n["hd"]
+    H, Hkv, hd = n.heads, n.kv_heads, n.head_dim
     T = x.shape[0]
-    scaling = cfg["lora"]["alpha"] / cfg["lora"]["rank"] if lora is not None else 0.0
+    scaling = n.lora_scaling
 
     def proj(h, name, bias):
-        y = _lin(h, lay["attn"][name][l], lay["attn"][bias][l] if bias in lay["attn"] else None,
-                 spec, precision.act)
+        y = lin(h, lay["attn"][name][l], lay["attn"][bias][l] if bias in lay["attn"] else None,
+                spec, precision.act)
         if lora is not None and name in lora:
             y = y + (h @ lora[name]["a"][l].float()) @ lora[name]["b"][l].float() * scaling
         return y
 
-    h = _rms(x, lay["ln_attn"][l], t["rms_norm_eps"])
+    h = _rms(x, lay["ln_attn"][l], n.rms_eps)
     q = proj(h, "wq", "bq").view(T, H, hd).transpose(0, 1)
     k = proj(h, "wk", "bk").view(T, Hkv, hd).transpose(0, 1)
     v = proj(h, "wv", "bv").view(T, Hkv, hd).transpose(0, 1)
-    q, k = _rope(q, t["rope_theta"]), _rope(k, t["rope_theta"])
+    q, k = _rope(q, n.rope_theta), _rope(k, n.rope_theta)
     rep = H // Hkv
     k, v = k.repeat_interleave(rep, dim=0), v.repeat_interleave(rep, dim=0)
     pos = torch.arange(T, device=x.device)
@@ -296,28 +306,29 @@ def decoder_layer(cfg: Dict, tree: Dict, l: int, x: torch.Tensor, lora: Optional
         o = p @ v
     else:
         o = (p * cached) @ kv_quant(v, precision.kv_bits) + (p * ~cached) @ v
-    x = x + _lin(o.transpose(0, 1).reshape(T, H * hd), lay["attn"]["wo"][l], None, spec, precision.act)
-    h = _rms(x, lay["ln_mlp"][l], t["rms_norm_eps"])
-    gate = _lin(h, lay["mlp"]["w_gate"][l], None, spec, precision.act)
-    up = _lin(h, lay["mlp"]["w_up"][l], None, spec, precision.act)
-    return x + _lin(F.silu(gate) * up, lay["mlp"]["w_down"][l], None, spec, precision.act)
+    x = x + lin(o.transpose(0, 1).reshape(T, H * hd), lay["attn"]["wo"][l], None, spec, precision.act)
+    h = _rms(x, lay["ln_mlp"][l], n.rms_eps)
+    gate = lin(h, lay["mlp"]["w_gate"][l], None, spec, precision.act)
+    up = lin(h, lay["mlp"]["w_up"][l], None, spec, precision.act)
+    return x + lin(F.silu(gate) * up, lay["mlp"]["w_down"][l], None, spec, precision.act)
 
 
-def decoder(cfg: Dict, tree: Dict, x: torch.Tensor, lora: Optional[Dict] = None,
-            precision: Precision = Precision(), cached_from: Optional[int] = None,
-            checkpointed: bool = False) -> torch.Tensor:
+def decoder(n: DecoderSizes, lay: Dict, final_norm: torch.Tensor, x: torch.Tensor,
+            lora: Optional[Dict] = None, precision: Precision = Precision(),
+            cached_from: Optional[int] = None, checkpointed: bool = False) -> torch.Tensor:
     """(T, D) input embeddings → (T, D) final-normed hidden states.
     ``checkpointed``: each layer recomputed in the backward (training)."""
-    for l in range(dims(cfg)["L"]):
+    for l in range(n.layers):
         if checkpointed:
             from torch.utils.checkpoint import checkpoint
 
-            x = checkpoint(decoder_layer, cfg, tree, l, x, lora, precision, cached_from,
+            x = checkpoint(decoder_layer, n, lay, l, x, lora, precision, cached_from,
                            use_reentrant=False)
         else:
-            x = decoder_layer(cfg, tree, l, x, lora, precision, cached_from)
-    return _rms(x, tree["llm"]["final_norm"], cfg["text_config"]["rms_norm_eps"])
+            x = decoder_layer(n, lay, l, x, lora, precision, cached_from)
+    return _rms(x, final_norm, n.rms_eps)
 
 
-def logits(tree: Dict, hidden: torch.Tensor, precision: Precision = Precision()) -> torch.Tensor:
-    return _lin(hidden, tree["llm"]["lm_head"], None, precision.lm_head, precision.act)
+def logits(lm_head: torch.Tensor, hidden: torch.Tensor,
+           precision: Precision = Precision()) -> torch.Tensor:
+    return lin(hidden, lm_head, None, precision.lm_head, precision.act)

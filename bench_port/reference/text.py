@@ -1,17 +1,14 @@
-"""The reference's text side, written from the published formats and frozen
+"""The reference's tokenizer, written from the published format and frozen
 here: the in-repository tokenizer (a greedy longest-match over bytes and
-2-3 letter pieces, 36764 ids) and Qwen2-Audio's chat prompt for a
-classification task with k labelled exemplars.
-
-A prompt is a list of text segments with one audio clip between each two:
-exemplar clips in order, then the query's clip. Each segment is tokenized
-on its own, without special tokens.
+2-3 letter pieces, 36764 ids). Each family's prompt is a list of text
+segments with one audio clip between each two, each segment tokenized on
+its own, without special tokens.
 """
 
 from __future__ import annotations
 
 import string
-from typing import Dict, List, Sequence
+from typing import List
 
 _LOWER = string.ascii_lowercase
 
@@ -44,32 +41,3 @@ class Tokenizer:
                 out.extend(4 + b for b in text[i].encode("utf-8"))
                 i += 1
         return out
-
-
-def qwen_segments(template: str, examples: Sequence[Dict], fewshot_mode: str) -> List[str]:
-    """Qwen2-Audio's chat prompt for a classification query whose audio is
-    the last clip: the system turn, the exemplars (each an audio clip or a
-    transcript, then its label), the query's clip, the assistant turn.
-    → the text segments around the clips."""
-    segments: List[str] = []
-    text = f"<|im_start|>system\n{template}<|im_end|>\n<|im_start|>user\n"
-    n_audio = 0
-
-    def clip():
-        nonlocal text, n_audio
-        n_audio += 1
-        segments.append(text + f"Audio {n_audio}: <|audio_bos|>")
-        text = "<|audio_eos|>\n"
-
-    if examples:
-        text += "Here are few examples to learn from:\n"
-        for ex in examples:
-            if fewshot_mode == "speech":
-                clip()
-                text += f"Label: {ex['label']}\n"
-            else:
-                text += f"Text: {ex['text']}\nLabel: {ex['label']}\n"
-    text += "\nNow analyze this input:\n"
-    clip()
-    segments.append(text + "<|im_end|>\n<|im_start|>assistant\n")
-    return segments

@@ -104,7 +104,7 @@ def main(argv=None, device=None, root=ROOT) -> int:
     if args.trace and rec.get("trace"):
         t = rec["trace"]
         _keep(root, args, {"trace": t, "work": rec["work"], "launches": rec["launches"],
-                           "power_limit": power})
+                           "opmap": rec["opmap"], "power_limit": power})
         dev["busy_s"], dev["window_s"] = t["busy_s"], t["window_s"]
         line["breakdown"] = {"device_ops": t["device_ops"], "idle_gaps": t["idle_gaps"]}
     line["checks"] = out["checks"]

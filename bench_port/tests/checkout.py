@@ -1,7 +1,8 @@
 """A checkout of the benchmark for CPU tests: the repository's ``bench_port``
 copied under a temporary root, with tiny cells added from files alone
-(a configuration, a traffic mix, limits) and a ``BENCHMARK.json`` that
-names them, with every metric of the real one."""
+(a configuration, a traffic mix, limits, and any model family's two
+modules) and a ``BENCHMARK.json`` that names them, with every metric of
+the real one."""
 
 from __future__ import annotations
 
@@ -19,11 +20,17 @@ for path in (BENCH, REPO):
         sys.path.insert(0, path)
 
 
-def make(root: str, cells):
-    """``cells``: (cell name, config fixture, traffic fixture, limits dict).
-    → the checkout's root."""
+def make(root: str, cells, families=()):
+    """``cells``: (cell name, config fixture, traffic fixture, limits dict);
+    ``families``: (family name, harness module fixture, reference module
+    fixture). → the checkout's root."""
     bench = os.path.join(root, "bench_port")
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    for name, harness, reference in families:
+        shutil.copy(os.path.join(FIXTURES, harness),
+                    os.path.join(bench, "benchlib", "families", name + ".py"))
+        shutil.copy(os.path.join(FIXTURES, reference),
+                    os.path.join(bench, "reference", "families", name + ".py"))
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         real = json.load(f)
     configs, workloads, loops = {}, [], {}

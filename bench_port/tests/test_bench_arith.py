@@ -13,6 +13,7 @@ from benchlib import work as W
 from benchlib import spec
 
 HBM, BF16 = 3.35e12, 989e12
+QWEN, _ = spec.families("qwen2_audio")
 
 
 def test_k1_causal_prefill_counts():
@@ -33,7 +34,7 @@ def test_k2_tower_counts_valid_keys():
                            "num_key_value_heads": 4, "intermediate_size": 18944,
                            "vocab_size": 156032},
            "audio_pool_stride": 2}
-    W.tower(cfg, work, [100] * 24)
+    QWEN.tower(cfg, work, [100] * 24)
     op = work.ops["tower_attention"]
     assert op[0] == 1_228_800_000  # 4 * 64 * 20 * 24 * 10000
     assert op[1] == 24_576_000  # 24 clips * 4 * 100 rows * 20 * 64 * 2 B
@@ -71,7 +72,7 @@ def test_model_flops_of_a_prefill():
                            "num_key_value_heads": 1, "intermediate_size": 16, "vocab_size": 10},
            "audio_pool_stride": 2}
     work = R.Work()
-    W.decoder_prefill(cfg, work, [3])
+    W.decoder_prefill(cfg, QWEN.dims(cfg), work, [3])
     # a layer: wq 64, wk 32, wv 32, wo 64, gate/up/down 3 * 128; attention 4*4*2*6
     per_layer = 2 * 3 * (64 + 32 + 32 + 64 + 384) + 4 * 4 * 2 * 6
     assert work.model_flops == 2 * per_layer + 2 * 8 * 10
@@ -82,7 +83,7 @@ def test_metric_readers():
     readers = {m.name: m.reader for m in cell.end_to_end + cell.per_layer}
     rec = {"loop": "eval", "setup_s": 20.0, "window_s": 30.0, "utterances": 240, "batches": 15,
            "peak_bytes": 3 * 2 ** 30, "step_ms": [[100.0, 50.0, 70.0], [120.0, 60.0]],
-           "syncs": 45, "model_flops": 989e12 * 3, "work": {}, "launches": {},
+           "syncs": 45, "model_flops": 989e12 * 3, "work": {}, "launches": {}, "opmap": cell.opmap,
            "trace": {"busy_s": 24.0, "window_s": 30.0, "kernel_s": {}}}
     assert readers["eval_utt_per_s"].read(rec) == 8.0
     assert readers["peak_mem_gib"].read(rec) == 3.0

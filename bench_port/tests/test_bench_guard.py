@@ -2,6 +2,7 @@
 top-level part, and a run with a planted ``import jax`` that must stop."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -33,11 +34,13 @@ def test_a_planted_jax_stops_the_run(tmp_path):
 
 def test_the_reference_imports_nothing_of_the_port():
     ref = os.path.join(checkout.BENCH, "reference")
-    for name in os.listdir(ref):
-        if name.endswith(".py"):
-            with open(os.path.join(ref, name)) as f:
-                text = f.read()
-            assert "icl_speech_text_llm_tpu" not in text and "import jax" not in text, name
+    names = [os.path.join(d, n) for d, _, files in os.walk(ref) for n in files if n.endswith(".py")]
+    assert os.path.join(ref, "families", "qwen2_audio.py") in names
+    for name in names:
+        with open(name) as f:
+            text = f.read()
+        assert "icl_speech_text_llm_tpu" not in text and "import jax" not in text, name
+        assert not re.search(r"^\s*(from|import) benchlib", text, re.M), name
 
 
 def test_a_run_without_the_port_fails(tmp_path):

@@ -21,11 +21,13 @@ CELLS = {
     "tiny-int8kv8.speech": ("qwen2a-tiny-int8kv8.json", "tiny-eval-speech.json", EVAL_LIMITS),
     "tiny.train": ("qwen2a-tiny.json", "tiny-train.json", TRAIN_LIMITS),
 }
+#: a family added from files alone: Qwen2-Audio's modules under another name
+THROWAWAY = ("throwaway", "throwaway_family.py", "throwaway_family_reference.py")
 
 
-def run_cell(tmp_path, cell, fault="none", seed=3000000017, trace=0):
-    cfg, traffic, limits = CELLS[cell]
-    root = checkout.make(str(tmp_path), [(cell, cfg, traffic, limits)])
+def run_cell(tmp_path, cell, fault="none", seed=3000000017, trace=0, files=None, families=()):
+    cfg, traffic, limits = files or CELLS[cell]
+    root = checkout.make(str(tmp_path), [(cell, cfg, traffic, limits)], families)
     proc = subprocess.run(
         [sys.executable, os.path.join(HERE, "cpu_run.py"), root, fault, "--workload", cell,
          "--seed", str(seed), "--seconds", "1", "--trace", str(trace)],
@@ -43,6 +45,15 @@ def test_port_matches_reference(tmp_path, cell):
     assert list(line)[-1] == "checks"
     last = proc.stderr.strip().splitlines()[-len(line["checks"]):]
     assert all(l.startswith("check ") for l in last), last
+
+
+def test_a_family_added_from_files_alone_runs(tmp_path):
+    proc, line = run_cell(tmp_path, "throwaway.speech",
+                          files=("throwaway-tiny.json", "tiny-eval-speech.json", EVAL_LIMITS),
+                          families=[THROWAWAY])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert line["correct"] is True, line
+    assert line["checks"]["max_logit_gap"]["value"] <= EVAL_LIMITS["max_logit_gap"]
 
 
 @pytest.mark.parametrize("cell,fault", [("tiny.speech", "token"), ("tiny-int8kv8.speech", "token"),

@@ -1,12 +1,12 @@
 """``BENCHMARK.json`` against its contract, and the harness finding each
-cell's files by name; a throwaway cell added from files alone runs."""
+cell's files by name, its model family's among them; a throwaway cell
+added from files alone runs."""
 
 import json
 import os
 import re
 
 import pytest
-import torch
 
 import checkout
 from benchlib import spec
@@ -58,34 +58,22 @@ def test_cell_finds_its_files(cell):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_config_is_what_the_port_runs(cell):
-    from benchlib import portcfg
-
-    cfg = spec.load(cell).config
-    pc = portcfg.port_config(cfg)
-    a, t = cfg["audio_config"], cfg["text_config"]
-    assert (pc.encoder.n_layers, pc.encoder.dim, pc.encoder.n_heads, pc.encoder.n_mels) == (
-        a["encoder_layers"], a["d_model"], a["encoder_attention_heads"], a["num_mel_bins"])
-    assert (pc.llm.n_layers, pc.llm.dim, pc.llm.n_heads, pc.llm.n_kv_heads, pc.llm.hidden_dim,
-            pc.llm.vocab_size, pc.llm.rope_theta, pc.llm.rms_eps, pc.llm.qkv_bias) == (
-        t["num_hidden_layers"], t["hidden_size"], t["num_attention_heads"],
-        t["num_key_value_heads"], t["intermediate_size"], t["vocab_size"], t["rope_theta"],
-        t["rms_norm_eps"], t["qkv_bias"])
-    assert pc.pool_stride == cfg["audio_pool_stride"] and pc.compute_dtype == torch.bfloat16
+    c = spec.load(cell)
+    assert c.family.mismatches(c.config, c.family.port_config(c.config)) == []
+    assert c.config["torch_dtype"] == "bfloat16"
 
 
-def test_prompts_fit_their_budget():
+@pytest.mark.parametrize("cell", CELLS)
+def test_prompts_fit_their_budget(cell):
     from benchlib import traffic
-    from reference.check import prompt_length
     from reference.text import Tokenizer
 
-    tok = Tokenizer()
-    for name in sorted(os.listdir(os.path.join(checkout.BENCH, "traffic"))):
-        with open(os.path.join(checkout.BENCH, "traffic", name)) as f:
-            t = json.load(f)
-        for seed in (1, 2 ** 31 + 11):
-            gen = traffic.generate(t, seed)
-            worst = max(prompt_length(t["task"], r, tok) for b in gen.batches for r in b)
-            assert worst[0] <= t["seq_len"] - 4 and worst[1] <= t["text_len"] - 4, (name, worst)
+    c, tok = spec.load(cell), Tokenizer()
+    t = c.traffic
+    for seed in (1, 2 ** 31 + 11):
+        gen = traffic.generate(t, seed)
+        worst = max(c.reference.prompt_length(t["task"], r, tok) for b in gen.batches for r in b)
+        assert worst[0] <= t["seq_len"] - 4 and worst[1] <= t["text_len"] - 4, (cell, worst)
 
 
 def test_every_seed_asks_for_the_same_work():
@@ -108,3 +96,38 @@ def test_a_throwaway_cell_from_files_alone(tmp_path):
     c = spec.load("throwaway.cell", root, os.path.join(root, "bench_port"))
     assert c.traffic["loop"] == "eval" and c.config["name"] == "qwen2a-tiny"
     assert {m.name for m in c.per_layer} >= {"mfu.eval", "device_idle_pct.eval"}
+
+
+def test_a_family_is_found_by_the_name_its_configuration_gives(tmp_path):
+    root = checkout.make(str(tmp_path), [("throwaway.family", "throwaway-tiny.json",
+                                          "tiny-eval-text.json", {"max_logit_gap": 1e-3})],
+                         families=[("throwaway", "throwaway_family.py",
+                                    "throwaway_family_reference.py")])
+    c = spec.load("throwaway.family", root, os.path.join(root, "bench_port"))
+    bench = os.path.join(root, "bench_port")
+    assert c.family.__file__ == os.path.join(bench, "benchlib", "families", "throwaway.py")
+    assert c.reference.__file__ == os.path.join(bench, "reference", "families", "throwaway.py")
+    assert callable(c.family.eval_model) and callable(c.reference.Plain)
+    assert c.opmap == spec.load(CELLS[0]).opmap
+
+
+@pytest.mark.parametrize("side", ["benchlib", "reference"])
+def test_a_missing_family_module_is_named(tmp_path, side):
+    root = checkout.make(str(tmp_path), [("throwaway.family", "throwaway-tiny.json",
+                                          "tiny-eval-text.json", {"max_logit_gap": 1e-3})],
+                         families=[("throwaway", "throwaway_family.py",
+                                    "throwaway_family_reference.py")])
+    missing = os.path.join(root, "bench_port", side, "families", "throwaway.py")
+    os.remove(missing)
+    with pytest.raises(FileNotFoundError, match=re.escape(missing)):
+        spec.load("throwaway.family", root, os.path.join(root, "bench_port"))
+
+
+def test_a_family_adds_operations_and_redefines_none(tmp_path):
+    from benchlib import roofline
+
+    ops = roofline.load_opmap(extra={"gated_attention": ["flash_gated_kernel"]})
+    assert ops["gated_attention"] == ["flash_gated_kernel"]
+    assert ops["qmatmul"] == roofline.load_opmap()["qmatmul"]
+    with pytest.raises(ValueError, match="qmatmul"):
+        roofline.load_opmap(extra={"qmatmul": ["any_kernel"]})
