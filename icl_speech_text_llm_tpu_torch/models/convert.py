@@ -205,10 +205,18 @@ def convert_salmonn_checkpoint(
 
     q_key = _find(sd, r"speech_query_tokens$")
     if q_key is not None:
-        qf: Dict[str, Any] = {"query_tokens": sd[q_key].reshape(-1, qformer_cfg.dim)}
+        query = sd[q_key].reshape(-1, qformer_cfg.dim)
+        emb_w = _find(sd, r"speech_Qformer\.bert\.embeddings\.LayerNorm\.weight$")
+        if emb_w is not None:
+            # BertEmbeddings normalises the query embeddings; the queries are
+            # constants, so that norm folds into them exactly
+            emb_b = _find(sd, r"speech_Qformer\.bert\.embeddings\.LayerNorm\.bias$")
+            query = fold_layer_norm(query, sd[emb_w], sd[emb_b], qformer_cfg.ln_eps)
+        qf: Dict[str, Any] = {"query_tokens": query}
         ln_w = _find(sd, r"ln_speech\.weight$")
         if ln_w is not None:
-            # the reference concatenates ln_speech/ln_audio over the feature dim
+            # ln_speech's and ln_audio's weights side by side; the Q-Former's
+            # norm_widths normalises each encoder's columns with its own
             ln_b = _find(sd, r"ln_speech\.bias$")
             la_w = _find(sd, r"ln_audio\.weight$")
             la_b = _find(sd, r"ln_audio\.bias$")
@@ -232,6 +240,15 @@ def convert_salmonn_checkpoint(
             qf["proj"] = {"w": _t(sd[pw]), "b": sd[_find(sd, r"speech_llama_proj\.bias$")]}
         out["qformer"] = qf
     return out
+
+
+def fold_layer_norm(x: np.ndarray, w: np.ndarray, b: np.ndarray, eps: float) -> np.ndarray:
+    """LayerNorm of constant rows (…, d), computed once in float64 and
+    stored in ``x``'s dtype."""
+    x64 = x.astype(np.float64)
+    mean = x64.mean(axis=-1, keepdims=True)
+    var = x64.var(axis=-1, keepdims=True)
+    return ((x64 - mean) / np.sqrt(var + eps) * w + b).astype(x.dtype)
 
 
 def _convert_bert_layer(sd, p):

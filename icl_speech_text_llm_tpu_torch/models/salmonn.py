@@ -6,6 +6,10 @@ exemplars — through the encoders in one call, or in sequential chunks of
 ``encode_chunk`` clips), ``assemble_sequence`` (one gather over [pad | text |
 speech] embeddings) and ``salmonn_train_loss``.
 Generation is in ``inference/engine.py``.
+
+Each stage of every chunk runs inside a profiler range (``utils/perf.py:
+span``): ``port/encode.whisper``, ``port/encode.beats`` and
+``port/encode.qformer``, nested in the engine's ``port/encode``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 
 from ..data.packing import IGNORE_INDEX
 from ..ops.mel import log_mel_spectrogram, pad_or_trim, wavs_to_float
+from ..utils.perf import span
 from .beats import BEATS_CONFIGS, BeatsConfig, beats_bias_table, beats_encode, beats_num_tokens, init_beats
 from .llama import (
     DECODER_CONFIGS,
@@ -136,9 +141,11 @@ def _beats_bias(cfg: SalmonnConfig, params: Dict[str, Any],
 def _features(cfg: SalmonnConfig, params: Dict[str, Any], mels: torch.Tensor,
               wavs: Optional[torch.Tensor], bias: Optional[torch.Tensor]) -> torch.Tensor:
     dt = cfg.compute_dtype
-    feats = whisper_encode(cfg.whisper, params["whisper"], mels, dtype=dt)
+    with span("encode.whisper"):
+        feats = whisper_encode(cfg.whisper, params["whisper"], mels, dtype=dt)
     if cfg.beats is not None and wavs is not None:
-        audio = beats_encode(cfg.beats, params["beats"], wavs, dtype=dt, bias_table=bias)
+        with span("encode.beats"):
+            audio = beats_encode(cfg.beats, params["beats"], wavs, dtype=dt, bias_table=bias)
         audio = F.pad(audio, (0, 0, 0, feats.shape[1] - audio.shape[1]))
         feats = torch.cat([feats, audio], dim=-1)
     return feats
@@ -171,9 +178,13 @@ def encode_speech(cfg: SalmonnConfig, params: Dict[str, Any], mels: torch.Tensor
     encoders and the Q-Former, chunked by ``cfg.encode_chunk`` (each chunk
     through both, as the JAX package's ``lax.map`` runs them)."""
     bias = _beats_bias(cfg, params, wavs)
-    return _chunked(cfg, lambda m, w: qformer_windows(cfg.qformer, params["qformer"],
-                                                      _features(cfg, params, m, w, bias)),
-                    mels, wavs)
+
+    def encode(m, w):
+        feats = _features(cfg, params, m, w, bias)
+        with span("encode.qformer"):
+            return qformer_windows(cfg.qformer, params["qformer"], feats)
+
+    return _chunked(cfg, encode, mels, wavs)
 
 
 def assemble_sequence(cfg: SalmonnConfig, params: Dict[str, Any], text_tokens: torch.Tensor,
